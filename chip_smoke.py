@@ -5,8 +5,10 @@ on one CUDA GPU.
     python3 chip_smoke.py
 
 Phases, one line each (any failure raises and the script exits non-zero):
-  1. the card's name and power limit; build csrc/render_culled.cu with nvcc
-     into build/kernels/ (timed);
+  1. the card's name and power limit; build every kernel of the port
+     (csrc/render_culled.cu, trace_slots.cu, scatter_grads.cu) with nvcc into
+     build/kernels/, one nvcc per source, all started together (timed, with
+     the ptxas register lines);
   2. the kernel vs its plain PyTorch version on the same CUDA tensors:
      room_scene(16384) at 128x128, Config defaults (K=32, cluster 256,
      192 candidates), primary rays and reflected rays with their alive mask;
@@ -18,6 +20,20 @@ Phases, one line each (any failure raises and the script exits non-zero):
      launch count, ms/frame, Mrays/s and the starved fraction.  First the
      kernel and its plain version are compared (tolerances of phase 2) and
      timed at the shapes of this frame's primary and first reflected pass.
+  5. the training kernels vs their plain PyTorch versions at the full-width
+     step's own shapes: room_scene(175_000) (capacity 176,128), 768x768,
+     the Config defaults (K=32, cluster 256, 192 candidates, 8192-ray tiles,
+     2 bounces), the step's tiles in the batch the main path launches -
+     trace_slots on its primary and first reflected pass, scatter_grads on
+     the hits of all 3 bounces; all timed with CUDA events;
+  6. one small training step (64x64, room_scene(4096)) on cuda and on cpu
+     with the same samples: new params, moments and metrics equal;
+  7. the full-width training step: 1 warm-up and 3 timed train_steps from
+     room_scene(175_000) (seed 1) towards the G-buffers of room_scene(175_000)
+     (seed 0) rendered at 768x768 by render_frame_fused; ms/step, M rays/s,
+     l1_diffuse per step, starved fraction, the kernels' launch counts
+     against the expected ones, and a profiled step (each kernel's device
+     time and share, device idle share).
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -27,6 +43,7 @@ chiprun_out/chip_smoke.json.  Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,23 +52,42 @@ from pathlib import Path
 
 import torch
 
+from editable_gaussian_reflections_tpu_torch import training as tr
+from editable_gaussian_reflections_tpu_torch.config import Config
 from editable_gaussian_reflections_tpu_torch.ops.cuda import build
 from editable_gaussian_reflections_tpu_torch.ops.cuda.layout import (
     OUT_NUMACC,
     OUT_TRAV,
+    SLOT_BLOCKS,
+    SLOT_ID,
+    SLOT_T,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.render_kernel import (
     render_culled,
     render_culled_reference,
 )
+from editable_gaussian_reflections_tpu_torch.ops.cuda.scatter import (
+    scatter_add,
+    scatter_add_reference,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
+    trace_slots,
+    trace_slots_reference,
+)
+from editable_gaussian_reflections_tpu_torch.ops.render_grads import (
+    new_grad_accumulator,
+)
 from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
     CameraParams,
+    RayTargets,
     RenderSettings,
     StepOutputs,
     _prepare_fused_frame,
     bounce_epilogue,
     draw_samples,
     full_f32_matmuls,
+    fused_forward,
+    hit_grads,
     kernel_call,
     padded_ray_count,
     render_accumulated_chunked,
@@ -76,10 +112,20 @@ PASS_KW = dict(max_hits=32, exp_power_static=3.0, cull_cluster=256,
                cull_tile_secondary=256, cull_tile_primary=256)
 SETTINGS = RenderSettings()
 ZNEAR, ZFAR = 0.05, 50.0
+KERNEL_SOURCES = ("render_culled", "trace_slots", "scatter_grads")
+# the roofline of one H100 SXM (NVIDIA's data sheet): FP32 and FP64 outside
+# the tensor cores, HBM3
+PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
+FLOPS_PER_PAIR = 60    # ray x Gaussian pair math, counted from the source
+# the training step's configuration: the Config defaults train.py uses
+TRAIN_W = TRAIN_H = 768
+TRAIN_N = 175_000      # init_num_pts + init_num_pts_farfield
+N_TIMED_STEPS = 3
 
 
-def room(n: int, device) -> tuple:
-    scene = from_arrays(**room_scene(n), pad_multiple=2048, device=device)
+def room(n: int, device, seed: int = 0) -> tuple:
+    scene = from_arrays(**room_scene(n, seed=seed), pad_multiple=2048,
+                        device=device)
     eye, c2w = room_camera()
     camera = CameraParams(origin=torch.tensor(eye, device=device),
                           c2w=torch.tensor(c2w, device=device), fov_y=0.9,
@@ -158,6 +204,67 @@ def device_time_us(event) -> float:
     return event.self_cuda_time_total
 
 
+def bound(flops: float, peak_flops: float, nbytes: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the operation time at the peak
+    rate and the byte time at the memory rate."""
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def compare_slots(slots, acc, ref_slots, ref_acc, K) -> dict:
+    """Slots against the plain version's: ids and counters per ray (>=
+    99.9% equal, phase 2's rule), and on the rays where they are equal each
+    float block (t, alpha, each attribute and frame field) to rtol 1e-4 /
+    atol 1e-4*scale with the scale of that block alone, as the CPU test
+    takes it, and log-T likewise; empty slots are INF on both sides."""
+    s = slots.reshape(-1, SLOT_BLOCKS, K)
+    r = ref_slots.reshape(-1, SLOT_BLOCKS, K)
+    same = ((s[:, SLOT_ID] == r[:, SLOT_ID]).all(dim=1)
+            & (acc[:, 1:3] == ref_acc[:, 1:3]).all(dim=1))
+    if not bool(same.any()):
+        return dict(max_abs_err=math.inf, float_ok=False, counters_equal=0.0,
+                    finite=bool(torch.isfinite(acc).all()))
+    a, b, acc, ref_acc = s[same], r[same], acc[same], ref_acc[same]
+    valid = b[:, SLOT_T] < 1e37
+    a[:, SLOT_T] = torch.where(valid, a[:, SLOT_T], 0.0)
+    b[:, SLOT_T] = torch.where(valid, b[:, SLOT_T], 0.0)
+    scale = b.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1.0)
+    err = (a - b).abs()
+    ok = bool((err <= 1e-4 * b.abs() + 1e-4 * scale).all()
+              and (acc[:, 0] - ref_acc[:, 0]).abs().max().item()
+              <= 1e-4 * max(1.0, ref_acc[:, 0].abs().max().item()))
+    return dict(max_abs_err=max(err.max().item(),
+                                (acc - ref_acc).abs().max().item()),
+                float_ok=ok, counters_equal=same.float().mean().item(),
+                finite=bool(torch.isfinite(acc).all()))
+
+
+def states_equal(a, b) -> list:
+    """Fields where two TrainStates differ."""
+    diff = []
+    for tree in ("scene", "mu", "nu"):
+        for f in tr.PARAM_FIELDS:
+            if not torch.equal(getattr(getattr(a, tree), f).cpu(),
+                               getattr(getattr(b, tree), f).cpu()):
+                diff.append(f"{tree}.{f}")
+    if not torch.equal(a.total_weight.cpu(), b.total_weight.cpu()):
+        diff.append("total_weight")
+    return diff
+
+
+def state_finite(state) -> bool:
+    return all(bool(torch.isfinite(getattr(t, f)).all())
+               for t in (state.scene, state.mu, state.nu)
+               for f in tr.PARAM_FIELDS) and bool(
+        torch.isfinite(state.total_weight).all())
+
+
 def main() -> None:
     # the smoke drives one card: only the first visible one is made visible,
     # before CUDA initialises, so the device count it reports is the one used
@@ -176,15 +283,23 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
     t0 = time.perf_counter()
-    lib_path = build.build("render_culled")
-    build.load("render_culled")
+    libs = build.build_all(KERNEL_SOURCES)
+    for name in KERNEL_SOURCES:
+        build.load(name)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in
+                    lib.with_suffix(".log").read_text().splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, lib in zip(KERNEL_SOURCES, libs)}
     record.update(card=smi, build_s=build_s, ptxas=ptxas)
-    print(f"phase 1: card [{smi}]; built {lib_path.name} in {build_s:.1f} s; "
-          f"ptxas: {' | '.join(ptxas)}", flush=True)
+    print(f"phase 1: card [{smi}]; built {len(libs)} kernels in parallel in "
+          f"{build_s:.1f} s", flush=True)
+    for name, lines in ptxas.items():
+        regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in lines
+                       if "Used " in ln})
+        spills = sorted({ln for ln in lines if "spill" in ln})
+        print(f"phase 1: {name}.cu ptxas: {'; '.join(regs)}; "
+              f"{' | '.join(spills)}", flush=True)
 
     # -- phase 2: kernel vs plain on the card --------------------------------
     scene, camera = room(16384, dev)
@@ -345,20 +460,271 @@ def main() -> None:
           f"starved {starved:.4%}; {kernel_share}; 4 spp finite; "
           f"render_culled launches {launches} [{smi}]", flush=True)
 
+    # the roofline of render_culled's primary pass: its pair math, and its
+    # inputs read once and its output written once
+    rc_bound_ms, rc_bound_by = bound(
+        pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        nbytes(*call0.args[:5], call0.kwargs["alive"]) + nbytes(
+            torch.empty((call0.args[0].shape[0], 16))))
+    record.update(render_culled_bound_ms=rc_bound_ms)
+    del scene, steps, final, acc_steps, acc_final, call0, call1, prof
+    torch.cuda.empty_cache()
+
+    # -- phase 5: the training kernels vs plain, at the step's shapes -------
+    cfg = Config()
+    settings = tr.settings_from_config(cfg)
+    num_bounces, K = 2, cfg.max_hits
+    tile = tr.pick_tile_size(TRAIN_W * TRAIN_H, cfg.ray_tile)
+    step_kw = dict(num_bounces=num_bounces, max_hits=K,
+                   chunk=cfg.trace_chunk, tile=tile, use_pallas=True,
+                   exp_power_static=float(cfg.exp_power), use_culling=True,
+                   cull_tile=cfg.cull_tile, cull_cluster=cfg.cull_cluster,
+                   max_clusters=cfg.max_clusters)
+    # targets: the G-buffers of the seed-0 room, rendered by the port
+    scene_t, camera = room(TRAIN_N, dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gb, _ = render_frame_fused(scene_t, camera, settings, gen, TRAIN_W,
+                               TRAIN_H, num_bounces=2, **FRAME_KW)
+    targets = RayTargets(diffuse=gb.rgb[0], specular=gb.rgb[1] + gb.rgb[2],
+                         depth=gb.depth[0], normal=gb.normal[0],
+                         roughness=gb.roughness[0], f0=gb.f0[0])
+    del scene_t, gb
+    scene0, _ = room(TRAIN_N, dev, seed=1)
+    state = tr.init_train_state(scene0)
+    cap = scene0.capacity
+    lrs = tr.lr_tree(cfg, 1, 1.0)
+    hyper = dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
+                 scale_decay=cfg.scale_decay, apply_grads=1.0)
+    prep = tr.prepare_step(
+        state, camera, targets, settings, gen, TRAIN_W, TRAIN_H,
+        num_bounces, tile, True, True, True, cfg.cull_tile, cfg.cull_cluster,
+        cfg.max_clusters)
+    n_tiles = prep["dirs_t"].shape[0]
+    tiles_per_launch = tr.tiles_per_launch_for(n_tiles, tile,
+                                               num_bounces + 1, K, dev)
+    # the first batch of tiles the main path launches
+    rays_o, rays_d, targets_b, us = tr.tile_batch(
+        camera.origin, prep["dirs_t"], prep["targets_t"], prep["us_t"], 0,
+        tiles_per_launch)
+    cull = prep["culling"]
+    steps5, _final, residuals, calls = fused_forward(
+        rays_o, rays_d, settings, camera.znear, camera.zfar, us, num_bounces,
+        K, gpack=prep["gpack"], table=cull["table"], ftable=cull["ftable"],
+        bounds=cull["bounds"], cull_tile=cfg.cull_tile,
+        cull_cluster=cfg.cull_cluster, max_clusters=cfg.max_clusters,
+        n_capacity=cap, exp_power_static=float(cfg.exp_power),
+        tile_rays=tile)
+    phase5 = {}
+    for name, call in (("primary", calls[0]), ("reflected", calls[1])):
+        k_ms = cuda_ms(lambda: trace_slots(*call.args, **call.kwargs),
+                       reps=3)
+        out, acc = trace_slots(*call.args, **call.kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, ref_acc = trace_slots_reference(*call.args, **call.kwargs)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        cmp = compare_slots(out, acc, ref, ref_acc, K)
+        check_lanes(f"phase 5 trace_slots {name}", cmp)
+        n_pairs = acc[:, 1].sum().item()
+        b_ms, b_by = bound(n_pairs * FLOPS_PER_PAIR, PEAK_FP32,
+                           nbytes(*call.args[:7], call.kwargs["alive"],
+                                  out, acc))
+        phase5[name] = dict(cmp, ms=k_ms, plain_ms=plain, pairs=n_pairs,
+                            bound_ms=b_ms, bound_by=b_by,
+                            rays=call.args[0].shape[0])
+        del out, acc, ref, ref_acc
+    del calls
+    payload, ids = hit_grads(steps5, residuals, targets_b, settings,
+                             num_bounces, cap)
+    del steps5, residuals
+    acc_k = scatter_add(new_grad_accumulator(cap, dev), payload, ids)
+    acc_r = scatter_add_reference(new_grad_accumulator(cap, dev), payload,
+                                  ids)
+    a32, r32 = acc_k.to(torch.float32), acc_r.to(torch.float32)
+    sc_scale = max(1e-30, r32.abs().max().item())
+    sc_err = (a32 - r32).abs().max().item()
+    if not (sc_err <= 1e-6 * sc_scale and torch.equal(a32 == 0, r32 == 0)
+            and bool(torch.isfinite(a32).all())):
+        raise RuntimeError(f"phase 5: scatter_grads disagrees with its plain "
+                           f"version: max abs err {sc_err}, scale {sc_scale}")
+    sc_ms = cuda_ms(lambda: scatter_add(acc_k, payload, ids), reps=3)
+    sc_plain_ms = cuda_ms(lambda: scatter_add_reference(acc_r, payload, ids),
+                          reps=1, warmup=0)
+    keep = ids >= 0
+    idx, vals = ids[keep].to(torch.int64), payload[keep].to(torch.float64)
+    sc_lib_ms = cuda_ms(lambda: acc_r.index_add_(0, idx, vals), reps=3)
+    nnz = int(((payload != 0) & keep[:, None]).sum().item())
+    # the bytes the function needs: every id, the payload of the rows with
+    # a valid id only (the kernel skips the others unread), the float64
+    # accumulator read and written
+    n_hits = int(keep.sum().item())
+    sc_bound_ms, sc_bound_by = bound(
+        nnz, PEAK_FP64, n_hits * payload.shape[1] * payload.element_size()
+        + nbytes(ids) + 2 * nbytes(acc_k))
+    phase5["scatter"] = dict(ms=sc_ms, plain_ms=sc_plain_ms,
+                             library_ms=sc_lib_ms, max_abs_err=sc_err,
+                             scale=sc_scale, hits=n_hits,
+                             rows=ids.shape[0], nonzero_values=nnz,
+                             bound_ms=sc_bound_ms, bound_by=sc_bound_by)
+    del payload, ids, acc_k, acc_r, a32, r32, idx, vals, keep
+    record.update(phase5=phase5, tiles_per_launch=tiles_per_launch)
+    print(f"phase 5: trace_slots at the step's batch ({tiles_per_launch} of "
+          f"{n_tiles} {tile}-ray tiles, capacity {cap}, K={K}, mc "
+          f"{cfg.max_clusters}): " + "; ".join(
+              f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.1f} ms, bound "
+              f"{v['bound_ms']:.3f} ms by {v['bound_by']}, max_abs_err "
+              f"{v['max_abs_err']:.3g}, ids+counters equal on "
+              f"{v['counters_equal']:.4%} of rays)"
+              for k, v in phase5.items() if k != "scatter")
+          + f" [{smi}]", flush=True)
+    print(f"phase 5: scatter_grads on all 3 bounces' hits "
+          f"({phase5['scatter']['rows']} slots, "
+          f"{phase5['scatter']['hits']} hits): {sc_ms:.3f} ms (plain "
+          f"{sc_plain_ms:.3f} ms, index_add_ {sc_lib_ms:.3f} ms, bound "
+          f"{sc_bound_ms:.3f} ms by {sc_bound_by}), max abs err {sc_err:.3g} "
+          f"of scale {sc_scale:.3g}, zeros equal [{smi}]", flush=True)
+
+    # -- phase 6: one small step on cuda and on cpu, same samples -----------
+    small = {}
+    samples = tr.draw_train_samples(torch.Generator().manual_seed(4), 64, 64,
+                                    1024, num_bounces + 1)
+    small_kw = dict(step_kw, tile=1024)
+    for d in (dev, torch.device("cpu")):
+        sc6, cam6 = room(4096, d)
+        R6 = 64 * 64
+        rng6 = torch.Generator().manual_seed(5)
+        tg6 = RayTargets(*(torch.rand(shape, generator=rng6).to(d) for shape in
+                           ((R6, 3), (R6, 3), (R6,), (R6, 3), (R6,),
+                            (R6, 3))))
+        small[d.type] = tr.train_step(
+            tr.init_train_state(sc6), cam6, tg6, settings, lrs, hyper, None,
+            64, 64, samples=tr.TrainSamples(samples.jitter.to(d),
+                                            samples.us.to(d)), **small_kw)
+    diff = states_equal(small["cuda"][0], small["cpu"][0])
+    m6 = {k: {dt: v[1][k].item() for dt, v in small.items()}
+          for k in small["cuda"][1]}
+    if diff or any(v["cuda"] != v["cpu"] for v in m6.values()):
+        raise RuntimeError(f"phase 6: cuda and cpu steps differ in {diff}, "
+                           f"metrics {m6}")
+    record.update(phase6_metrics=m6)
+    print(f"phase 6: 64x64 training step, room_scene(4096), K={K}, 2 "
+          f"bounces, cuda vs cpu: params, moments and total_weight equal, "
+          f"l1_diffuse {m6['l1_diffuse']['cuda']:.6f} on both", flush=True)
+    del small
+
+    # -- phase 7: the full-width training step -----------------------------
+    def step(st):
+        return tr.train_step(st, camera, targets, settings, lrs, hyper, gen,
+                             TRAIN_W, TRAIN_H, **step_kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    st, _m = step(state)                                         # warm-up
+    torch.cuda.synchronize()
+    trace_slots.launches = scatter_add.launches = 0
+    l1s, starved_fr = [], []
+    t0 = time.perf_counter()
+    for _ in range(N_TIMED_STEPS):
+        st, m = step(st)
+        l1s.append(m["l1_diffuse"])
+        starved_fr.append(m["starved"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / N_TIMED_STEPS * 1e3
+    launches_ts, launches_sc = trace_slots.launches, scatter_add.launches
+    n_batches = -(-n_tiles // tiles_per_launch)
+    expected_ts = N_TIMED_STEPS * n_batches * (num_bounces + 1)
+    expected_sc = N_TIMED_STEPS * n_batches
+    if (launches_ts, launches_sc) != (expected_ts, expected_sc):
+        raise RuntimeError(f"phase 7: trace_slots/scatter_grads launched "
+                           f"{launches_ts}/{launches_sc} times, expected "
+                           f"{expected_ts}/{expected_sc}")
+    if not state_finite(st):
+        raise RuntimeError("phase 7: non-finite training state")
+    l1s = [x.item() for x in l1s]
+    starved_fr = [x.item() for x in starved_fr]
+    if not all(map(math.isfinite, l1s)):
+        raise RuntimeError(f"phase 7: non-finite l1_diffuse {l1s}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        st, _m = step(st)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            by_kernel[e.key] = device_time_us(e) / 1e3
+    dev_ms = sum(by_kernel.values())
+    ts_ms = sum(v for k, v in by_kernel.items() if "trace_slots_kernel" in k)
+    sa_ms = sum(v for k, v in by_kernel.items() if "scatter_add_kernel" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    rays = TRAIN_W * TRAIN_H
+    record.update(step_ms=step_ms, step_mrays_s=rays / step_ms / 1e3,
+                  l1_diffuse=l1s, starved=starved_fr, peak_gb=peak_gb,
+                  launches_trace_slots=launches_ts,
+                  launches_scatter=launches_sc,
+                  profiled_step_device_ms=dev_ms,
+                  profiled_trace_slots_ms=ts_ms,
+                  profiled_scatter_ms=sa_ms, profiled_step_top=top)
+    share = (f"device {dev_ms:.1f} ms: trace_slots {ts_ms:.1f} ms "
+             f"({ts_ms / dev_ms:.1%}), scatter_grads {sa_ms:.1f} ms "
+             f"({sa_ms / dev_ms:.1%}), device idle ~"
+             f"{max(0.0, 1 - dev_ms / step_ms):.1%} of the step"
+             if ts_ms > 0 else "device time not measured (profiler saw none)")
+    print(f"phase 7: training step 768x768, room_scene({TRAIN_N}) "
+          f"(capacity {cap}), 2 bounces, K={K}, mc {cfg.max_clusters}, "
+          f"{n_tiles} tiles of {tile} in {n_batches} launch(es) per bounce: "
+          f"{step_ms:.1f} ms/step, {rays / step_ms / 1e3:.3f} M rays/s; "
+          f"{share}; l1_diffuse per step "
+          f"{', '.join(f'{x:.6f}' for x in l1s)}; starved "
+          f"{max(starved_fr):.4%}; peak {peak_gb:.1f} GB; launches "
+          f"trace_slots {launches_ts}, scatter_grads {launches_sc} (expected "
+          f"{expected_ts}, {expected_sc}) [{smi}]", flush=True)
+    for k, v in top[:8]:
+        print(f"phase 7:   {v:9.2f} ms  {k[:90]}", flush=True)
+
+    src = "editable_gaussian_reflections_tpu_torch/csrc/"
+    jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
     kernels = [{
         "name": "render_culled",
         "route": "cuda",
-        "source": "editable_gaussian_reflections_tpu_torch/csrc/"
-                  "render_culled.cu",
-        "replaces": "editable_gaussian_reflections_tpu/ops/pallas/"
-                    "render_kernel_v3.py:500",
-        "also_replaces": "editable_gaussian_reflections_tpu/ops/pallas/"
-                         "render_kernel_v3.py:322",
+        "source": src + "render_culled.cu",
+        "replaces": jax_src + "render_kernel_v3.py:500",
+        "also_replaces": jax_src + "render_kernel_v3.py:322",
         "launches": launches,
         # worst float-lane error over both passes at the main path's shapes
         "max_abs_err": max(c["max_abs_err"] for c in phase4.values()),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": rc_bound_ms,
+        "bound_by": rc_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "trace_slots",
+        "route": "cuda",
+        "source": src + "trace_slots.cu",
+        "replaces": jax_src + "render_kernel_v3.py:787",
+        "also_replaces": jax_src + "render_kernel.py:665",
+        "launches": launches_ts,
+        "max_abs_err": max(phase5[k]["max_abs_err"]
+                           for k in ("primary", "reflected")),
+        "ms": phase5["primary"]["ms"],
+        "plain_ms": phase5["primary"]["plain_ms"],
+        "bound_ms": phase5["primary"]["bound_ms"],
+        "bound_by": phase5["primary"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "scatter_grads",
+        "route": "cuda",
+        "source": src + "scatter_grads.cu",
+        "replaces": jax_src + "scatter_kernel.py:102",
+        "launches": launches_sc,
+        "max_abs_err": sc_err,
+        "ms": sc_ms,
+        "plain_ms": sc_plain_ms,
+        "bound_ms": sc_bound_ms,
+        "bound_by": sc_bound_by,
+        "library_ms": sc_lib_ms,
     }]
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

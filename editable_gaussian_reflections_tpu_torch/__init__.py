@@ -4,7 +4,15 @@ Module paths mirror the JAX package, so each function's counterpart sits at
 the same place.  The port imports torch and never jax; the JAX package stays
 the reference that tests/test_torch_*.py hold every ported function against.
 
-This first slice covers the eval render: render_frame_fused in k-buffer mode
-(renderer/raytracer.py) through the hand-written CUDA kernel in
-csrc/render_culled.cu (wrapper: ops/cuda/render_kernel.py).
+Ported so far:
+  * the eval render: render_frame_fused in k-buffer mode
+    (renderer/raytracer.py), through csrc/render_culled.cu (wrapper:
+    ops/cuda/render_kernel.py);
+  * the fused training step: training.train_step ->
+    raytracer.render_tile_with_grads_fused, through csrc/trace_slots.cu
+    (ops/cuda/trace_slots.py) and csrc/scatter_grads.cu (ops/cuda/scatter.py).
+
+Entry points build their tensors on the CUDA card unless the caller passes
+device="cpu" (device.py); on CPU tensors every kernel wrapper runs its plain
+PyTorch version.
 """

@@ -10,20 +10,14 @@
 // (8 for v4, 4 for v3).  The plain PyTorch version of the same contract is
 // render_culled_reference in ops/cuda/render_kernel.py.
 //
-// Design.  One block per ray tile, one thread per ray.  The block walks the
-// tile's candidate clusters (nearest first); for each cluster it stages the
-// 22 geometry rows of the gpack block ([22, cluster] f32, at most 22.5 KB)
-// in shared memory, and every thread tests its ray against each Gaussian of
-// the cluster (the pair math of render_kernel.py:_pair_math).  Each thread
-// keeps its K nearest hits (t, alpha, id) in registers with a replace-max
-// insertion; the TPU kernels' one-hot MXU attribute extraction and striped
-// spread were workarounds for a machine without per-lane scatter, so here
-// the epilogue reads the kept hits' attributes by id from device memory.
-// Every `check_every` clusters the block decides, with __syncthreads_and,
-// whether every ray is saturated (log T <= log thr) or has all further
-// candidates behind its K-th hit, and stops if so - exactly the v4 exit,
-// which is part of the result (full_T and the tail factor only count
-// processed clusters).
+// Design.  The walk over the tile's candidates is csrc/trace_tile.cuh,
+// shared with the training slots kernel: one block per ray tile, one thread
+// per ray, a cluster's geometry staged in shared memory, each thread keeping
+// its K nearest hits (t, alpha, id) in registers, and the v4 group exit
+// (exit_mode 0).  The TPU kernels' one-hot MXU attribute extraction and
+// striped spread were workarounds for a machine without per-lane scatter, so
+// here the epilogue sorts the kept hits, reads their attributes by id from
+// device memory and composites them.
 //
 // Numerics (the port's rules, ops/precision.py): the pair math is float32,
 // built without FMA contraction (-fmad=false) and without fast math, so it
@@ -47,21 +41,11 @@
 
 #include <cuda_runtime.h>
 
+#include "trace_tile.cuh"
+
 namespace {
 
-// gpack rows (ops/cuda/layout.py)
-constexpr int ROW_MEAN = 0;
-constexpr int ROW_ROT = 3;
-constexpr int ROW_INV = 12;
-constexpr int ROW_OPACITY = 15;
-constexpr int ROW_SF2 = 16;
-constexpr int ROW_NRM = 17;
-constexpr int ROW_NLEN = 20;
-constexpr int ROW_VALID = 21;
-constexpr int ROW_RGB = 22;
-constexpr int ROW_F0 = 25;
-constexpr int ROW_ROUGH = 28;
-constexpr int N_GEOM_ROWS = 22;
+using namespace egr;
 
 // output lanes (ops/cuda/layout.py); lanes 0-9 hold rgb, normal, f0 and
 // roughness, in the order of attr_rows below
@@ -74,181 +58,19 @@ constexpr int OUT_TRAV = 14;
 constexpr int OUT_CHUNKS = 15;
 constexpr int OUT_LANES = 16;
 
-constexpr float INF = 3.0e38f;
-constexpr float MAX_ALPHA = 0.9999f;
-
-struct Params {
-  const float* rays_o;     // [R, 3]
-  const float* rays_d;     // [R, 3]
-  const float* alive;      // [R]  > 0 for live rays
-  const float* t_split;    // [R]  window bound for window_mode 1/2
-  const float* gpack;      // [32, n_gauss]
-  const int* cand;         // [R / tile, mc]  cluster ids, -1 = none
-  const float* cand_near;  // [R / tile, mc]  near distance, ascending
-  float* out;              // [R, 16]
-  int n_gauss;
-  int mc;
-  int cluster;
-  int check_every;
-  int window_mode;         // 0 none, 1 keep t < t_split, 2 keep t > t_split
-  int secondary_static;    // 0 no backfacing test, 1 always, -1 gate on secondary
-  int int_power;           // exp_power when it is an integer in [1, 8], else 0
-  float near, far, secondary, bf_max_dist, bf_thr;
-  float thr, eps_norm, log_thr, exp_power;
-};
-
 template <int K, bool CUBE>
-__global__ void render_culled_kernel(Params p) {
+__global__ void render_culled_kernel(TraceParams p, float thr, float eps_norm,
+                                     float* out) {
   extern __shared__ float sg[];  // [N_GEOM_ROWS, cluster]
-  const int tile = blockDim.x;
-  const int ti = blockIdx.x;
-  const int r = ti * tile + threadIdx.x;
-  const int C = p.cluster;
-
-  const float ox = p.rays_o[3 * r], oy = p.rays_o[3 * r + 1],
-              oz = p.rays_o[3 * r + 2];
-  const float dx = p.rays_d[3 * r], dy = p.rays_d[3 * r + 1],
-              dz = p.rays_d[3 * r + 2];
-  const bool live = p.alive[r] > 0.0f;
-  const float t_split = p.t_split[r];
-  const float k2 = 2.0f * p.exp_power;
-
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
   float st[K], sa[K];
   int sid[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    st[s] = INF;
-    sa[s] = 0.0f;
-    sid[s] = 0;
-  }
-  float kth = INF;
-  double log_t = 0.0;  // log-transmittance over every processed hit
-  float trav = 0.0f, chunks = 0.0f;
+  double log_t;
+  float trav, chunks;
+  trace_tile<K, CUBE>(p, sg, st, sa, sid, log_t, trav, chunks);
 
-  const int* cand = p.cand + (size_t)ti * p.mc;
-  const float* cand_near = p.cand_near + (size_t)ti * p.mc;
-  const bool dead_all = __syncthreads_and(!live);
-  const int n_groups = (p.mc + p.check_every - 1) / p.check_every;
-
-  for (int g = 0; g < n_groups && !dead_all; ++g) {
-    const int base = g * p.check_every;
-    const bool finished =
-        (log_t <= (double)p.log_thr) || (kth < cand_near[base]);
-    if (__syncthreads_and(finished)) break;
-
-    for (int j = 0; j < p.check_every; ++j) {
-      const int ci = base + j;
-      const int c = ci < p.mc ? cand[ci] : -1;
-      if (c < 0) continue;  // the same for the whole block
-
-      __syncthreads();  // the previous cluster's readers are done
-      const float* src = p.gpack + (size_t)c * C;
-      for (int i = threadIdx.x; i < N_GEOM_ROWS * C; i += tile) {
-        const int row = i / C;
-        sg[i] = src[(size_t)row * p.n_gauss + (i - row * C)];
-      }
-      __syncthreads();
-
-      double chunk_log_t = 0.0;
-      float chunk_trav = 0.0f, chunk_any = 0.0f;
-      for (int k = 0; k < C; ++k) {
-#define G(row) sg[(row) * C + k]
-        const float gvalid = G(ROW_VALID);
-        chunk_trav += gvalid;
-        chunk_any = fmaxf(chunk_any, gvalid);
-
-        const float rx = ox - G(ROW_MEAN);
-        const float ry = oy - G(ROW_MEAN + 1);
-        const float rz = oz - G(ROW_MEAN + 2);
-        float lo[3], ld[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          const float r0 = G(ROW_ROT + i), r1 = G(ROW_ROT + 3 + i),
-                      r2 = G(ROW_ROT + 6 + i);
-          const float inv = G(ROW_INV + i);
-          lo[i] = inv * (r0 * rx + r1 * ry + r2 * rz);
-          ld[i] = inv * (r0 * dx + r1 * dy + r2 * dz);
-        }
-        const float dot_ol = lo[0] * ld[0] + lo[1] * ld[1] + lo[2] * ld[2];
-        const float dot_ll = ld[0] * ld[0] + ld[1] * ld[1] + ld[2] * ld[2];
-        const float dot_oo = lo[0] * lo[0] + lo[1] * lo[1] + lo[2] * lo[2];
-        const float inv_ll = 1.0f / fmaxf(dot_ll, 1e-30f);
-        const float t = -dot_ol * inv_ll;
-        const float sq = dot_oo - dot_ol * dot_ol * inv_ll;
-
-        bool valid = (gvalid > 0.0f) && (dot_ol <= 0.0f) && (sq <= 1.0f) &&
-                     (t > p.near) && (t < p.far) && live;
-        if (p.window_mode == 1) valid = valid && (t < t_split);
-        if (p.window_mode == 2) valid = valid && (t > t_split);
-        if (valid && p.secondary_static != 0) {
-          const float ndotd = G(ROW_NRM) * ld[0] + G(ROW_NRM + 1) * ld[1] +
-                              G(ROW_NRM + 2) * ld[2];
-          const bool reject = (t < p.bf_max_dist) &&
-                              (G(ROW_NLEN) > p.bf_thr) && (ndotd > 0.0f);
-          valid = p.secondary_static == 1 ? !reject
-                                          : (p.secondary <= 0.0f || !reject);
-        }
-        if (!valid) continue;
-
-        const float sqs = fmaxf(sq * G(ROW_SF2), 0.0f);
-        float powered;
-        if (CUBE) {
-          powered = sqs * sqs * sqs;
-        } else if (p.int_power > 0) {
-          powered = sqs;
-          for (int e = 1; e < p.int_power; ++e) powered = powered * sqs;
-        } else {
-          powered = (float)pow((double)sqs, (double)p.exp_power);
-        }
-        const float gaussval = (float)exp((double)(-powered / k2));
-        const float alpha = MAX_ALPHA * gaussval * G(ROW_OPACITY);
-#undef G
-        chunk_log_t += log1p((double)(-alpha));
-
-        if (t < kth) {  // replace the first slot holding the K-th depth
-          int win = -1;
-#pragma unroll
-          for (int s = 0; s < K; ++s)
-            if (win < 0 && st[s] >= kth) win = s;
-#pragma unroll
-          for (int s = 0; s < K; ++s) {
-            if (s == win) {
-              st[s] = t;
-              sa[s] = alpha;
-              sid[s] = c * C + k;
-            }
-          }
-          kth = st[0];
-#pragma unroll
-          for (int s = 1; s < K; ++s) kth = fmaxf(kth, st[s]);
-        }
-      }
-      log_t += chunk_log_t;
-      trav += chunk_trav;
-      chunks += chunk_any;
-    }
-  }
-
-  // Sort the kept hits by (t, id) - odd-even transposition over registers -
-  // and composite them front to back.  The order-free form of the Pallas
-  // kernels equals this except on exact depth ties; the sort also makes the
-  // result independent of the order the hits were inserted in.
-#pragma unroll
-  for (int pass = 0; pass < K; ++pass) {
-#pragma unroll
-    for (int i = pass & 1; i + 1 < K; i += 2) {
-      if (st[i] > st[i + 1] || (st[i] == st[i + 1] && sid[i] > sid[i + 1])) {
-        const float t = st[i], a = sa[i];
-        const int id = sid[i];
-        st[i] = st[i + 1];
-        sa[i] = sa[i + 1];
-        sid[i] = sid[i + 1];
-        st[i + 1] = t;
-        sa[i + 1] = a;
-        sid[i + 1] = id;
-      }
-    }
-  }
+  // composite the hits front to back in (t, id) order
+  sort_slots<K>(st, sa, sid);
 
   const int attr_rows[10] = {ROW_RGB,     ROW_RGB + 1, ROW_RGB + 2, ROW_NRM,
                              ROW_NRM + 1, ROW_NRM + 2, ROW_F0,      ROW_F0 + 1,
@@ -263,7 +85,7 @@ __global__ void render_culled_kernel(Params p) {
     if (st[i] < INF) {
       const double la = log1p((double)(-sa[i]));
       const float t_before = (float)exp(front);
-      if (t_before >= p.thr) {  // prefix-closed: T only falls
+      if (t_before >= thr) {  // prefix-closed: T only falls
         const double w = (double)t_before * (double)sa[i];
         sum_la += la;
         depth += w * (double)st[i];
@@ -282,9 +104,9 @@ __global__ void render_culled_kernel(Params p) {
   const float full_t = (float)exp(log_t);
   const double factor =
       1.0 + ((double)t_final - (double)full_t) /
-                fmax(1.0 - (double)t_final, (double)p.eps_norm);
+                fmax(1.0 - (double)t_final, (double)eps_norm);
 
-  float* o = p.out + (size_t)r * OUT_LANES;
+  float* o = out + (size_t)r * OUT_LANES;
 #pragma unroll
   for (int a = 0; a < 10; ++a) o[OUT_ATTR + a] = (float)(attr[a] * factor);
   o[OUT_DEPTH] = (float)(depth * factor);
@@ -296,12 +118,15 @@ __global__ void render_culled_kernel(Params p) {
 }
 
 template <int K>
-cudaError_t launch(const Params& p, int n_tiles, int tile, cudaStream_t s) {
+cudaError_t launch(const TraceParams& p, float thr, float eps_norm, float* out,
+                   int n_tiles, int tile, cudaStream_t s) {
   const size_t smem = sizeof(float) * N_GEOM_ROWS * p.cluster;
   if (p.int_power == 3)
-    render_culled_kernel<K, true><<<n_tiles, tile, smem, s>>>(p);
+    render_culled_kernel<K, true><<<n_tiles, tile, smem, s>>>(p, thr, eps_norm,
+                                                              out);
   else
-    render_culled_kernel<K, false><<<n_tiles, tile, smem, s>>>(p);
+    render_culled_kernel<K, false><<<n_tiles, tile, smem, s>>>(p, thr,
+                                                               eps_norm, out);
   return cudaGetLastError();
 }
 
@@ -317,46 +142,19 @@ extern "C" int egr_render_culled(
     int secondary_static, float near, float far, float secondary,
     float bf_max_dist, float bf_thr, float thr, float eps_norm, float log_thr,
     float exp_power, void* stream) {
-  if (tile <= 0 || tile > 1024 || n_rays % tile != 0 || cluster <= 0 ||
-      check_every <= 0 || mc <= 0 || n_gauss % cluster != 0 ||
-      sizeof(float) * N_GEOM_ROWS * cluster > 48 * 1024)
+  TraceParams p;
+  if (!init_trace_params(p, rays_o, rays_d, alive, t_split, gpack, cand,
+                         cand_near, n_rays, n_gauss, mc, tile, cluster,
+                         check_every, /*exit_mode=*/0, window_mode,
+                         secondary_static, near, far, secondary, bf_max_dist,
+                         bf_thr, log_thr, exp_power))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  Params p;
-  p.rays_o = rays_o;
-  p.rays_d = rays_d;
-  p.alive = alive;
-  p.t_split = t_split;
-  p.gpack = gpack;
-  p.cand = cand;
-  p.cand_near = cand_near;
-  p.out = out;
-  p.n_gauss = n_gauss;
-  p.mc = mc;
-  p.cluster = cluster;
-  p.check_every = check_every;
-  p.window_mode = window_mode;
-  p.secondary_static = secondary_static;
-  const bool integer = exp_power >= 1.0f && exp_power <= 8.0f &&
-                       exp_power == (float)(int)exp_power;
-  p.int_power = integer ? (int)exp_power : 0;
-  p.near = near;
-  p.far = far;
-  p.secondary = secondary;
-  p.bf_max_dist = bf_max_dist;
-  p.bf_thr = bf_thr;
-  p.thr = thr;
-  p.eps_norm = eps_norm;
-  p.log_thr = log_thr;
-  p.exp_power = exp_power;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_rays / tile;
-  cudaError_t err;
-  if (max_hits == 16)
-    err = launch<16>(p, n_tiles, tile, s);
-  else if (max_hits == 32)
-    err = launch<32>(p, n_tiles, tile, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  if (max_hits == 16) return (int)launch<16>(p, thr, eps_norm, out, n_tiles,
+                                             tile, s);
+  if (max_hits == 32) return (int)launch<32>(p, thr, eps_norm, out, n_tiles,
+                                             tile, s);
+  return (int)cudaErrorInvalidValue;
 }

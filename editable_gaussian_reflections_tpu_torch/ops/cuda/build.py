@@ -50,30 +50,51 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library exists; returns its path.
+def build_all(names) -> list[Path]:
+    """Compile each csrc/<name>.cu whose library does not exist yet, one
+    nvcc process per source, all started together; returns the libraries'
+    paths in the order of `names`.
 
     The compiler's output (registers, spills from -Xptxas -v) is kept
-    beside the library as <library>.log."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    beside each library as <library>.log."""
+    outs = [library_path(name) for name in names]
+    jobs = []
     try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name}.cu (rc {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        for name, out in zip(names, outs):
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, out, tmp, proc))
+        failed = []
+        for name, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            out.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu (rc "
+                              f"{proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+        for _name, _out, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return outs
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless its library exists; returns its path."""
+    return build_all([name])[0]
 
 
 @functools.cache

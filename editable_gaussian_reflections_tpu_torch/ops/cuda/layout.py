@@ -8,14 +8,22 @@ shared memory and the attribute rows of its K kept hits from device memory.
 Output lanes of the [R, OUT_LANES] composite block (twin of the JAX
 ops/pallas/render_kernel.py OUT_*).  The row and lane numbers are also
 spelled out in csrc/render_culled.cu; keep the two in step.
+
+Training slots (twin of the JAX ops/pallas/render_kernel.py training
+variant): the slots trace returns, per ray, SLOT_BLOCKS blocks of K columns
+- t, alpha, id, the 10 shading attributes, then the 24 used columns of the
+frame table - depth-sorted, with empty slots t = INF and zeros.  The frame
+table ([N, FTABLE_A], pack_frame_table) carries what the backward needs per
+hit.  csrc/trace_slots.cu spells out the same block order.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..gaussian_kernel import MAX_ALPHA
 from ..intersect import GaussianFrames
-from ..precision import norm
+from ..precision import norm, rounded
 
 # gpack row layout ([N_ROWS, N]; a cluster block is [N_ROWS, cluster])
 ROW_MEAN = 0        # 3 rows
@@ -91,3 +99,128 @@ def unpack_composite(out: torch.Tensor) -> dict:
         num_accumulated=out[:, OUT_NUMACC].to(torch.int32),
         num_traversed=out[:, OUT_TRAV].to(torch.int32),
     )
+
+
+# attribute-table columns ([N, TABLE_A], pack_attr_table) and the order of
+# the 10 attribute blocks of a slot
+COL_RGB = 0         # 3
+COL_NRM = 3         # 3
+COL_F0 = 6          # 3
+COL_ROUGH = 9
+TABLE_A = 16        # padded
+NUM_ATTR = 10
+# gpack rows of the 10 attributes, in the same order
+ATTR_ROWS = (ROW_RGB, ROW_RGB + 1, ROW_RGB + 2, ROW_NRM, ROW_NRM + 1,
+             ROW_NRM + 2, ROW_F0, ROW_F0 + 1, ROW_F0 + 2, ROW_ROUGH)
+
+# frame-table columns ([N, FTABLE_A], pack_frame_table)
+FCOL_MEAN = 0       # 3
+FCOL_ROT = 3        # 9 (row-major)
+FCOL_INV = 12       # 3
+FCOL_SF = 15
+FCOL_OPACITY = 16
+FCOL_SCALING = 17   # 3 (activated exp(scale))
+FCOL_QUAT = 20      # 4 (raw quaternion)
+FTABLE_A = 32       # padded
+NUM_FRAME = 24      # frame columns carried per slot
+
+SLOT_T, SLOT_ALPHA, SLOT_ID, SLOT_ATTR = 0, 1, 2, 3
+SLOT_FRAME = SLOT_ATTR + NUM_ATTR
+SLOT_BLOCKS = SLOT_FRAME + NUM_FRAME     # 37
+
+
+def pack_attr_table(attrs) -> torch.Tensor:
+    """Activated SceneAttributes -> [N, TABLE_A] f32 (rgb, normal, f0,
+    roughness, zero padding)."""
+    n = attrs.rgb.shape[0]
+    z = torch.zeros((n, TABLE_A - NUM_ATTR), dtype=torch.float32,
+                    device=attrs.rgb.device)
+    return torch.cat([attrs.rgb, attrs.normal, attrs.f0,
+                      attrs.roughness[:, None], z], dim=1)
+
+
+def pack_frame_table(frames: GaussianFrames, scene) -> torch.Tensor:
+    """GaussianFrames + the raw scene in the same order -> [N, FTABLE_A]
+    f32: what the backward needs per hit."""
+    n = frames.mean.shape[0]
+    z = torch.zeros((n, FTABLE_A - NUM_FRAME), dtype=torch.float32,
+                    device=frames.mean.device)
+    return torch.cat([
+        frames.mean, frames.rot.reshape(n, 9), frames.inv_sizes,
+        frames.sf[:, None], frames.opacity[:, None],
+        rounded(torch.exp, scene.scaling), scene.rotation, z], dim=1)
+
+
+def unpack_slots(slots: torch.Tensor, acc: torch.Tensor, K: int,
+                 rays_o: torch.Tensor, rays_d: torch.Tensor):
+    """Slots [R, SLOT_BLOCKS*K] + acc [R, 16] -> (RayHits fields, attrs,
+    frames), dicts of [R, K, ...] tensors.
+
+    gaussval and local_hit are recomputed from the slot's frame fields:
+    gaussval = alpha / (MAX_ALPHA * opacity), local_hit = sf*(lo + t*ld).
+    Empty slots get degenerate-safe frame values (identity rotation, unit
+    sizes), so the backward's normalisations never see 0/0; their
+    gradients are masked regardless."""
+    R = slots.shape[0]
+    blocks = slots.reshape(R, SLOT_BLOCKS, K)
+
+    def blk(i):
+        return blocks[:, i]
+
+    def vec(i, n):
+        return blocks[:, i:i + n].permute(0, 2, 1)                # [R, K, n]
+
+    t = blk(SLOT_T)
+    valid = t < 1e37
+    v1 = valid[..., None]
+    a0 = SLOT_ATTR
+    attrs = dict(rgb=vec(a0 + COL_RGB, 3), normal=vec(a0 + COL_NRM, 3),
+                 f0=vec(a0 + COL_F0, 3), roughness=blk(a0 + COL_ROUGH))
+    f0_ = SLOT_FRAME
+
+    def safe(x, default):
+        m = v1 if x.ndim == 3 else valid
+        return torch.where(m, x, torch.full_like(x, default))
+
+    quat = torch.where(v1, vec(f0_ + FCOL_QUAT, 4),
+                       slots.new_tensor([1.0, 0.0, 0.0, 0.0]))
+    rot9 = torch.where(v1, vec(f0_ + FCOL_ROT, 9),
+                       slots.new_tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1]))
+    frames = dict(
+        mean=safe(vec(f0_ + FCOL_MEAN, 3), 0.0),
+        rot=rot9,
+        inv_sizes=safe(vec(f0_ + FCOL_INV, 3), 1.0),
+        sf=safe(blk(f0_ + FCOL_SF), 1.0),
+        opacity=safe(blk(f0_ + FCOL_OPACITY), 1.0),
+        scaling_act=safe(vec(f0_ + FCOL_SCALING, 3), 1.0),
+        rotation_raw=quat,
+    )
+    zero = torch.zeros_like(t)
+    ts = torch.where(valid, t, zero)
+    alpha = blk(SLOT_ALPHA)
+    gaussval = torch.where(
+        valid, alpha / torch.clamp(MAX_ALPHA * frames["opacity"], min=1e-30),
+        zero)
+    rot = rot9.reshape(R, K, 3, 3)
+    rel = [rays_o[:, None, j] - frames["mean"][..., j] for j in range(3)]
+    d = [rays_d[:, None, j] for j in range(3)]
+    inv = frames["inv_sizes"]
+    lo = [(rot[..., 0, c] * rel[0] + rot[..., 1, c] * rel[1]
+           + rot[..., 2, c] * rel[2]) * inv[..., c] for c in range(3)]
+    ld = [(rot[..., 0, c] * d[0] + rot[..., 1, c] * d[1]
+           + rot[..., 2, c] * d[2]) * inv[..., c] for c in range(3)]
+    sf = frames["sf"]
+    local_hit = torch.stack([sf * (lo[c] + ts * ld[c]) for c in range(3)],
+                            dim=-1)
+    hits = dict(
+        ids=torch.where(valid, blk(SLOT_ID), zero).to(torch.int32),
+        t=ts,
+        alpha=torch.where(valid, alpha, zero),
+        gaussval=gaussval,
+        local_hit=torch.where(v1, local_hit, torch.zeros_like(local_hit)),
+        valid=valid,
+        full_T=rounded(torch.exp, acc[:, 0]),
+        num_traversed=acc[:, 1].to(torch.int32),
+    )
+    frames["rot_mat"] = rot
+    return hits, attrs, frames

@@ -38,29 +38,28 @@ from ..gaussian_kernel import MAX_ALPHA
 from ..precision import WIDE, div, rounded
 from . import build
 from .layout import (
+    ATTR_ROWS,
     INF,
     N_ROWS,
     OUT_LANES,
-    ROW_F0,
     ROW_INV,
     ROW_MEAN,
     ROW_NLEN,
     ROW_NRM,
     ROW_OPACITY,
-    ROW_RGB,
     ROW_ROT,
-    ROW_ROUGH,
     ROW_SF2,
     ROW_VALID,
 )
 
-# output lanes 0..9 read these gpack rows: rgb, normal, f0, roughness
-ATTR_ROWS = (ROW_RGB, ROW_RGB + 1, ROW_RGB + 2, ROW_NRM, ROW_NRM + 1,
-             ROW_NRM + 2, ROW_F0, ROW_F0 + 1, ROW_F0 + 2, ROW_ROUGH)
 SUPPORTED_K = (16, 32)
 # the plain version processes this many ray tiles at once (bounds memory:
 # its [tiles, tile, cluster] intermediates are ~16 MB each at 256 x 256)
 REFERENCE_TILES_PER_BATCH = 64
+# the JAX package keeps a scene resident in a TPU core's VMEM up to this many
+# bytes (render_kernel_v3.py RESIDENT_GPACK_LIMIT); which Pallas kernel it
+# runs, and so which early exit the port reproduces, follows from it
+RESIDENT_LIMIT = 96 * 1024 * 1024
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 8          # rays_o, rays_d, alive, t_split, gpack,
@@ -190,11 +189,7 @@ def _composite(st, sa, sid, log_t, gpack, thr, eps_norm):
     truncated-tail correction (render_kernel_v3.py:154-204).  Slots are
     sorted by (t, id); the Pallas kernels' order-free form equals this
     except on exact depth ties.  WIDE accumulation, as in the kernel."""
-    order = torch.sort(sid, dim=-1, stable=True).indices
-    st, sa, sid = (x.gather(-1, order) for x in (st, sa, sid))
-    order = torch.sort(st, dim=-1, stable=True).indices
-    st, sa, sid = (x.gather(-1, order) for x in (st, sa, sid))
-
+    st, sa, sid = sort_slots(st, sa, sid)
     valid = st < INF
     la = torch.log1p((-sa).to(WIDE))
     la = torch.where(valid, la, torch.zeros_like(la))
@@ -221,25 +216,29 @@ def _composite(st, sa, sid, log_t, gpack, thr, eps_norm):
                      dim=1)
 
 
-def render_culled_reference(
+def walk_tiles(
     rays_o, rays_d, gpack, candidates, cand_near, near, far, exp_power,
     secondary, backfacing_max_dist, backfacing_invalid_normal_threshold,
-    transmittance_threshold=0.01, eps_forward_normalization=1e-12,
-    max_hits: int = 16, cluster: int = 128, tile: int = 256, alive=None,
-    check_every: int = 8, t_split=None, window_mode: int = 0,
-    secondary_static: int = -1,
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's contract (module docstring).
+    transmittance_threshold=0.01, max_hits: int = 16, cluster: int = 128,
+    tile: int = 256, alive=None, check_every: int = 8, t_split=None,
+    window_mode: int = 0, secondary_static: int = -1, exit_mode: int = 0):
+    """Plain version of csrc/trace_tile.cuh: the culled walk over each ray
+    tile's candidates with the early exit of `exit_mode` (0: the v4 group
+    exit, 1: pallas_trace_slots' pairs with per-ray dead; see the header).
 
     Vectorised over ray tiles, looping over candidate groups with a per-tile
-    `done` mask.  Runs on any device; the CPU tests and the comparison in
-    chip_smoke.py use it."""
+    `done` mask.  Yields, per batch of up to REFERENCE_TILES_PER_BATCH
+    tiles, (rows, st, sa, sid [B*tile, K] as kept (unsorted), log_t
+    [B*tile] WIDE, trav [B], chunks [B]) and the padded gpack (a zero
+    cluster appended) as the last element."""
     R = rays_o.shape[0]
     N = gpack.shape[1]
     K = max_hits
     dev = rays_o.device
     if N % cluster or R % tile:
         raise ValueError(f"N={N} % cluster={cluster} or R={R} % tile={tile}")
+    if exit_mode not in (0, 1):
+        raise ValueError(f"exit_mode={exit_mode}")
     n_tiles = R // tile
     CE = check_every
     mc0 = candidates.shape[1]
@@ -248,10 +247,11 @@ def render_culled_reference(
     cand[:, :mc0] = candidates
     cnear = torch.full((n_tiles, mc), 3.0e38, dtype=torch.float32, device=dev)
     cnear[:, :mc0] = cand_near
+    listed = cand >= 0
     # empty entries read an all-invalid dummy cluster appended to gpack
     gp = torch.cat([gpack, torch.zeros((N_ROWS, cluster), dtype=gpack.dtype,
                                        device=dev)], dim=1)
-    cand = torch.where(cand < 0, N // cluster, cand)
+    cand = torch.where(listed, cand, N // cluster)
     alive = _per_ray(alive, R, 1.0, dev).reshape(n_tiles, tile)
     t_split = _per_ray(t_split, R, 0.0, dev).reshape(n_tiles, tile)
     o = rays_o.to(torch.float32).reshape(n_tiles, tile, 3)
@@ -264,7 +264,6 @@ def render_culled_reference(
                    secondary_static=secondary_static)
     lane = torch.arange(cluster, device=dev)
 
-    out = torch.empty((R, OUT_LANES), dtype=torch.float32, device=dev)
     for t0 in range(0, n_tiles, REFERENCE_TILES_PER_BATCH):
         tb = slice(t0, min(n_tiles, t0 + REFERENCE_TILES_PER_BATCH))
         B = tb.stop - tb.start
@@ -274,10 +273,13 @@ def render_culled_reference(
         log_t = torch.zeros((B, tile), dtype=WIDE, device=dev)
         trav = torch.zeros((B,), dtype=torch.float32, device=dev)
         chunks = torch.zeros((B,), dtype=torch.float32, device=dev)
-        done = (alive[tb] <= 0.0).all(dim=1)
+        dead = alive[tb] <= 0.0
+        done = dead.all(dim=1)
         for base in range(0, mc, CE):
             finished = (log_t <= log_thr) | (st.amax(dim=-1)
                                              < cnear[tb, base, None])
+            if exit_mode == 1:
+                finished |= dead
             done |= finished.all(dim=1)
             act = torch.nonzero(~done).squeeze(1)
             if act.numel() == 0:
@@ -292,14 +294,52 @@ def render_culled_reference(
                 log_t[act] += _seqsum(torch.where(valid, la,
                                                   torch.zeros_like(la)))
                 trav[act] += gvalid.sum(-1)
-                chunks[act] += gvalid.amax(-1)
+                if exit_mode == 1:
+                    chunks[act] += listed[ta, ci].to(torch.float32)
+                else:
+                    chunks[act] += gvalid.amax(-1)
                 st[act], sa[act], sid[act] = _drain(
                     st[act], sa[act], sid[act], t, alpha, valid,
                     c * cluster, K)
         rows = slice(tb.start * tile, tb.stop * tile)
+        yield (rows, st.reshape(-1, K), sa.reshape(-1, K), sid.reshape(-1, K),
+               log_t.reshape(-1), trav, chunks, gp)
+
+
+def sort_slots(st, sa, sid):
+    """The kept hits [R, K] ordered by (t, id), as the kernels sort them.
+    The Pallas kernels' order (t, slot index) equals this except on exact
+    depth ties."""
+    order = torch.sort(sid, dim=-1, stable=True).indices
+    st, sa, sid = (x.gather(-1, order) for x in (st, sa, sid))
+    order = torch.sort(st, dim=-1, stable=True).indices
+    return tuple(x.gather(-1, order) for x in (st, sa, sid))
+
+
+def render_culled_reference(
+    rays_o, rays_d, gpack, candidates, cand_near, near, far, exp_power,
+    secondary, backfacing_max_dist, backfacing_invalid_normal_threshold,
+    transmittance_threshold=0.01, eps_forward_normalization=1e-12,
+    max_hits: int = 16, cluster: int = 128, tile: int = 256, alive=None,
+    check_every: int = 8, t_split=None, window_mode: int = 0,
+    secondary_static: int = -1,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's contract (module docstring):
+    walk_tiles, then the composite.  Runs on any device; the CPU tests and
+    the comparison in chip_smoke.py use it."""
+    R = rays_o.shape[0]
+    out = torch.empty((R, OUT_LANES), dtype=torch.float32,
+                      device=rays_o.device)
+    walk = walk_tiles(
+        rays_o, rays_d, gpack, candidates, cand_near, near, far, exp_power,
+        secondary, backfacing_max_dist, backfacing_invalid_normal_threshold,
+        transmittance_threshold=transmittance_threshold, max_hits=max_hits,
+        cluster=cluster, tile=tile, alive=alive, check_every=check_every,
+        t_split=t_split, window_mode=window_mode,
+        secondary_static=secondary_static, exit_mode=0)
+    for rows, st, sa, sid, log_t, trav, chunks, gp in walk:
         out[rows, :14] = _composite(
-            st.reshape(-1, K), sa.reshape(-1, K), sid.reshape(-1, K),
-            log_t.reshape(-1), gp, _f32(transmittance_threshold),
+            st, sa, sid, log_t, gp, _f32(transmittance_threshold),
             _f32(eps_forward_normalization))
         out[rows, 14] = trav.repeat_interleave(tile)
         out[rows, 15] = chunks.repeat_interleave(tile)
@@ -398,6 +438,5 @@ def check_every_for(capacity: int) -> int:
     JAX renderer runs pallas_render_culled_v4 (groups of 8) when the packed
     scene fits its resident budget and pallas_render_culled_v3 (groups of 4)
     otherwise (raytracer.py:1080-1082, render_kernel_v3.py:490)."""
-    resident_limit = 96 * 1024 * 1024
-    return 8 if (capacity + 128) * N_ROWS * 4 <= resident_limit else 4
+    return 8 if (capacity + 128) * N_ROWS * 4 <= RESIDENT_LIMIT else 4
 

@@ -1,0 +1,204 @@
+"""Culled trace returning depth-sorted full-payload slots for one bounce of
+the training step: the CUDA kernel's wrapper (`trace_slots`) and its plain
+PyTorch version (`trace_slots_reference`).
+
+Counterpart of the JAX pallas_trace_slots_v4 (ops/pallas/render_kernel_v3.py)
+and pallas_trace_slots (ops/pallas/render_kernel.py), which share one
+contract: per ray tile, walk the candidate clusters nearest first, keep each
+ray's K nearest valid hits, accumulate log-T over every valid hit of the
+processed clusters plus the traversed count, and return
+
+  slots [R, SLOT_BLOCKS*K] f32 in unpack_slots block order (t, alpha, id,
+        10 attributes, 24 frame-table fields), depth-sorted, empty slots
+        t = INF and zeros;
+  acc   [R, 16] f32: log-T, traversed Gaussians, processed-cluster count.
+
+The two Pallas kernels stop differently, and the stop is part of the result
+(csrc/trace_tile.cuh): `exit_mode_for(capacity)` picks the one the JAX
+dispatch would run.  The kernel reads the geometry from gpack, and gathers
+each kept hit's attributes from pack_attr_table's [N, TABLE_A] table and its
+frame fields from pack_frame_table's [N, FTABLE_A] table, by id (the inputs
+of pallas_trace_slots; pallas_trace_slots_v4 reads the same attribute
+values from gpack's rows).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+from .layout import (
+    FTABLE_A,
+    INF,
+    N_ROWS,
+    NUM_ATTR,
+    NUM_FRAME,
+    SLOT_ATTR,
+    SLOT_BLOCKS,
+    SLOT_FRAME,
+    TABLE_A,
+)
+from .render_kernel import (
+    RESIDENT_LIMIT,
+    SUPPORTED_K,
+    _check,
+    _f32,
+    _log_f32,
+    _per_ray,
+    sort_slots,
+    walk_tiles,
+)
+
+ACC_LANES = 16
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 10         # rays_o, rays_d, alive, gpack, table,
+                                   # ftable, cand, cand_near, slots, acc
+    + [ctypes.c_int] * 9           # n_rays, n_gauss, mc, tile, cluster,
+                                   # max_hits, check_every, exit_mode,
+                                   # secondary_static
+    + [ctypes.c_float] * 7         # near, far, secondary, bf_max_dist,
+                                   # bf_thr, log_thr, exp_power
+    + [ctypes.c_void_p]            # stream
+)
+
+
+@functools.cache
+def _entry_point():
+    """The kernel's C entry point, built and loaded at first use."""
+    fn = build.load("trace_slots").egr_trace_slots
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def slots_resident_fits(n_capacity: int) -> bool:
+    """The JAX dispatch's test (render_kernel_v3.py:777-779): gpack and the
+    frame table both resident.  True selects pallas_trace_slots_v4, False
+    pallas_trace_slots."""
+    return (n_capacity + 128) * (N_ROWS + FTABLE_A) * 4 <= RESIDENT_LIMIT
+
+
+def exit_mode_for(n_capacity: int) -> tuple[int, int]:
+    """(exit_mode, check_every) of the Pallas kernel the JAX dispatch runs
+    for this capacity: v4's groups of 8, or v1's pairs."""
+    return (0, 8) if slots_resident_fits(n_capacity) else (1, 2)
+
+
+def trace_slots_reference(
+    rays_o, rays_d, gpack, table, ftable, candidates, cand_near, near, far,
+    exp_power, secondary, backfacing_max_dist,
+    backfacing_invalid_normal_threshold, transmittance_threshold=0.01,
+    max_hits: int = 32, cluster: int = 256, tile: int = 256, alive=None,
+    secondary_static: int = -1, exit_mode: int = 0, check_every: int = 8,
+):
+    """Plain PyTorch version of the kernel's contract (module docstring):
+    the walk of ops/cuda/render_kernel.py, then the kept hits sorted by
+    (t, id) and their payload gathered by id."""
+    R = rays_o.shape[0]
+    K = max_hits
+    dev = rays_o.device
+    slots = torch.empty((R, SLOT_BLOCKS, K), dtype=torch.float32, device=dev)
+    acc = torch.zeros((R, ACC_LANES), dtype=torch.float32, device=dev)
+    walk = walk_tiles(
+        rays_o, rays_d, gpack, candidates, cand_near, near, far, exp_power,
+        secondary, backfacing_max_dist, backfacing_invalid_normal_threshold,
+        transmittance_threshold=transmittance_threshold, max_hits=max_hits,
+        cluster=cluster, tile=tile, alive=alive, check_every=check_every,
+        secondary_static=secondary_static, exit_mode=exit_mode)
+    for rows, st, sa, sid, log_t, trav, chunks, _gp in walk:
+        st, sa, sid = sort_slots(st, sa, sid)
+        valid = st < INF
+        zero = torch.zeros_like(sa)
+        slots[rows, 0] = st
+        slots[rows, 1] = torch.where(valid, sa, zero)
+        slots[rows, 2] = torch.where(valid, sid.to(torch.float32), zero)
+        v = valid[:, None, :]
+        attrs = table[sid, :NUM_ATTR].permute(0, 2, 1)          # [B, 10, K]
+        slots[rows, SLOT_ATTR:SLOT_ATTR + NUM_ATTR] = torch.where(
+            v, attrs, torch.zeros_like(attrs))
+        frame = ftable[sid, :NUM_FRAME].permute(0, 2, 1)        # [B, 24, K]
+        slots[rows, SLOT_FRAME:] = torch.where(v, frame,
+                                               torch.zeros_like(frame))
+        acc[rows, 0] = log_t.to(torch.float32)
+        acc[rows, 1] = trav.repeat_interleave(tile)
+        acc[rows, 2] = chunks.repeat_interleave(tile)
+    return slots.reshape(R, SLOT_BLOCKS * K), acc
+
+
+def trace_slots(
+    rays_o, rays_d, gpack, table, ftable, candidates, cand_near, near, far,
+    exp_power, secondary, backfacing_max_dist,
+    backfacing_invalid_normal_threshold, transmittance_threshold=0.01,
+    max_hits: int = 32, cluster: int = 256, tile: int = 256, alive=None,
+    secondary_static: int = -1, exit_mode: int = 0, check_every: int = 8,
+):
+    """Culled slots trace for one bounce: (slots, acc), module docstring.
+
+    CUDA tensors launch the kernel of csrc/trace_slots.cu on the current
+    stream (it is built at first use) and count the launch in
+    `trace_slots.launches`; CPU tensors take trace_slots_reference.
+    Anything else raises."""
+    kw = dict(transmittance_threshold=transmittance_threshold,
+              max_hits=max_hits, cluster=cluster, tile=tile, alive=alive,
+              secondary_static=secondary_static, exit_mode=exit_mode,
+              check_every=check_every)
+    args = (rays_o, rays_d, gpack, table, ftable, candidates, cand_near,
+            near, far, exp_power, secondary, backfacing_max_dist,
+            backfacing_invalid_normal_threshold)
+    dev = rays_o.device
+    if dev.type == "cpu":
+        return trace_slots_reference(*args, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_slots: no kernel for device {dev}")
+
+    R = rays_o.shape[0]
+    N = gpack.shape[1]
+    if max_hits not in SUPPORTED_K:
+        raise ValueError(f"max_hits={max_hits}: the kernel is built for "
+                         f"{SUPPORTED_K}")
+    if R % tile or not 0 < tile <= 1024:
+        raise ValueError(f"tile={tile} must divide R={R} and be <= 1024")
+    if N % cluster or not 0 < cluster <= 512:
+        raise ValueError(f"cluster={cluster} must divide N={N}, <= 512")
+    if exit_mode not in (0, 1) or secondary_static not in (-1, 0, 1):
+        raise ValueError(f"exit_mode={exit_mode}, "
+                         f"secondary_static={secondary_static}")
+    n_tiles = R // tile
+    mc = candidates.shape[1]
+    _check("rays_o", rays_o, (R, 3), torch.float32, dev)
+    _check("rays_d", rays_d, (R, 3), torch.float32, dev)
+    _check("gpack", gpack, (N_ROWS, N), torch.float32, dev)
+    _check("table", table, (N, TABLE_A), torch.float32, dev)
+    _check("ftable", ftable, (N, FTABLE_A), torch.float32, dev)
+    _check("candidates", candidates, (n_tiles, mc), torch.int32, dev)
+    _check("cand_near", cand_near, (n_tiles, mc), torch.float32, dev)
+    alive_f = _per_ray(alive, R, 1.0, dev).contiguous()
+    _check("alive", alive_f, (R,), torch.float32, dev)
+
+    slots = torch.empty((R, SLOT_BLOCKS * max_hits), dtype=torch.float32,
+                        device=dev)
+    acc = torch.empty((R, ACC_LANES), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _entry_point()(
+            rays_o.data_ptr(), rays_d.data_ptr(), alive_f.data_ptr(),
+            gpack.data_ptr(), table.data_ptr(), ftable.data_ptr(),
+            candidates.data_ptr(),
+            cand_near.data_ptr(), slots.data_ptr(), acc.data_ptr(),
+            R, N, mc, tile, cluster, max_hits, check_every, exit_mode,
+            secondary_static,
+            _f32(near), _f32(far), _f32(secondary), _f32(backfacing_max_dist),
+            _f32(backfacing_invalid_normal_threshold),
+            _log_f32(transmittance_threshold), float(exp_power), stream)
+    if err != 0:
+        raise RuntimeError(f"trace_slots kernel launch failed: cudaError "
+                           f"{err}")
+    trace_slots.launches += 1
+    return slots, acc
+
+
+trace_slots.launches = 0

@@ -12,6 +12,9 @@ import torch
 
 # flags.h:8 - "Essential for stability, can't remove"
 MAX_ALPHA = 0.9999
+# flags.h (ROUGHNESS_DOWNWEIGHT_GRAD, on): the specular loss gradient of
+# bounce b >= 1 is scaled by (1 - roughness of bounce b-1)^POWER
+ROUGHNESS_DOWNWEIGHT_GRAD_POWER = 3.0
 # the JAX package floors opacity/alpha_threshold at the float32 constant
 # 1.0 + 1e-12, which rounds to 1.0; the port keeps that floor in any dtype
 RATIO_FLOOR = float(np.float32(1.0 + 1e-12))

@@ -9,9 +9,14 @@ rays), cull clusters per tile (ops/culling.py), run the render kernel
 (ops/cuda/render_kernel.py), then the per-ray bounce epilogue (normal
 normalization, GGX sampling, Cook-Torrance throughput).
 
+The training step's forward + loss-fused backward over a batch of ray tiles
+(render_tile_with_grads_fused) runs the same wavefront through the slots
+kernel (ops/cuda/trace_slots.py), the composite, the hand-written backward
+(ops/render_grads.py) and the gradient scatter (ops/cuda/scatter.py).
+
 Not ported yet, and raising instead of falling back: composite_mode
 "scan"/"scanq" (the streaming kernels), split_far=True (the two-pass bounce)
-and the non-fused render_frame/render_accumulated.
+and the non-fused render_frame/render_accumulated/render_tile_with_grads.
 
 Randomness: the JAX package draws jitter and GGX uniforms from a key; the
 port draws the same quantities (FrameSamples) from a torch.Generator, or
@@ -27,9 +32,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops import ggx
 from ..ops.camera_rays import primary_ray_directions
+from ..ops.composite import composite
 from ..ops.culling import (
+    ClusterBounds,
     cluster_bounds,
     live_bounds,
     morton_codes,
@@ -37,9 +45,21 @@ from ..ops.culling import (
     select_candidates,
     tile_pixel_order,
 )
-from ..ops.cuda.layout import pack_frames, unpack_composite
+from ..ops.cuda.layout import pack_frames, unpack_composite, unpack_slots
 from ..ops.cuda.render_kernel import check_every_for, render_culled
-from ..ops.precision import norm
+from ..ops.cuda.scatter import scatter_add
+from ..ops.cuda.trace_slots import exit_mode_for, trace_slots
+from ..ops.gaussian_kernel import ROUGHNESS_DOWNWEIGHT_GRAD_POWER
+from ..ops.precision import norm, rounded
+from ..ops.render_grads import (
+    SCATTER_COLS,
+    backward_step,
+    grads_from_accumulator,
+    new_grad_accumulator,
+    pack_scatter_payload,
+    sign,
+)
+from ..ops.trace import RayHits
 from ..scene.gaussian_scene import GaussianScene, build_frames
 
 COMPOSITE_MODES = ("kbuffer", "scan", "scanq")
@@ -102,16 +122,41 @@ class FrameSamples(NamedTuple):
     us: torch.Tensor             # [S, H*W, 2] GGX uniforms in [0, 1)
 
 
+class RayTargets(NamedTuple):
+    """Per-ray supervision targets (framebuffer.h:145-152)."""
+
+    diffuse: torch.Tensor    # [R, 3]
+    specular: torch.Tensor   # [R, 3]
+    depth: torch.Tensor      # [R]
+    normal: torch.Tensor     # [R, 3]
+    roughness: torch.Tensor  # [R]
+    f0: torch.Tensor         # [R, 3]
+
+
+def targets_from_numpy(values: dict,
+                       device: torch.device | str = DEFAULT_DEVICE
+                       ) -> RayTargets:
+    """RayTargets from a field dict of arrays (e.g. a JAX RayTargets'
+    _asdict()), float32 on the card unless `device` says otherwise."""
+    device = resolve_device(device)
+    return RayTargets(**{
+        f: torch.tensor(np.asarray(values[f], np.float32), device=device)
+        for f in RayTargets._fields})
+
+
 def render_settings_from_numpy(values: dict) -> RenderSettings:
     """RenderSettings from a field dict (e.g. a JAX settings' _asdict())."""
     return RenderSettings(**{k: float(np.asarray(v)) for k, v in
                              values.items()})
 
 
-def camera_from_numpy(values: dict, device: torch.device | str = "cpu"
+def camera_from_numpy(values: dict,
+                      device: torch.device | str = DEFAULT_DEVICE
                       ) -> CameraParams:
     """CameraParams from a field dict of arrays (e.g. a JAX camera's
-    _asdict())."""
+    _asdict()), on the card unless `device` says otherwise."""
+    device = resolve_device(device)
+
     def vec(name):
         return torch.tensor(np.asarray(values[name], np.float32),
                             device=device)
@@ -222,6 +267,27 @@ def _prepare_fused_frame(scene: GaussianScene, camera: CameraParams,
                 ray_perm=ray_perm, ray_inv=ray_inv, R=R)
 
 
+def secondary_order(rays_o, rays_d, alive, scene_lo, scene_hi,
+                    group_rays: int | None = None):
+    """(order, inverse) re-tiling a reflected wavefront: a stable sort by
+    (group, liveness, origin Morton cell, direction bin), so tile cones stay
+    tight and dead tiles skip.  With `group_rays`, rays stay inside their
+    consecutive groups of that many (the training step's ray tiles, which
+    the JAX package traces one at a time)."""
+    pos_bits = morton_codes(rays_o, scene_lo, scene_hi, bits=5)
+    qd = torch.clamp((rays_d * 0.5 + 0.5) * 4.0, 0, 3).to(torch.int64)
+    dir_bits = (qd[:, 0] << 4) | (qd[:, 1] << 2) | qd[:, 2]
+    keys = torch.where(alive, 0, 1 << 26) | (pos_bits << 6) | dir_bits
+    R = rays_o.shape[0]
+    index = torch.arange(R, device=rays_o.device)
+    if group_rays is not None:
+        keys = keys | ((index // group_rays) << 27)
+    order = torch.sort(keys, stable=True).indices
+    inv_order = torch.empty_like(order)
+    inv_order[order] = index
+    return order, inv_order
+
+
 class KernelCall(NamedTuple):
     """One bounce's render_culled arguments, rays in wavefront order."""
 
@@ -241,19 +307,11 @@ def kernel_call(rays_o, rays_d, alive, step: int, gpack, bounds, scene_lo,
                 ) -> KernelCall:
     """Order the wavefront of bounce `step`, cull per tile, and assemble
     the render kernel's arguments."""
-    Rp = rays_o.shape[0]
     near = znear if step == 0 else 0.0
     inv_order = None
     if step > 0:
-        # re-tile reflected rays by (liveness, origin Morton cell, direction
-        # bin) so tile cones stay tight and dead tiles skip
-        pos_bits = morton_codes(rays_o, scene_lo, scene_hi, bits=5)
-        qd = torch.clamp((rays_d * 0.5 + 0.5) * 4.0, 0, 3).to(torch.int64)
-        dir_bits = (qd[:, 0] << 4) | (qd[:, 1] << 2) | qd[:, 2]
-        keys = torch.where(alive, 0, 1 << 26) | (pos_bits << 6) | dir_bits
-        order = torch.sort(keys, stable=True).indices
-        inv_order = torch.empty_like(order)
-        inv_order[order] = torch.arange(Rp, device=order.device)
+        order, inv_order = secondary_order(rays_o, rays_d, alive, scene_lo,
+                                           scene_hi)
         rays_o, rays_d, alive = rays_o[order], rays_d[order], alive[order]
     mc = (max_clusters if step == 0 or max_clusters_secondary is None
           else max_clusters_secondary)
@@ -277,6 +335,29 @@ def kernel_call(rays_o, rays_d, alive, step: int, gpack, bounds, scene_lo,
     return KernelCall(args, kwargs, inv_order, tdrop_ray)
 
 
+def next_wavefront(normal, roughness, depth, f0, rays_o, rays_d, throughput,
+                   alive, u, settings: RenderSettings):
+    """Normal post-processing, path termination, GGX reflection sample and
+    cumulative throughput (shaders.cu:116-146): the next bounce's (origin,
+    direction, throughput, alive).  Dead rays get zero throughput, so a NaN
+    weight of a degenerate normal never reaches a later bounce."""
+    nlen = norm(normal)
+    eff_normal = normal / torch.clamp(nlen, min=1e-20)[:, None]
+    eff_roughness = torch.clamp(roughness, min=settings.eps_min_roughness)
+    next_alive = alive & (nlen >= settings.reflection_invalid_normal_threshold)
+    eff_position = rays_o + depth[:, None] * rays_d
+    next_dir = ggx.sample_cook_torrance(eff_normal, -rays_d, eff_roughness, u)
+    next_origin = eff_position + settings.eps_ray_surface_offset * next_dir
+    w = ggx.cook_torrance_weight(eff_normal, -rays_d, next_dir,
+                                 eff_roughness, f0)
+    big = torch.finfo(torch.float32).max   # nan_to_num's bounds, as in JAX
+    next_throughput = torch.where(
+        next_alive[:, None],
+        throughput * torch.nan_to_num(w, posinf=big, neginf=-big),
+        torch.zeros_like(throughput))
+    return next_origin, next_dir, next_throughput, next_alive
+
+
 def bounce_epilogue(out, call: KernelCall, rays_o, rays_d, throughput, alive,
                     u, step: int, settings: RenderSettings, zfar: float):
     """Per-ray epilogue of one bounce (shaders.cu:116-146): the step's
@@ -290,22 +371,9 @@ def bounce_epilogue(out, call: KernelCall, rays_o, rays_d, throughput, alive,
     starved = _starved(call.tdrop_ray, zfar, comp["full_T"], alive,
                        settings.transmittance_threshold)
     rgb = comp["rgb"] if step == 0 else comp["rgb"] * throughput
-    normal = comp["normal"]
-    nlen = norm(normal)
-    eff_normal = normal / torch.clamp(nlen, min=1e-20)[:, None]
-    eff_roughness = torch.clamp(comp["roughness"],
-                                min=settings.eps_min_roughness)
-    next_alive = alive & (nlen >= settings.reflection_invalid_normal_threshold)
-    eff_position = rays_o + comp["depth"][:, None] * rays_d
-    next_dir = ggx.sample_cook_torrance(eff_normal, -rays_d, eff_roughness, u)
-    next_origin = eff_position + settings.eps_ray_surface_offset * next_dir
-    w = ggx.cook_torrance_weight(eff_normal, -rays_d, next_dir,
-                                 eff_roughness, comp["f0"])
-    big = torch.finfo(torch.float32).max   # nan_to_num's bounds, as in JAX
-    next_throughput = torch.where(
-        next_alive[:, None],
-        throughput * torch.nan_to_num(w, posinf=big, neginf=-big),
-        torch.zeros_like(throughput))
+    next_origin, next_dir, next_throughput, next_alive = next_wavefront(
+        comp["normal"], comp["roughness"], comp["depth"], comp["f0"], rays_o,
+        rays_d, throughput, alive, u, settings)
     next_alive &= (next_throughput.amax(dim=-1)
                    > settings.secondary_throughput_threshold)
     record = dict(
@@ -532,3 +600,243 @@ def render_accumulated_chunked(
         pending = cur
     acc = [a.to(torch.float32) for a in acc]
     return StepOutputs(*acc[:-1]), acc[-1]
+
+
+# ---------------------------------------------------------------------------
+# Training: forward + loss-fused backward through the slots kernel
+# ---------------------------------------------------------------------------
+
+
+def loss_gradients_per_step(steps: StepOutputs, targets: RayTargets,
+                            settings: RenderSettings, num_bounces: int):
+    """Per-ray upstream gradients of the fused L1 losses, per step.
+
+    backward_pass.cu:80-108: sign of the difference times the loss weight,
+    deliberately not averaged over pixels, with the specular term shared
+    across bounce steps, weighted by the previous step's throughput and the
+    (1 - roughness)^3 downweighting.  Returns per step (dL_drgb [R, 3],
+    dL_dnormal [R, 3], dL_df0 [R, 3], dL_droughness [R], dL_ddepth [R])."""
+    out = []
+    spec_pred = None
+    if num_bounces > 0:
+        spec_pred = steps.rgb[1]
+        for b in range(2, num_bounces + 1):
+            spec_pred = spec_pred + steps.rgb[b]
+    third = 1.0 / 3.0
+    for step in range(num_bounces + 1):
+        if step == 0:
+            dL_drgb = third * sign(steps.rgb[0] - targets.diffuse) \
+                * settings.loss_weight_diffuse
+            dL_ddepth = sign(steps.depth[0] - targets.depth) \
+                * settings.loss_weight_depth
+            dL_dnormal = third * sign(steps.normal[0] - targets.normal) \
+                * settings.loss_weight_normal
+            dL_df0 = third * sign(steps.f0[0] - targets.f0) \
+                * settings.loss_weight_f0
+            dL_drough = sign(steps.roughness[0] - targets.roughness) \
+                * settings.loss_weight_roughness
+        else:
+            downweight = rounded(
+                torch.pow,
+                torch.clamp(1.0 - steps.roughness[step - 1], min=0.0),
+                ROUGHNESS_DOWNWEIGHT_GRAD_POWER)
+            dL_drgb = (third * sign(spec_pred - targets.specular)
+                       * settings.loss_weight_specular * downweight[:, None])
+            # times the throughput of the previous step (backward_pass.cu:107)
+            dL_drgb = dL_drgb * steps.throughput[step - 1]
+            dL_ddepth = torch.zeros_like(targets.depth)
+            dL_dnormal = torch.zeros_like(targets.normal)
+            dL_df0 = torch.zeros_like(targets.f0)
+            dL_drough = torch.zeros_like(targets.depth)
+        out.append((dL_drgb, dL_dnormal, dL_df0, dL_drough, dL_ddepth))
+    return out
+
+
+def scene_box(bounds: ClusterBounds):
+    """Per-axis box of the valid cluster spheres: the training step's frame
+    for the Morton cells of reflected-ray origins."""
+    v = bounds.any_valid[:, None]
+    r = bounds.radius[:, None]
+    inf = torch.tensor(float("inf"), device=r.device)
+    lo = torch.where(v, bounds.center - r, inf).amin(dim=0)
+    hi = torch.where(v, bounds.center + r, -inf).amax(dim=0)
+    return lo, hi
+
+
+def slots_call(rays_o, rays_d, alive, step: int, gpack, table, ftable,
+               bounds: ClusterBounds, scene_lo, scene_hi,
+               settings: RenderSettings, znear: float, zfar: float, *,
+               max_hits: int, cull_tile: int, cull_cluster: int,
+               max_clusters: int, n_capacity: int, exp_power_static: float,
+               tile_rays: int | None) -> KernelCall:
+    """Order the wavefront of bounce `step` (reflected rays re-sorted within
+    their `tile_rays` groups), cull per tile, and assemble trace_slots'
+    arguments, with the exit mode of the Pallas kernel the JAX dispatch
+    would run for this capacity."""
+    near = znear if step == 0 else 0.0
+    inv_order = None
+    if step > 0:
+        order, inv_order = secondary_order(rays_o, rays_d, alive, scene_lo,
+                                           scene_hi, tile_rays)
+        rays_o, rays_d, alive = rays_o[order], rays_d[order], alive[order]
+    cands, cnear, _n, _ovf, tdrop = select_candidates(
+        rays_o, rays_d, bounds, near, zfar, tile=cull_tile,
+        max_clusters=max_clusters)
+    tdrop_ray = tdrop.repeat_interleave(cull_tile)
+    if inv_order is not None:
+        tdrop_ray = tdrop_ray[inv_order]
+    exit_mode, check_every = exit_mode_for(n_capacity)
+    args = (rays_o.contiguous(), rays_d.contiguous(), gpack, table, ftable,
+            cands, cnear, near, zfar, exp_power_static,
+            1.0 if step > 0 else 0.0, settings.backfacing_max_dist,
+            settings.backfacing_invalid_normal_threshold)
+    kwargs = dict(
+        transmittance_threshold=settings.transmittance_threshold,
+        max_hits=max_hits, cluster=cull_cluster, tile=cull_tile, alive=alive,
+        secondary_static=1 if step > 0 else 0, exit_mode=exit_mode,
+        check_every=check_every)
+    return KernelCall(args, kwargs, inv_order, tdrop_ray)
+
+
+def fused_forward(
+    rays_o, rays_d, settings: RenderSettings, znear: float, zfar: float,
+    us: torch.Tensor, num_bounces: int, max_hits: int, *, gpack, table,
+    ftable, bounds: ClusterBounds, cull_tile: int, cull_cluster: int,
+    max_clusters: int, n_capacity: int, exp_power_static: float = 3.0,
+    tile_rays: int | None = None,
+):
+    """The training forward: per bounce one trace_slots launch, then the
+    composite and the GGX epilogue on the [R, K] slots, all rows in
+    canonical order.  Returns (StepOutputs [S, R, ...], final rgb [R, 3],
+    per-bounce residuals (hits, comp, attrs, frames), per-bounce
+    KernelCalls)."""
+    R = rays_o.shape[0]
+    K = max_hits
+    dev = rays_o.device
+    scene_lo, scene_hi = scene_box(bounds)
+    alive = torch.ones((R,), dtype=torch.bool, device=dev)
+    throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
+    outs, residuals, calls = [], [], []
+    for step in range(num_bounces + 1):
+        call = slots_call(
+            rays_o, rays_d, alive, step, gpack, table, ftable, bounds,
+            scene_lo, scene_hi, settings, znear, zfar, max_hits=K,
+            cull_tile=cull_tile, cull_cluster=cull_cluster,
+            max_clusters=max_clusters, n_capacity=n_capacity,
+            exp_power_static=exp_power_static, tile_rays=tile_rays)
+        slots, acc = trace_slots(*call.args, **call.kwargs)
+        if call.inv_order is not None:
+            # everything downstream is row-local: back to canonical order
+            slots, acc = slots[call.inv_order], acc[call.inv_order]
+        hits_d, attrs_d, frames_d = unpack_slots(slots, acc, K, rays_o,
+                                                 rays_d)
+        hits = RayHits(**hits_d)
+        comp = composite(hits, attrs_d["rgb"], attrs_d["normal"],
+                         attrs_d["f0"], attrs_d["roughness"],
+                         settings.transmittance_threshold,
+                         settings.eps_forward_normalization)
+        residuals.append((hits, comp, attrs_d, frames_d))
+        calls.append(call)
+
+        rgb_step = comp.rgb if step == 0 else comp.rgb * throughput
+        next_origin, next_dir, next_throughput, next_alive = next_wavefront(
+            comp.normal, comp.roughness, comp.depth, comp.f0, rays_o, rays_d,
+            throughput, alive, us[step], settings)
+        outs.append(dict(
+            rgb=rgb_step, normal=comp.normal, f0=comp.f0,
+            roughness=comp.roughness, depth=comp.depth,
+            transmittance=comp.T_final, total_transmittance=comp.full_T,
+            throughput=next_throughput, alive=alive.to(torch.float32),
+            overflow=_starved(call.tdrop_ray, zfar, comp.full_T, alive,
+                              settings.transmittance_threshold)))
+        rays_o, rays_d = next_origin, next_dir
+        throughput, alive = next_throughput, next_alive
+
+    steps = StepOutputs(**{k: torch.stack([o[k] for o in outs], dim=0)
+                           for k in outs[0]})
+    return steps, steps.rgb.sum(dim=0), residuals, calls
+
+
+def hit_grads(steps: StepOutputs, residuals: list, targets: RayTargets,
+              settings: RenderSettings, num_bounces: int, n_capacity: int):
+    """The loss-fused backward of every bounce: (payload [S*R*K,
+    SCATTER_COLS] f32, ids [S*R*K] int32, -1 for empty slots), the rows
+    scatter_add takes.  Empties `residuals` as it goes."""
+    dLs = loss_gradients_per_step(steps, targets, settings, num_bounces)
+    hits0 = residuals[0][0]
+    M = hits0.t.numel()
+    dev = hits0.t.device
+    num_steps = num_bounces + 1
+    payload = torch.empty((num_steps * M, SCATTER_COLS), dtype=torch.float32,
+                          device=dev)
+    ids = torch.empty((num_steps * M,), dtype=torch.int32, device=dev)
+    for step in range(num_steps):
+        hits, comp, attrs_d, frames_d = residuals[step]
+        residuals[step] = None
+        per_hit = backward_step(
+            hits, comp, attrs_d["rgb"], attrs_d["normal"], attrs_d["f0"],
+            attrs_d["roughness"], frames_d["opacity"],
+            frames_d["scaling_act"], frames_d["rotation_raw"],
+            frames_d["rot_mat"], frames_d["inv_sizes"], frames_d["sf"],
+            *dLs[step], settings.exp_power, settings.eps_scale_grad,
+            n_capacity, settings.global_scale_factor)
+        rows = slice(step * M, (step + 1) * M)
+        pack_scatter_payload(per_hit, out=payload[rows])
+        ids[rows] = torch.where(hits.valid, hits.ids,
+                                torch.full_like(hits.ids, -1)).reshape(-1)
+    return payload, ids
+
+
+def render_tile_with_grads_fused(
+    rays_o, rays_d, targets: RayTargets, settings: RenderSettings,
+    znear: float, zfar: float, us: torch.Tensor, num_bounces: int,
+    max_hits: int, *, gpack, table, ftable, bounds: ClusterBounds,
+    cull_tile: int, cull_cluster: int, max_clusters: int, n_capacity: int,
+    exp_power_static: float = 3.0, use_mxu_scatter: bool = False,
+    split_far: bool = False, tile_rays: int | None = None,
+    grad_acc: torch.Tensor | None = None,
+):
+    """Forward + loss-fused backward of a batch of rays via the slots kernel.
+
+    Per bounce one trace_slots launch returns depth-sorted slots carrying
+    t/alpha/id plus the shading attributes and frame fields of every kept
+    hit; the composite, the GGX epilogue and backward_step then run on the
+    [R, K] slot data directly (fused_forward, hit_grads), and one
+    scatter_add launch adds every bounce's per-hit gradients into the
+    float64 accumulator.
+
+    us [num_bounces + 1, R, 2]: the GGX uniforms of each bounce, per ray.
+    rays_o/rays_d may hold several of the JAX package's ray tiles back to
+    back (`tile_rays` rays each): reflected rays are re-sorted only within
+    their own tile, as the JAX step re-sorts each tile it traces, so every
+    ray's result equals its tile-by-tile result.  The scene tables are in
+    the Morton-sorted layout of prepare_render_inputs; so are the grads.
+
+    grad_acc: the step's [N, SCATTER_COLS] float64 sums to add into; the
+    caller rounds them once (grads_from_accumulator).  Without it the
+    function makes its own and returns the rounded ParamGrads; with it the
+    third return value is None.  `use_mxu_scatter` selects the same scatter
+    kernel: the port has no separate one-hot form.  split_far=True raises.
+
+    Returns (StepOutputs [S, R, ...], final rgb [R, 3], ParamGrads | None).
+    """
+    if split_far:
+        raise NotImplementedError(
+            "split_far=True: the two-pass near/far bounce (merge_slots, "
+            "window modes 1/2) is not ported yet (ROADMAP.md Queue 1, "
+            "item 13)")
+    del use_mxu_scatter  # one scatter kernel serves both JAX forms
+    steps, final, residuals, _calls = fused_forward(
+        rays_o, rays_d, settings, znear, zfar, us, num_bounces, max_hits,
+        gpack=gpack, table=table, ftable=ftable, bounds=bounds,
+        cull_tile=cull_tile, cull_cluster=cull_cluster,
+        max_clusters=max_clusters, n_capacity=n_capacity,
+        exp_power_static=exp_power_static, tile_rays=tile_rays)
+    payload, ids = hit_grads(steps, residuals, targets, settings,
+                             num_bounces, n_capacity)
+    acc = grad_acc
+    if acc is None:
+        acc = new_grad_accumulator(n_capacity, payload.device)
+    scatter_add(acc, payload, ids)
+    grads = grads_from_accumulator(acc) if grad_acc is None else None
+    return steps, final, grads

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.activations import clipped_relu_act, relu_act, sigmoid_act
 from ..ops.gaussian_kernel import compute_scaling_factor
 from ..ops.intersect import GaussianFrames
@@ -115,8 +116,10 @@ def round_up(n: int, multiple: int) -> int:
 
 def from_arrays(xyz, scaling, rotation, opacity, diffuse, normal, f0,
                 roughness, pad_multiple: int = 2048,
-                device: torch.device | str = "cpu") -> GaussianScene:
-    """Build a scene from numpy arrays, padding N to a chunk multiple."""
+                device: torch.device | str = DEFAULT_DEVICE) -> GaussianScene:
+    """Build a scene from numpy arrays, padding N to a chunk multiple (on
+    the card unless `device` says otherwise)."""
+    device = resolve_device(device)
     n = xyz.shape[0]
 
     def f32(a, shape=None):
@@ -133,10 +136,11 @@ def from_arrays(xyz, scaling, rotation, opacity, diffuse, normal, f0,
 
 
 def from_numpy(params: dict[str, np.ndarray],
-               device: torch.device | str = "cpu") -> GaussianScene:
+               device: torch.device | str = DEFAULT_DEVICE) -> GaussianScene:
     """Carry a scene across field by field, padded rows and live_mask
     included (e.g. ``{f: np.asarray(getattr(jax_scene, f)) for f in
     GaussianScene._fields}``)."""
+    device = resolve_device(device)
     fields = {}
     for name in GaussianScene._fields:
         a = np.asarray(params[name])

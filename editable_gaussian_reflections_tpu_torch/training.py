@@ -1,0 +1,521 @@
+"""Training engine: the train step and the dynamic-count host operations
+(twin of the JAX training.py).
+
+  * per-param-group Adam (eps 1e-15, outside the sqrt like torch) with the
+    Plenoxels log-lerp xyz LR schedule x spatial_lr_scale, in the JAX
+    package's operation order, with a per-field LR dict passed in each step;
+  * one step = Morton sort + tables, primary rays, then the ray tiles'
+    forward + loss-fused backward (renderer/raytracer.py
+    render_tile_with_grads_fused: one slots-trace launch per bounce and one
+    gradient-scatter launch per batch of tiles), scale decay, Adam, clamps;
+  * pruning by accumulated total_weight clears live_mask and zeroes the
+    pruned slots' Adam moments; on prune iterations the reference zeroes
+    all gradients before the Adam step (apply_grads=0).
+
+Batches of tiles.  The JAX step walks its ray tiles one after another (a
+lax.scan, a TPU memory knob).  Here several tiles go through one launch per
+bounce: reflected rays are re-sorted within their own tile and the GGX
+uniforms are drawn per tile, so each ray's forward is its tile-by-tile
+forward, and the gradients of all tiles land in one float64 accumulator
+rounded once per step, so their order does not matter.  A launch takes as
+many tiles as fit half the card's total memory (`tiles_per_launch_for`), so
+the launch count depends only on the card and the step's shapes.
+
+Randomness: the JAX step draws its jitter and GGX uniforms from a key; the
+port draws the same quantities (TrainSamples) from a torch.Generator, or
+takes them from the caller, as the tests do to hand both the same numbers.
+
+Not ported yet, and raising: the non-fused step (use_pallas=False or
+use_culling=False: render_tile_with_grads and the brute-force trace) and
+split_far.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .config import Config
+from .device import DEFAULT_DEVICE, resolve_device
+from .ops.camera_rays import primary_ray_directions
+from .ops.culling import cluster_bounds, morton_order, tile_pixel_order
+from .ops.cuda.layout import pack_attr_table, pack_frame_table, pack_frames
+from .ops.precision import div, rounded
+from .ops.render_grads import (
+    ParamGrads,
+    grads_from_accumulator,
+    new_grad_accumulator,
+)
+from .renderer.raytracer import (
+    CameraParams,
+    RayTargets,
+    RenderSettings,
+    render_tile_with_grads_fused,
+)
+from .scene.gaussian_scene import (
+    GaussianScene,
+    build_frames,
+    from_numpy,
+    pad_to,
+    round_up,
+)
+from .utils.general import get_expon_lr_func
+
+
+class TrainState(NamedTuple):
+    scene: GaussianScene
+    mu: GaussianScene          # Adam first moments (same fields as params)
+    nu: GaussianScene          # Adam second moments
+    count: int                 # Adam step count
+    total_weight: torch.Tensor  # [N] accumulated per-Gaussian weight
+
+
+class TrainSamples(NamedTuple):
+    """The random numbers one step consumes."""
+
+    jitter: torch.Tensor | None  # [H, W, 2] sub-pixel offsets, [-0.5, 0.5)
+    us: torch.Tensor             # [T, S, tile, 2] GGX uniforms per ray tile
+                                 # and bounce, rays in the tile's order
+
+
+PARAM_FIELDS = ("xyz", "scaling", "rotation", "opacity", "diffuse", "normal",
+                "f0", "roughness")
+_GRAD_TO_PARAM = dict(mean="xyz", scale="scaling", rotation="rotation",
+                      opacity="opacity", rgb="diffuse", normal="normal",
+                      f0="f0", roughness="roughness")
+# device bytes a batch holds per (bounce, ray, slot): slots, unpacked
+# frames, gradient payload and the backward's transients, with room to
+# spare (the full-width step peaked at 30.7 GB for 56.6M of them, 540 B
+# each, on an H100 80GB HBM3); bounds tiles_per_launch
+BYTES_PER_RAY_HIT = 640
+
+
+def init_train_state(scene: GaussianScene) -> TrainState:
+    zeros = scene._replace(**{f: torch.zeros_like(getattr(scene, f))
+                              for f in PARAM_FIELDS})
+    return TrainState(scene=scene, mu=zeros, nu=zeros, count=0,
+                      total_weight=torch.zeros(scene.capacity,
+                                               dtype=torch.float32,
+                                               device=scene.xyz.device))
+
+
+def train_state_from_numpy(values: dict,
+                           device: torch.device | str = DEFAULT_DEVICE
+                           ) -> TrainState:
+    """Carry a TrainState across field by field: `values` holds "scene",
+    "mu" and "nu" as dicts of GaussianScene fields, "count" and
+    "total_weight" (e.g. converted from a JAX TrainState)."""
+    device = resolve_device(device)
+    return TrainState(
+        scene=from_numpy(values["scene"], device),
+        mu=from_numpy(values["mu"], device),
+        nu=from_numpy(values["nu"], device),
+        count=int(np.asarray(values["count"])),
+        total_weight=torch.tensor(np.asarray(values["total_weight"],
+                                             np.float32), device=device))
+
+
+def settings_from_config(cfg: Config) -> RenderSettings:
+    """GaussianRaytracer.__init__ pushes cfg loss weights/thresholds into the
+    device config (gaussian_raytracer.py:16-25)."""
+    return RenderSettings(
+        exp_power=float(cfg.exp_power),
+        alpha_threshold=cfg.alpha_threshold,
+        transmittance_threshold=cfg.transmittance_threshold,
+        loss_weight_diffuse=cfg.loss_weight_diffuse,
+        loss_weight_specular=cfg.loss_weight_specular,
+        loss_weight_depth=cfg.loss_weight_depth,
+        loss_weight_normal=cfg.loss_weight_normal,
+        loss_weight_f0=cfg.loss_weight_f0,
+        loss_weight_roughness=cfg.loss_weight_roughness,
+    )
+
+
+def lr_tree(cfg: Config, iteration: int, spatial_lr_scale: float) -> dict:
+    """Per-field LRs incl. the xyz schedule (gaussian_model.py:286-351)."""
+    sched = get_expon_lr_func(
+        lr_init=cfg.xyz_lr_init * spatial_lr_scale,
+        lr_final=cfg.xyz_lr_final * spatial_lr_scale,
+        lr_delay_mult=cfg.xyz_lr_delay_mult,
+        max_steps=cfg.xyz_lr_max_steps,
+    )
+    return dict(xyz=float(sched(iteration)), scaling=cfg.scaling_lr,
+                rotation=cfg.rotation_lr, opacity=cfg.opacity_lr,
+                diffuse=cfg.diffuse_lr, normal=cfg.normal_lr, f0=cfg.f0_lr,
+                roughness=cfg.roughness_lr)
+
+
+def prepare_render_inputs(scene: GaussianScene, settings: RenderSettings,
+                          use_pallas: bool, use_culling: bool, cull_tile: int,
+                          cull_cluster: int, max_clusters: int,
+                          split_far: bool = False):
+    """Per-step scene preprocessing of the fused path: activated frames,
+    Morton sort (the BVH-refit analog), cluster bounds and the kernels'
+    tables, all in the sorted layout.
+
+    Returns (frames, attrs, gpack, culling, scene_for_bwd, gauss_perm)."""
+    if not (use_pallas and use_culling):
+        raise NotImplementedError(
+            f"use_pallas={use_pallas}, use_culling={use_culling}: the "
+            "non-fused training step (render_tile_with_grads, the brute-force "
+            "trace) is not ported yet (ROADMAP.md Queue 1, items 2 and 3)")
+    if split_far:
+        raise NotImplementedError(
+            "split_far=True: the two-pass near/far bounce is not ported yet "
+            "(ROADMAP.md Queue 1, item 13)")
+    frames, attrs = build_frames(scene, settings.alpha_threshold,
+                                 settings.exp_power,
+                                 settings.global_scale_factor)
+    gauss_perm = morton_order(frames)
+    frames = frames.take(gauss_perm)
+    attrs = attrs.take(gauss_perm)
+    scene_for_bwd = GaussianScene(*(a[gauss_perm] for a in scene))
+    culling = dict(bounds=cluster_bounds(frames, cull_cluster),
+                   cull_tile=cull_tile, cluster=cull_cluster, mc=max_clusters,
+                   table=pack_attr_table(attrs).contiguous(),
+                   ftable=pack_frame_table(frames,
+                                           scene_for_bwd).contiguous())
+    gpack = pack_frames(frames, attrs).contiguous()
+    return frames, attrs, gpack, culling, scene_for_bwd, gauss_perm
+
+
+def prepare_rays(width: int, height: int, camera: CameraParams,
+                 jitter: torch.Tensor | None, cull_tile: int,
+                 use_culling: bool):
+    """Primary ray dirs (+ optional jitter [H, W, 2]) and the square-pixel
+    tile permutation used when culling.  Returns (dirs [R, 3],
+    ray_perm | None, ray_inv | None)."""
+    dirs = primary_ray_directions(width, height, camera.fov_y, camera.c2w,
+                                  jitter=jitter).reshape(-1, 3)
+    ray_perm = ray_inv = None
+    if use_culling:
+        th = tw = int(cull_tile ** 0.5)
+        if height % th or width % tw or th * tw != cull_tile:
+            th, tw = 16, cull_tile // 16
+        if height % th == 0 and width % tw == 0:
+            perm_np, inv_np = tile_pixel_order(height, width, th, tw)
+            dev = dirs.device
+            ray_perm = torch.as_tensor(perm_np, dtype=torch.int64, device=dev)
+            ray_inv = torch.as_tensor(inv_np, dtype=torch.int64, device=dev)
+            dirs = dirs[ray_perm]
+    return dirs, ray_perm, ray_inv
+
+
+def tiles_per_launch_for(num_tiles: int, tile: int, num_steps: int,
+                         max_hits: int, device: torch.device) -> int:
+    """How many ray tiles one launch per bounce takes: as many as fit in
+    half the card's total memory, 1 GiB on the CPU."""
+    if device.type == "cuda":
+        budget = torch.cuda.get_device_properties(device).total_memory // 2
+    else:
+        budget = 1 << 30
+    per_tile = tile * num_steps * max_hits * BYTES_PER_RAY_HIT
+    return max(1, min(num_tiles, budget // per_tile))
+
+
+def tile_batch(origin, dirs_t, targets_t: RayTargets, us_t, b0: int,
+               b1: int):
+    """Tiles b0..b1-1 as one batch of rays: (rays_o, rays_d, targets,
+    us [S, rays, 2])."""
+    B, tile = b1 - b0, dirs_t.shape[1]
+    rays_d = dirs_t[b0:b1].reshape(B * tile, 3)
+    targets = RayTargets(*(a[b0:b1].reshape((B * tile,) + a.shape[2:])
+                           for a in targets_t))
+    us = us_t[b0:b1].permute(1, 0, 2, 3).reshape(us_t.shape[1], B * tile, 2)
+    return origin.expand(B * tile, 3), rays_d, targets, us
+
+
+def grads_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
+                     camera: CameraParams, us_t, num_bounces: int,
+                     max_hits: int, exp_power_static: float, gpack,
+                     culling: dict, n_capacity: int,
+                     tiles_per_launch: int | None = None):
+    """The fused forward + backward over [T, tile, ...] ray tiles, in
+    batches of `tiles_per_launch` tiles (module docstring; None:
+    tiles_per_launch_for's count).
+
+    us_t [T, S, tile, 2] are each tile's GGX uniforms.  Returns (ParamGrads
+    summed over tiles, rounded once; l1_diffuse summed over rays; the sum
+    of the starved flags over bounces and rays)."""
+    T, tile = dirs_t.shape[:2]
+    dev = dirs_t.device
+    if tiles_per_launch is None:
+        tiles_per_launch = tiles_per_launch_for(T, tile, num_bounces + 1,
+                                                max_hits, dev)
+    acc = new_grad_accumulator(n_capacity, dev)
+    l1_tiles, starved = [], []
+    for b0 in range(0, T, tiles_per_launch):
+        b1 = min(T, b0 + tiles_per_launch)
+        rays_o, rays_d, targets, us = tile_batch(origin, dirs_t, targets_t,
+                                                 us_t, b0, b1)
+        steps, _final, _ = render_tile_with_grads_fused(
+            rays_o, rays_d, targets, settings, camera.znear, camera.zfar, us,
+            num_bounces, max_hits, gpack=gpack, table=culling["table"],
+            ftable=culling["ftable"], bounds=culling["bounds"],
+            cull_tile=culling["cull_tile"], cull_cluster=culling["cluster"],
+            max_clusters=culling["mc"], n_capacity=n_capacity,
+            exp_power_static=exp_power_static, tile_rays=tile, grad_acc=acc)
+        err = (steps.rgb[0] - targets.diffuse).abs()
+        per_ray = div(err[:, 0] + err[:, 1] + err[:, 2], 3.0)
+        l1_tiles.append(per_ray.reshape(b1 - b0, tile).to(torch.float64)
+                        .sum(1))
+        starved.append(steps.overflow.to(torch.float64).sum())
+    l1 = torch.cat(l1_tiles).sum()
+    return grads_from_accumulator(acc), l1, torch.stack(starved).sum()
+
+
+def apply_updates(state: TrainState, grads: ParamGrads, lrs: dict,
+                  hyper: dict) -> TrainState:
+    """Scale decay + per-group Adam + clamps (train.py:224-254), in the JAX
+    package's operation order; sqrt and pow from WIDE, rounded once."""
+    scene = state.scene
+    dev = scene.xyz.device
+    live = scene.live_mask
+    # scale decay right after render (train.py:224-226)
+    log_decay = rounded(torch.log, torch.tensor(hyper["scale_decay"],
+                                                dtype=torch.float32))
+    decayed = torch.where(live[:, None],
+                          scene.scaling + log_decay.to(dev), scene.scaling)
+    scene = scene._replace(scaling=decayed)
+
+    # Adam (torch semantics: m / (sqrt(v) + eps), bias-corrected)
+    g_tree = {_GRAD_TO_PARAM[k]: getattr(grads, k) for k in _GRAD_TO_PARAM}
+    apply = hyper["apply_grads"]
+    b1, b2 = hyper["beta_1"], hyper["beta_2"]
+    eps = 1e-15
+    count = state.count + 1
+
+    def bias(beta):
+        p = rounded(torch.pow, torch.tensor(beta, dtype=torch.float32),
+                    float(count))
+        return (1.0 - p).to(dev)
+
+    c1, c2 = bias(b1), bias(b2)
+    new_params, new_mu, new_nu = {}, {}, {}
+    for f in PARAM_FIELDS:
+        p = getattr(scene, f)
+        g = g_tree[f].reshape(p.shape) * apply
+        m = b1 * getattr(state.mu, f) + (1.0 - b1) * g
+        v = b2 * getattr(state.nu, f) + (1.0 - b2) * g * g
+        update = (m / c1) / (rounded(torch.sqrt, v / c2) + eps)
+        mask = live.reshape((-1,) + (1,) * (p.ndim - 1)).to(p.dtype)
+        new_params[f] = p - lrs[f] * update * mask
+        new_mu[f] = m
+        new_nu[f] = v
+
+    # clamps (train.py:251-254)
+    new_params["diffuse"] = torch.clamp(new_params["diffuse"], min=0.0)
+    new_params["roughness"] = torch.clamp(new_params["roughness"], 0.0, 1.0)
+    new_params["f0"] = torch.clamp(new_params["f0"], 0.0, 1.0)
+    return TrainState(
+        scene=scene._replace(**new_params),
+        mu=state.mu._replace(**new_mu),
+        nu=state.nu._replace(**new_nu),
+        count=count,
+        total_weight=state.total_weight + grads.total_weight,
+    )
+
+
+def draw_train_samples(generator: torch.Generator, width: int, height: int,
+                       tile: int, num_steps: int, jitter: bool = True
+                       ) -> TrainSamples:
+    """Draw a step's jitter and GGX uniforms on the generator's device."""
+    dev = generator.device
+    jit = None
+    if jitter:
+        jit = torch.rand((height, width, 2), generator=generator,
+                         device=dev) - 0.5
+    T = width * height // tile
+    us = torch.rand((T, num_steps, tile, 2), generator=generator, device=dev)
+    return TrainSamples(jitter=jit, us=us)
+
+
+def prepare_step(state: TrainState, camera: CameraParams,
+                 targets: RayTargets, settings: RenderSettings,
+                 generator: torch.Generator | None, width: int, height: int,
+                 num_bounces: int, tile: int, jitter: bool = True,
+                 use_pallas: bool = False, use_culling: bool = False,
+                 cull_tile: int = 256, cull_cluster: int = 256,
+                 max_clusters: int = 192, split_far: bool = False,
+                 samples: TrainSamples | None = None) -> dict:
+    """Everything a step computes before its ray tiles: the scene's sorted
+    tables, the samples, the primary rays and targets in pixel-tile order
+    cut into [T, tile, ...] ray tiles.  Returns a dict of grads_over_tiles'
+    inputs plus gauss_perm."""
+    scene = state.scene
+    cull_tile = min(cull_tile, 256)
+    _frames, _attrs, gpack, culling, _scene_s, gauss_perm = (
+        prepare_render_inputs(scene, settings, use_pallas, use_culling,
+                              cull_tile, cull_cluster, max_clusters,
+                              split_far=split_far))
+    R = width * height
+    tile_sz = min(tile, R)
+    # padding would duplicate rays and double-count their gradients; the
+    # host picks a tile size dividing H*W (pick_tile_size)
+    if R % tile_sz:
+        raise ValueError(f"H*W={R} must be divisible by tile={tile_sz}")
+    num_tiles = R // tile_sz
+    if samples is None:
+        if generator is None:
+            raise ValueError("a step needs samples or a generator")
+        samples = draw_train_samples(generator, width, height, tile_sz,
+                                     num_bounces + 1, jitter)
+    dirs, ray_perm, _ray_inv = prepare_rays(
+        width, height, camera, samples.jitter if jitter else None, cull_tile,
+        use_culling)
+    if ray_perm is not None:
+        targets = RayTargets(*(a[ray_perm] for a in targets))
+    return dict(
+        dirs_t=dirs.reshape(num_tiles, tile_sz, 3),
+        targets_t=RayTargets(*(a.reshape((num_tiles, tile_sz) + a.shape[1:])
+                               for a in targets)),
+        us_t=samples.us, gpack=gpack, culling=culling, gauss_perm=gauss_perm)
+
+
+def train_step(
+    state: TrainState,
+    camera: CameraParams,
+    targets: RayTargets,          # flattened [H*W, ...]
+    settings: RenderSettings,
+    lrs: dict,                    # per-field scalar LRs
+    hyper: dict,                  # beta_1, beta_2, scale_decay, apply_grads
+    generator: torch.Generator | None,
+    width: int,
+    height: int,
+    num_bounces: int,
+    max_hits: int,
+    chunk: int,
+    tile: int,
+    jitter: bool = True,
+    use_pallas: bool = False,
+    exp_power_static: float = 3.0,
+    use_culling: bool = False,
+    cull_tile: int = 256,
+    cull_cluster: int = 256,
+    max_clusters: int = 192,
+    split_far: bool = False,
+    samples: TrainSamples | None = None,
+):
+    """One training iteration (the JAX train_step's contract).
+
+    use_pallas/use_culling select the fused kernel path (the JAX package's
+    Pallas culled backend), the only one ported: anything else raises.
+    `chunk` belongs to the non-fused path and is not read.  The step's
+    randomness is `samples`, or drawn from `generator` when that is None.
+
+    Returns (new TrainState, metrics) with metrics l1_diffuse (mean over
+    rays) and starved (share of bounce x ray slots whose candidate list
+    overflowed while the ray was still accumulating), 0-d tensors."""
+    del chunk
+    prep = prepare_step(state, camera, targets, settings, generator, width,
+                        height, num_bounces, tile, jitter, use_pallas,
+                        use_culling, cull_tile, cull_cluster, max_clusters,
+                        split_far, samples)
+    grads, l1, starved = grads_over_tiles(
+        camera.origin, prep["dirs_t"], prep["targets_t"], settings, camera,
+        prep["us_t"], num_bounces, max_hits, exp_power_static, prep["gpack"],
+        prep["culling"], state.scene.capacity)
+    # grads are in the Morton-sorted layout; back to the scene's slots
+    grads = grads.take(torch.argsort(prep["gauss_perm"]))
+    new_state = apply_updates(state, grads, lrs, hyper)
+    R = width * height
+    metrics = dict(
+        l1_diffuse=(l1 / R).to(torch.float32),
+        starved=(starved / ((num_bounces + 1) * R)).to(torch.float32))
+    return new_state, metrics
+
+
+def prune_step(state: TrainState, kill: torch.Tensor) -> TrainState:
+    """prune_points + optimizer-state surgery + total_weight reset
+    (train.py:238-245, gaussian_model.py:479-532)."""
+    keep = ~kill
+    scene = state.scene._replace(live_mask=state.scene.live_mask & keep)
+
+    def mask_tree(tree):
+        return tree._replace(**{
+            f: getattr(tree, f)
+            * keep.reshape((-1,) + (1,) * (getattr(tree, f).ndim - 1))
+            for f in PARAM_FIELDS})
+
+    return TrainState(scene=scene, mu=mask_tree(state.mu),
+                      nu=mask_tree(state.nu), count=state.count,
+                      total_weight=torch.zeros_like(state.total_weight))
+
+
+def pick_tile_size(num_rays: int, preferred: int) -> int:
+    """Largest divisor of num_rays that is <= preferred."""
+    t = min(preferred, num_rays)
+    while num_rays % t != 0:
+        t -= 1
+    return t
+
+
+def targets_from_camera(camera, device: torch.device | str = DEFAULT_DEVICE
+                        ) -> RayTargets:
+    """Flatten a camera's G-buffers (image_height, image_width and the
+    *_image arrays) into per-ray targets (framebuffer fetch_targets).
+    Missing buffers become zeros (gaussian_raytracer.py:109-137)."""
+    device = resolve_device(device)
+    h, w = camera.image_height, camera.image_width
+    z3 = np.zeros((h * w, 3), np.float32)
+    z1 = np.zeros((h * w,), np.float32)
+
+    def flat3(img):
+        if img is None:
+            return z3
+        return np.asarray(img, np.float32).reshape(h * w, -1)[:, :3]
+
+    def flat1(img):
+        if img is None:
+            return z1
+        return np.asarray(img, np.float32).reshape(h * w, -1)[:, 0]
+
+    values = dict(diffuse=flat3(camera.diffuse_image),
+                  specular=flat3(camera.specular_image),
+                  depth=flat1(camera.depth_image),
+                  normal=flat3(camera.normal_image),
+                  roughness=flat1(camera.roughness_image),
+                  f0=flat3(camera.f0_image))
+    return RayTargets(**{k: torch.tensor(np.ascontiguousarray(v),
+                                         device=device)
+                         for k, v in values.items()})
+
+
+def append_with_opt_state(state: TrainState, new: dict,
+                          pad_multiple: int = 2048) -> TrainState:
+    """Far-field injection preserving survivors' Adam moments
+    (densification_postfix + cat_tensors_to_optimizer semantics): the live
+    rows, then the new ones, padded to a multiple of `pad_multiple`."""
+    scene = state.scene
+    dev = scene.xyz.device
+    idx = torch.nonzero(scene.live_mask).squeeze(1)
+    n_live = idx.numel()
+    n_new = np.asarray(new["xyz"]).shape[0]
+    cap = round_up(n_live + n_new, pad_multiple)
+    live_mask = torch.ones((n_live + n_new,), dtype=torch.bool, device=dev)
+
+    def rebuild(tree: GaussianScene, take_new: bool) -> GaussianScene:
+        fields = {}
+        for f in PARAM_FIELDS:
+            old = getattr(tree, f)[idx]
+            shape = (n_new,) + tuple(old.shape[1:])
+            if take_new:
+                add = torch.as_tensor(np.asarray(new[f], np.float32),
+                                      device=dev).reshape(shape)
+            else:
+                add = torch.zeros(shape, dtype=old.dtype, device=dev)
+            fields[f] = torch.cat([old, add])
+        return pad_to(GaussianScene(live_mask=live_mask, **fields), cap)
+
+    new_scene = rebuild(scene, take_new=True)
+    new_mu = rebuild(state.mu, take_new=False)._replace(
+        live_mask=new_scene.live_mask)
+    new_nu = rebuild(state.nu, take_new=False)._replace(
+        live_mask=new_scene.live_mask)
+    return TrainState(scene=new_scene, mu=new_mu, nu=new_nu,
+                      count=state.count,
+                      total_weight=torch.zeros(new_scene.capacity,
+                                               dtype=torch.float32,
+                                               device=dev))

@@ -33,7 +33,8 @@ def _frames(params, pad_multiple=512):
     jscene = jgs.from_arrays(**params, pad_multiple=pad_multiple)
     jf, _ = jgs.build_frames(jscene, ALPHA_THRESHOLD, EXP_POWER, 1.0)
     tscene = tgs.from_numpy({f: np.asarray(getattr(jscene, f))
-                             for f in jgs.GaussianScene._fields})
+                             for f in jgs.GaussianScene._fields},
+                            device="cpu")
     tf, _ = tgs.build_frames(tscene, ALPHA_THRESHOLD, EXP_POWER, 1.0)
     return jf, tf
 

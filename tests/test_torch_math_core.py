@@ -102,8 +102,8 @@ def test_synth_copy_matches():
 
 def test_from_arrays_and_from_numpy_match(room):
     params, jscene = room
-    port = tgs.from_arrays(**params, pad_multiple=512)
-    carried = tgs.from_numpy(jax_scene_numpy(jscene))
+    port = tgs.from_arrays(**params, pad_multiple=512, device="cpu")
+    carried = tgs.from_numpy(jax_scene_numpy(jscene), device="cpu")
     assert port.capacity == jscene.capacity == 2048
     for f in jgs.GaussianScene._fields:
         ref = np.asarray(getattr(jscene, f))
@@ -115,7 +115,8 @@ def test_from_arrays_and_from_numpy_match(room):
 def test_build_frames_and_pack(room, global_scale):
     _, jscene = room
     jf, ja = jgs.build_frames(jscene, ALPHA_THRESHOLD, EXP_POWER, global_scale)
-    tf, ta = tgs.build_frames(tgs.from_numpy(jax_scene_numpy(jscene)),
+    tf, ta = tgs.build_frames(tgs.from_numpy(jax_scene_numpy(jscene),
+                                              device="cpu"),
                               ALPHA_THRESHOLD, EXP_POWER, global_scale)
     for f in jf._fields:
         if f == "valid":

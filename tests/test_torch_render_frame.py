@@ -58,9 +58,10 @@ def _scene_and_camera():
         fov_y=jnp.asarray(0.9), znear=jnp.asarray(0.05),
         zfar=jnp.asarray(50.0))
     tscene = tgs.from_numpy({f: np.asarray(getattr(jscene, f))
-                             for f in jgs.GaussianScene._fields})
+                             for f in jgs.GaussianScene._fields},
+                            device="cpu")
     tcam = trt.camera_from_numpy(
-        {k: np.asarray(v) for k, v in jcam._asdict().items()})
+        {k: np.asarray(v) for k, v in jcam._asdict().items()}, device="cpu")
     return jscene, jcam, tscene, tcam
 
 

@@ -1,0 +1,290 @@
+"""PyTorch port vs JAX package: the training slots trace.
+
+trace_slots_reference (the plain version of csrc/trace_slots.cu) and
+unpack_slots are held against pallas_trace_slots_v4 and pallas_trace_slots
+in interpret mode, on the 2048-Gaussian room at 32x16 rays (two 256-ray
+tiles), K=16 and a few candidate clusters per tile, for primary rays and for
+reflected-ray-like rays with a dead-ray mask.
+
+The JAX side runs in a child process whose XLA is capped at the AVX
+instruction set (as in test_torch_render_frame.py): with FMA contraction,
+|u|^2 = <lo,lo> - <lo,ld>^2/<ld,ld> cancels differently and alpha moves by
+up to 5e-4 relative on this scene, while the port rounds every product as
+the kernels do.  The child also builds the inputs (tables, candidates).
+
+Tolerances:
+  * the kept ids and the counters (traversed Gaussians, processed
+    clusters) equal on >= 99.9% of rays (they record where the early exit
+    happened; the port sorts slots by (t, id), the Pallas kernels by
+    (t, slot index), which can differ only on exact depth ties);
+  * on those rays, t, alpha, every payload column and log-T within
+    1e-5 * scale (scale = max(1, max |reference|) of the column).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from editable_gaussian_reflections_tpu_torch.ops.cuda import layout
+from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
+    exit_mode_for,
+    slots_resident_fits,
+    trace_slots,
+    trace_slots_reference,
+)
+from editable_gaussian_reflections_tpu_torch.ops.intersect import (
+    GaussianFrames,
+)
+from editable_gaussian_reflections_tpu_torch.scene import gaussian_scene as tgs
+
+# the suite runs in several worker processes on shared cores: one torch
+# thread per process keeps them from oversubscribing the CPU
+torch.set_num_threads(1)
+
+NEAR, FAR, BF_MAX_DIST, BF_THR, THR = 0.05, 50.0, 0.1, 0.9, 0.01
+K, CLUSTER, TILE, MC = 16, 256, 256, 8
+H, W = 16, 32
+IDS_EQUAL = 0.999
+REL_TOL = 1e-5
+
+# (rays, JAX kernel, port exit mode, check_every, secondary_static)
+CASES = {
+    "primary_v4": ("primary", "v4", 0, 8, 0),
+    "secondary_dead_v4": ("secondary", "v4", 0, 8, 1),
+    "primary_v1": ("primary", "v1", 1, 2, 0),
+    "secondary_dead_v1": ("secondary", "v1", 1, 2, 1),
+}
+CAPACITIES = (2048, 176_128, 393_216, 400_000, 1_000_000)
+
+
+def jax_reference(path):
+    """Inputs and JAX outputs of every test here, saved to `path` as npz.
+    Run by the jax_ref fixture in a child process."""
+    import jax
+    import jax.numpy as jnp
+
+    from editable_gaussian_reflections_tpu.ops import culling as jc
+    from editable_gaussian_reflections_tpu.ops.camera_rays import (
+        primary_ray_directions as j_rays,
+    )
+    from editable_gaussian_reflections_tpu.ops.pallas import (
+        render_kernel as jrk,
+    )
+    from editable_gaussian_reflections_tpu.ops.pallas.render_kernel_v3 import (
+        pallas_trace_slots_v4,
+        slots_resident_fits as j_resident_fits,
+    )
+    from editable_gaussian_reflections_tpu.ops.pallas.trace_kernel import (
+        pack_frames as j_pack,
+    )
+    from editable_gaussian_reflections_tpu.scene import gaussian_scene as jgs
+    from editable_gaussian_reflections_tpu.utils.synth import (
+        room_camera,
+        room_scene,
+    )
+
+    out = {}
+    scene = jgs.from_arrays(**room_scene(2048), pad_multiple=512)
+    frames, attrs = jgs.build_frames(scene, 0.005, 3.0, 1.0)
+    perm = jc.morton_order(frames)
+    frames = jax.tree_util.tree_map(lambda a: a[perm], frames)
+    attrs = jax.tree_util.tree_map(lambda a: a[perm], attrs)
+    scene_s = jax.tree_util.tree_map(lambda a: a[perm], scene)
+    for f in frames._fields:
+        out[f"frames/{f}"] = np.asarray(getattr(frames, f))
+    for f in attrs._fields:
+        out[f"attrs/{f}"] = np.asarray(getattr(attrs, f))
+    for f in jgs.GaussianScene._fields:
+        out[f"scene/{f}"] = np.asarray(getattr(scene_s, f))
+    gpack = j_pack(frames, attrs)
+    table = jrk.pack_attr_table(attrs)
+    ftable = jrk.pack_frame_table(frames, scene_s)
+    out.update(gpack=np.asarray(gpack), table=np.asarray(table),
+               ftable=np.asarray(ftable))
+    bounds = jc.cluster_bounds(frames, CLUSTER)
+
+    eye, c2w = room_camera()
+    pix, _ = jc.tile_pixel_order(H, W, 16, 16)
+    d0 = np.asarray(j_rays(W, H, jnp.asarray(0.9), jnp.asarray(c2w))
+                    ).reshape(-1, 3)[pix]
+    o0 = np.broadcast_to(eye, d0.shape).astype(np.float32)
+    rng = np.random.default_rng(6)
+    o1 = (o0 + rng.normal(scale=0.5, size=o0.shape)).astype(np.float32)
+    d1 = rng.normal(size=d0.shape)
+    d1 = (d1 / np.linalg.norm(d1, axis=-1, keepdims=True)).astype(np.float32)
+    alive = (np.arange(H * W) % 3) != 0
+    alive[-TILE:] = False      # one wholly dead tile
+    rays = dict(primary=(o0, np.ascontiguousarray(d0), None, NEAR),
+                secondary=(o1, d1, alive, 0.0))
+    for kind, (o, d, al, near) in rays.items():
+        cands, cnear, _n, _o, _t = jc.select_candidates(
+            jnp.asarray(o), jnp.asarray(d), bounds, jnp.float32(near),
+            jnp.float32(FAR), tile=TILE, max_clusters=MC)
+        out.update({f"{kind}/o": o, f"{kind}/d": d,
+                    f"{kind}/cands": np.asarray(cands),
+                    f"{kind}/cnear": np.asarray(cnear)})
+        if al is not None:
+            out[f"{kind}/alive"] = al
+
+    for case, (kind, kernel, _mode, _ce, ss) in CASES.items():
+        o, d, al, near = rays[kind]
+        common = (jnp.asarray(out[f"{kind}/cands"]),
+                  jnp.asarray(out[f"{kind}/cnear"]), near, FAR, 3.0,
+                  float(ss), BF_MAX_DIST, BF_THR)
+        kw = dict(transmittance_threshold=THR, max_hits=K, cluster=CLUSTER,
+                  tile=TILE, interpret=True, secondary_static=ss,
+                  alive=None if al is None else jnp.asarray(al))
+        if kernel == "v4":
+            slots, acc = pallas_trace_slots_v4(
+                jnp.asarray(o), jnp.asarray(d), gpack, ftable, *common, **kw)
+        else:
+            slots, acc = jrk.pallas_trace_slots(
+                jnp.asarray(o), jnp.asarray(d), gpack, table, ftable,
+                *common, **kw)
+        out[f"{case}/slots"] = np.asarray(slots)
+        out[f"{case}/acc"] = np.asarray(acc)
+
+    o, d = rays["secondary"][:2]
+    unpacked = jrk.unpack_slots(out["secondary_dead_v4/slots"],
+                                out["secondary_dead_v4/acc"], K,
+                                jnp.asarray(o), jnp.asarray(d))
+    for name, group in zip(("hits", "attrs", "frames"), unpacked):
+        for k, v in group.items():
+            out[f"unpack/{name}/{k}"] = np.asarray(v)
+    out["resident_fits"] = np.array([j_resident_fits(n) for n in CAPACITIES])
+    np.savez(path, **out)
+
+
+@pytest.fixture(scope="module")
+def jax_ref(tmp_path_factory):
+    """jax_reference's arrays, computed by XLA without FMA contraction
+    (module docstring) in a child process: XLA reads its flags once per
+    process."""
+    path = tmp_path_factory.mktemp("jax_trace_slots") / "ref.npz"
+    root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + " --xla_cpu_max_isa=AVX").strip(),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    subprocess.run([sys.executable, __file__, str(path)], env=env, check=True,
+                   timeout=600)
+    with np.load(path) as data:
+        return dict(data)
+
+
+def _port_slots(ref, kind, exit_mode, check_every, secondary_static,
+                fn=trace_slots_reference):
+    t = {k: torch.tensor(ref[k]) for k in ("gpack", "table", "ftable")}
+    x = {k: torch.tensor(ref[f"{kind}/{k}"])
+         for k in ("o", "d", "cands", "cnear")}
+    alive = (torch.tensor(ref[f"{kind}/alive"])
+             if f"{kind}/alive" in ref else None)
+    near = NEAR if kind == "primary" else 0.0
+    slots, acc = fn(
+        x["o"], x["d"], t["gpack"], t["table"], t["ftable"], x["cands"],
+        x["cnear"], near, FAR, 3.0, float(secondary_static),
+        BF_MAX_DIST, BF_THR, transmittance_threshold=THR, max_hits=K,
+        cluster=CLUSTER, tile=TILE, alive=alive,
+        secondary_static=secondary_static, exit_mode=exit_mode,
+        check_every=check_every)
+    return slots.numpy(), acc.numpy()
+
+
+def _blocks(slots):
+    return slots.reshape(slots.shape[0], layout.SLOT_BLOCKS, K)
+
+
+def assert_slots_match(slots, acc, ref_slots, ref_acc):
+    s, r = _blocks(slots), _blocks(ref_slots)
+    same = ((s[:, layout.SLOT_ID] == r[:, layout.SLOT_ID]).all(axis=1)
+            & (acc[:, 1:3] == ref_acc[:, 1:3]).all(axis=1))
+    assert same.mean() >= IDS_EQUAL, f"ids/counters equal on {same.mean()}"
+    for b in range(layout.SLOT_BLOCKS):
+        a, e = s[same, b], r[same, b]
+        if b == layout.SLOT_T:        # empty slots: INF on both sides
+            a, e = np.where(e < 1e37, a, 0.0), np.where(e < 1e37, e, 0.0)
+        scale = max(1.0, float(np.abs(e).max(initial=0.0)))
+        np.testing.assert_allclose(a, e, rtol=0, atol=REL_TOL * scale,
+                                   err_msg=f"slot block {b}")
+    scale = max(1.0, float(np.abs(ref_acc[same, 0]).max(initial=0.0)))
+    np.testing.assert_allclose(acc[same, 0], ref_acc[same, 0], rtol=0,
+                               atol=REL_TOL * scale, err_msg="log-T")
+    np.testing.assert_array_equal(acc[:, 3:], 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reference_matches_pallas(case, jax_ref):
+    kind, _kernel, exit_mode, check_every, ss = CASES[case]
+    ref_slots, ref_acc = jax_ref[f"{case}/slots"], jax_ref[f"{case}/acc"]
+    slots, acc = _port_slots(jax_ref, kind, exit_mode, check_every, ss)
+    assert slots.shape == ref_slots.shape == (H * W, layout.SLOT_BLOCKS * K)
+    assert np.isfinite(slots).all() and np.isfinite(acc).all()
+    assert_slots_match(slots, acc, ref_slots, ref_acc)
+    valid = _blocks(slots)[:, layout.SLOT_T] < 1e37
+    assert valid.any()
+    if f"{kind}/alive" in jax_ref:
+        dead = ~jax_ref[f"{kind}/alive"]
+        assert not valid[dead].any()
+        assert np.all(acc[dead, 0] == 0.0)
+
+
+def test_unpack_slots_matches_jax(jax_ref):
+    """The port's unpack_slots on the JAX kernel's own slots: every field
+    the composite and the backward read."""
+    got = layout.unpack_slots(
+        torch.tensor(jax_ref["secondary_dead_v4/slots"]),
+        torch.tensor(jax_ref["secondary_dead_v4/acc"]), K,
+        torch.tensor(jax_ref["secondary/o"]),
+        torch.tensor(jax_ref["secondary/d"]))
+    for name, group in zip(("hits", "attrs", "frames"), got):
+        keys = {k.split("/")[2] for k in jax_ref
+                if k.startswith(f"unpack/{name}/")}
+        assert keys == set(group), name
+        for k in keys:
+            e, a = jax_ref[f"unpack/{name}/{k}"], group[k].numpy()
+            assert a.shape == e.shape, (name, k)
+            if e.dtype == bool or e.dtype.kind == "i":
+                np.testing.assert_array_equal(a, e, err_msg=f"{name}.{k}")
+            else:
+                scale = max(1.0, float(np.abs(e).max(initial=0.0)))
+                np.testing.assert_allclose(a, e, rtol=REL_TOL,
+                                           atol=REL_TOL * scale,
+                                           err_msg=f"{name}.{k}")
+
+
+def test_tables_match_jax(jax_ref):
+    def t(group, names):
+        return [torch.tensor(jax_ref[f"{group}/{f}"]) for f in names]
+
+    frames = GaussianFrames(*t("frames", GaussianFrames._fields))
+    attrs = tgs.SceneAttributes(*t("attrs", tgs.SceneAttributes._fields))
+    scene = tgs.GaussianScene(*t("scene", tgs.GaussianScene._fields))
+    np.testing.assert_array_equal(layout.pack_attr_table(attrs).numpy(),
+                                  jax_ref["table"])
+    np.testing.assert_allclose(layout.pack_frame_table(frames, scene).numpy(),
+                               jax_ref["ftable"], rtol=1e-6, atol=0)
+
+
+def test_wrapper_takes_plain_version_for_cpu_tensors(jax_ref):
+    before = trace_slots.launches
+    a = _port_slots(jax_ref, "primary", 0, 8, 0, fn=trace_slots)
+    b = _port_slots(jax_ref, "primary", 0, 8, 0)
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+    assert trace_slots.launches == before  # no kernel launched
+
+
+def test_exit_mode_follows_the_jax_dispatch(jax_ref):
+    for n, fits in zip(CAPACITIES, jax_ref["resident_fits"]):
+        assert slots_resident_fits(n) == bool(fits), n
+        assert exit_mode_for(n) == ((0, 8) if fits else (1, 2))
+
+
+if __name__ == "__main__":
+    jax_reference(sys.argv[1])

@@ -1,0 +1,259 @@
+"""The training kernels on the card: the slots trace (csrc/trace_slots.cu)
+and the gradient scatter (csrc/scatter_grads.cu) against their plain
+PyTorch versions on the same CUDA tensors, and the training step on the
+card against itself (batched tiles vs one tile per launch) and against the
+CPU.  Needs a CUDA card and nvcc; every test here skips without a card.
+Imports neither jax nor the JAX package, so it runs on a machine that has
+only PyTorch:
+
+    python -m pytest --noconftest tests/test_torch_train_cuda.py
+
+(--noconftest: the suite's conftest imports jax.)  The tests carry the
+`cuda` marker.
+
+Tolerances: slots and counters equal (the kernel and the plain version
+share float32 pair math without FMA, float64 exp/log1p and float64 sums,
+and sort the kept hits by (t, id)); the scatter's float64 sums rounded once
+to float32 equal to 1e-6 * scale with exact zeros equal; the training
+steps equal bit for bit (ops/precision.py: every reduction whose order a
+device picks runs in float64 and is rounded once).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from editable_gaussian_reflections_tpu_torch import training as tr
+from editable_gaussian_reflections_tpu_torch.ops import culling
+from editable_gaussian_reflections_tpu_torch.ops.camera_rays import (
+    primary_ray_directions,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda import layout
+from editable_gaussian_reflections_tpu_torch.ops.cuda.scatter import (
+    scatter_add,
+    scatter_add_reference,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
+    trace_slots,
+    trace_slots_reference,
+)
+from editable_gaussian_reflections_tpu_torch.renderer import raytracer as rt
+from editable_gaussian_reflections_tpu_torch.scene import gaussian_scene as gs
+from editable_gaussian_reflections_tpu_torch.utils.synth import (
+    room_camera,
+    room_scene,
+)
+
+# every test here needs the card; each decides in the `cuda` fixture
+pytestmark = pytest.mark.cuda
+
+FAR = 50.0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@functools.cache
+def _tables(cluster, device):
+    scene = gs.from_arrays(**room_scene(2048), pad_multiple=512,
+                           device=device)
+    _f, _a, gpack, cull, _s, _p = tr.prepare_render_inputs(
+        scene, rt.RenderSettings(), True, True, 256, cluster, 16)
+    return gpack, cull["table"], cull["ftable"], cull["bounds"]
+
+
+def _rays(kind, device, H=32, W=32):
+    eye, c2w = room_camera()
+    perm, _ = culling.tile_pixel_order(H, W, 16, 16)
+    d = primary_ray_directions(W, H, 0.9, torch.tensor(c2w)).reshape(-1, 3)
+    d = d[torch.as_tensor(perm, dtype=torch.int64)].numpy()
+    o = np.broadcast_to(eye, d.shape).astype(np.float32)
+    alive = None
+    if kind == "secondary":
+        rng = np.random.default_rng(6)
+        o = (o + rng.normal(scale=0.5, size=o.shape)).astype(np.float32)
+        d = rng.normal(size=d.shape)
+        d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+        alive = (torch.arange(H * W, device=device) % 3) != 0
+        alive[-256:] = False
+    return (torch.tensor(np.ascontiguousarray(o), device=device),
+            torch.tensor(np.ascontiguousarray(d), device=device), alive)
+
+
+# (K, cluster, rays, exit_mode, check_every, mc)
+CASES = {
+    "k16_c256_primary_v4": (16, 256, "primary", 0, 8, 8),
+    "k32_c256_secondary_dead_v4": (32, 256, "secondary", 0, 8, 16),
+    "k16_c128_primary_v1": (16, 128, "primary", 1, 2, 16),
+    "k32_c256_secondary_dead_v1": (32, 256, "secondary", 1, 2, 8),
+}
+
+
+def _slots(case, device, fn):
+    K, cluster, kind, exit_mode, ce, mc = case
+    gpack, table, ftable, bounds = _tables(cluster, device)
+    o, d, alive = _rays(kind, device)
+    near = 0.05 if kind == "primary" else 0.0
+    cands, cnear, _n, _o, _t = culling.select_candidates(
+        o, d, bounds, near, FAR, tile=256, max_clusters=mc)
+    ss = 1 if kind == "secondary" else 0
+    return fn(o, d, gpack, table, ftable, cands, cnear, near, FAR, 3.0,
+              float(ss), 0.1, 0.9, max_hits=K, cluster=cluster, tile=256,
+              alive=alive, secondary_static=ss, exit_mode=exit_mode,
+              check_every=ce)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_trace_slots_kernel_matches_reference(case, cuda):
+    before = trace_slots.launches
+    slots, acc = _slots(CASES[case], cuda, trace_slots)
+    torch.cuda.synchronize()
+    assert trace_slots.launches == before + 1
+    ref_slots, ref_acc = _slots(CASES[case], cuda, trace_slots_reference)
+    torch.testing.assert_close(acc, ref_acc, rtol=0, atol=0)
+    torch.testing.assert_close(slots, ref_slots, rtol=0, atol=0)
+    K = CASES[case][0]
+    t = slots.reshape(-1, layout.SLOT_BLOCKS, K)[:, layout.SLOT_T]
+    assert (t < 1e37).any()
+
+
+def test_trace_slots_wrapper_checks_inputs(cuda):
+    case = CASES["k16_c256_primary_v4"]
+    gpack, table, ftable, bounds = _tables(256, cuda)
+    o, d, _ = _rays("primary", cuda)
+    cands, cnear, _n, _o, _t = culling.select_candidates(
+        o, d, bounds, 0.05, FAR, tile=256, max_clusters=8)
+    args = (o, d, gpack, table, ftable, cands, cnear, 0.05, FAR, 3.0, 0.0,
+            0.1, 0.9)
+    kw = dict(max_hits=case[0], cluster=256, tile=256)
+    with pytest.raises(ValueError, match="ftable"):
+        trace_slots(*args[:4], ftable[:, :16].contiguous(), *args[5:], **kw)
+    with pytest.raises(ValueError, match="max_hits"):
+        trace_slots(*args, **dict(kw, max_hits=8))
+    with pytest.raises(ValueError, match="exit_mode"):
+        trace_slots(*args, **dict(kw, exit_mode=2))
+
+
+def test_scatter_kernel_matches_reference(cuda):
+    g = torch.Generator().manual_seed(3)
+    M, N, C = 200_000, 1000, 22
+    payload = torch.randn(M, C, generator=g)
+    payload[torch.rand(M, C, generator=g) < 0.3] = 0.0
+    # heavy duplicates, empty slots, and exact cancellations
+    ids = torch.randint(-1, N, (M,), generator=g, dtype=torch.int32)
+    payload[1::2][:1000] = -payload[0::2][:1000]
+    ids[1::2][:1000] = ids[0::2][:1000]
+    start = torch.randn(N, C, generator=g, dtype=torch.float64)
+    start[:10] = 0.0
+    payload, ids = payload.to(cuda), ids.to(cuda)
+    before = scatter_add.launches
+    got = scatter_add(start.to(cuda), payload, ids)
+    torch.cuda.synchronize()
+    assert scatter_add.launches == before + 1
+    ref = scatter_add_reference(start.to(cuda), payload, ids)
+    a, b = got.to(torch.float32).cpu(), ref.to(torch.float32).cpu()
+    scale = float(b.abs().max())
+    torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * scale)
+    assert torch.equal(a == 0.0, b == 0.0)
+    # only valid ids receive anything: a zero-payload run adds nothing
+    zero = torch.zeros_like(start).to(cuda)
+    scatter_add(zero, torch.zeros_like(payload), ids)
+    assert not zero.any()
+
+
+def _step_inputs(device, W=64, H=64):
+    scene = gs.from_arrays(**room_scene(4096), pad_multiple=1024,
+                           device=device)
+    state = tr.init_train_state(scene)
+    eye, c2w = room_camera()
+    camera = rt.CameraParams(torch.tensor(eye, device=device),
+                             torch.tensor(c2w, device=device), 0.9, 0.05,
+                             FAR)
+    rng = np.random.default_rng(2)
+    R = W * H
+    targets = rt.targets_from_numpy(dict(
+        diffuse=rng.uniform(0, 1, (R, 3)), specular=rng.uniform(0, .3, (R, 3)),
+        depth=rng.uniform(1, 5, R), normal=rng.normal(size=(R, 3)),
+        roughness=rng.uniform(0, 1, R), f0=rng.uniform(0, 1, (R, 3))),
+        device=device)
+    return state, camera, targets
+
+
+STEP_KW = dict(num_bounces=2, max_hits=16, chunk=0, tile=1024,
+               use_pallas=True, use_culling=True, cull_tile=256,
+               cull_cluster=256, max_clusters=16)
+LRS = dict(xyz=1e-4, scaling=5e-3, rotation=1e-3, opacity=2.5e-2,
+           diffuse=5e-3, normal=2.5e-3, f0=2.5e-3, roughness=2.5e-3)
+HYPER = dict(beta_1=0.9, beta_2=0.999, scale_decay=0.9999, apply_grads=1.0)
+
+
+def _step(device, samples):
+    state, camera, targets = _step_inputs(device)
+    s = tr.TrainSamples(samples.jitter.to(device), samples.us.to(device))
+    new, metrics = tr.train_step(state, camera, targets, rt.RenderSettings(),
+                                 LRS, HYPER, None, 64, 64, samples=s,
+                                 **STEP_KW)
+    return new, {k: v.item() for k, v in metrics.items()}
+
+
+def _assert_states_equal(a, b):
+    for tree in ("scene", "mu", "nu"):
+        for f in tr.PARAM_FIELDS:
+            torch.testing.assert_close(
+                getattr(getattr(a, tree), f).cpu(),
+                getattr(getattr(b, tree), f).cpu(), rtol=0, atol=0,
+                msg=f"{tree}.{f}")
+    torch.testing.assert_close(a.total_weight.cpu(), b.total_weight.cpu(),
+                               rtol=0, atol=0)
+
+
+def _samples():
+    return tr.draw_train_samples(torch.Generator().manual_seed(4), 64, 64,
+                                 1024, 3)
+
+
+def test_batched_step_equals_tile_by_tile(cuda):
+    """The step's own batch (all 4 tiles in one launch per bounce) and one
+    tile per launch: the same gradients, l1 and starved sums, so the same
+    step (apply_updates reads nothing else of the tiles)."""
+    samples = _samples()
+    state, camera, targets = _step_inputs(cuda)
+    nb, K = STEP_KW["num_bounces"], STEP_KW["max_hits"]
+    prep = tr.prepare_step(
+        state, camera, targets, rt.RenderSettings(), None, 64, 64, nb,
+        STEP_KW["tile"], True, True, True, STEP_KW["cull_tile"],
+        STEP_KW["cull_cluster"], STEP_KW["max_clusters"],
+        samples=tr.TrainSamples(samples.jitter.to(cuda),
+                                samples.us.to(cuda)))
+
+    def grads(tiles_per_launch):
+        before = (trace_slots.launches, scatter_add.launches)
+        out = tr.grads_over_tiles(
+            camera.origin, prep["dirs_t"], prep["targets_t"],
+            rt.RenderSettings(), camera, prep["us_t"], nb, K, 3.0,
+            prep["gpack"], prep["culling"], state.scene.capacity,
+            tiles_per_launch)
+        return out, (trace_slots.launches - before[0],
+                     scatter_add.launches - before[1])
+
+    ((ga, l1a, sa), na), ((gb, l1b, sb), nb1) = grads(None), grads(1)
+    assert (na, nb1) == ((3, 1), (12, 4))
+    assert l1a.item() == l1b.item() and sa.item() == sb.item()
+    for f in ga._fields:
+        torch.testing.assert_close(getattr(ga, f), getattr(gb, f), rtol=0,
+                                   atol=0, msg=f)
+
+
+def test_cuda_step_equals_cpu_step(cuda):
+    samples = _samples()
+    a, ma = _step(cuda, samples)
+    b, mb = _step(torch.device("cpu"), samples)
+    assert ma == mb
+    _assert_states_equal(a, b)
+    assert ma["l1_diffuse"] > 0.0
