@@ -6,9 +6,9 @@ on one CUDA GPU.
 
 Phases, one line each (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build every kernel of the port
-     (csrc/render_culled.cu, trace_slots.cu, scatter_grads.cu) with nvcc into
-     build/kernels/, one nvcc per source, all started together (timed, with
-     the ptxas register lines);
+     (csrc/render_culled.cu, trace_slots.cu, scatter_grads.cu, render_scan.cu)
+     with nvcc into build/kernels/, one nvcc per source, all started together
+     (timed, with the ptxas register lines);
   2. the kernel vs its plain PyTorch version on the same CUDA tensors:
      room_scene(16384) at 128x128, Config defaults (K=32, cluster 256,
      192 candidates), primary rays and reflected rays with their alive mask;
@@ -20,12 +20,19 @@ Phases, one line each (any failure raises and the script exits non-zero):
      launch count, ms/frame, Mrays/s and the starved fraction.  First the
      kernel and its plain version are compared (tolerances of phase 2) and
      timed at the shapes of this frame's primary and first reflected pass.
+     4b: render_culled in groups of 4 (pallas_render_culled_v3's exit, which
+     the renderer takes above the resident capacity) on the same primary
+     pass: timed, its bound, held against its plain version on the first
+     CHECK_TILES tiles;
   5. the training kernels vs their plain PyTorch versions at the full-width
      step's own shapes: room_scene(175_000) (capacity 176,128), 768x768,
      the Config defaults (K=32, cluster 256, 192 candidates, 8192-ray tiles,
      2 bounces), the step's tiles in the batch the main path launches -
      trace_slots on its primary and first reflected pass, scatter_grads on
-     the hits of all 3 bounces; all timed with CUDA events;
+     the hits of all 3 bounces; all timed with CUDA events.  5b: trace_slots
+     in exit mode 1 (pallas_trace_slots' pairs, check_every 2) on the same
+     primary batch: timed, its bound, held against its plain version on the
+     first CHECK_TILES tiles;
   6. one small training step (64x64, room_scene(4096)) on cuda and on cpu
      with the same samples: new params, moments and metrics equal;
   7. the full-width training step: 1 warm-up and 3 timed train_steps from
@@ -33,7 +40,21 @@ Phases, one line each (any failure raises and the script exits non-zero):
      (seed 0) rendered at 768x768 by render_frame_fused; ms/step, M rays/s,
      l1_diffuse per step, starved fraction, the kernels' launch counts
      against the expected ones, and a profiled step (each kernel's device
-     time and share, device idle share).
+     time and share, device idle share);
+  8. the scan kernel (render_scan) vs its plain version on the same CUDA
+     tensors at 128x128, room_scene(16384): composite_mode scan (direct pair
+     math) and scanq (quadric), counters on and off, bf16 attributes; then
+     one 64x64 2-bounce frame in each scan mode on cuda and on cpu, equal;
+  9. the inference fast path at full width, room_scene(100_000), 800x800,
+     2 bounces: (a) bench.py's configuration (artifacts/bench_best.json,
+     written out below: scanq, counters off, bf16 attributes, cluster 128,
+     128/768 candidates, K 16, throughput cutoff 1e-3) - ms/frame, FPS,
+     M frame rays/s, starved fraction, device idle share, the scan kernel's
+     ms per pass (scanq and scan), each against its bound and its plain
+     version, the scan (v6) frame, and the k-buffer frame with its
+     tonemapped PSNR against scanq; (b) measure_fps() at the Config defaults
+     (scanq, cluster 256, 192 candidates, counters off) over 8 views
+     orbiting room_camera, with the kernels' launch counts.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -50,10 +71,12 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from editable_gaussian_reflections_tpu_torch import training as tr
 from editable_gaussian_reflections_tpu_torch.config import Config
+from editable_gaussian_reflections_tpu_torch.measure_fps import measure_fps
 from editable_gaussian_reflections_tpu_torch.ops.cuda import build
 from editable_gaussian_reflections_tpu_torch.ops.cuda.layout import (
     OUT_NUMACC,
@@ -66,6 +89,10 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.render_kernel import (
     render_culled,
     render_culled_reference,
 )
+from editable_gaussian_reflections_tpu_torch.ops.cuda.scan_kernel import (
+    render_scan,
+    render_scan_reference,
+)
 from editable_gaussian_reflections_tpu_torch.ops.cuda.scatter import (
     scatter_add,
     scatter_add_reference,
@@ -77,6 +104,7 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
 from editable_gaussian_reflections_tpu_torch.ops.render_grads import (
     new_grad_accumulator,
 )
+from editable_gaussian_reflections_tpu_torch.ops.tonemap import tonemap
 from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
     CameraParams,
     RayTargets,
@@ -96,6 +124,7 @@ from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
 from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
 )
+from editable_gaussian_reflections_tpu_torch.scene.cameras import Camera
 from editable_gaussian_reflections_tpu_torch.scene.gaussian_scene import (
     from_arrays,
 )
@@ -107,16 +136,33 @@ from editable_gaussian_reflections_tpu_torch.utils.synth import (
 ROOT = Path(__file__).resolve().parent
 # Config defaults (config.py): the eval render's k-buffer configuration
 FRAME_KW = dict(max_hits=32, cull_cluster=256, max_clusters=192)
-PASS_KW = dict(max_hits=32, exp_power_static=3.0, cull_cluster=256,
-               max_clusters=192, max_clusters_secondary=None,
-               cull_tile_secondary=256, cull_tile_primary=256)
 SETTINGS = RenderSettings()
 ZNEAR, ZFAR = 0.05, 50.0
-KERNEL_SOURCES = ("render_culled", "trace_slots", "scatter_grads")
+KERNEL_SOURCES = ("render_culled", "trace_slots", "scatter_grads",
+                  "render_scan")
 # the roofline of one H100 SXM (NVIDIA's data sheet): FP32 and FP64 outside
 # the tensor cores, HBM3
 PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 FLOPS_PER_PAIR = 60    # ray x Gaussian pair math, counted from the source
+# the scan kernel's float32 work per ray x Gaussian pair, counted from
+# csrc/trace_tile.cuh (pair_direct: 3 + 36 + 15 + 7) and csrc/render_scan.cu
+# (pair_quadric: 3 + 11 + 17 + 21 + 7); per composited hit only, the
+# opacity and the float64 sums come on top
+FLOPS_PER_PAIR_SCAN = {"scan": 61, "scanq": 59}
+# the kernel-vs-plain checks of the repaired rows run on this many tiles
+CHECK_TILES = 256
+# bench.py's render configuration, artifacts/bench_best.json written out:
+# "mc": "128:768:256:256:tc3" (primary:secondary candidates, primary:
+# secondary cull tiles, throughput cutoff 1e-3), K 16, cluster 128, scanq,
+# counters off, bf16 attributes
+BENCH_KW = dict(max_hits=16, cull_cluster=128, max_clusters=128,
+                max_clusters_secondary=768, cull_tile_secondary=256,
+                composite_mode="scanq", kernel_stats=False,
+                attr_precision="bf16")
+BENCH_SETTINGS = SETTINGS._replace(secondary_throughput_threshold=1e-3)
+# the fast path's frame and scene (bench.py's): 800x800, room_scene(100_000)
+FAST_SIZE, FAST_N = 800, 100_000
+N_FPS_VIEWS = 8
 # the training step's configuration: the Config defaults train.py uses
 TRAIN_W = TRAIN_H = 768
 TRAIN_N = 175_000      # init_num_pts + init_num_pts_farfield
@@ -133,29 +179,91 @@ def room(n: int, device, seed: int = 0) -> tuple:
     return scene, camera
 
 
-def first_two_passes(scene, camera, width, height, samples):
-    """The render_culled calls of bounces 0 and 1 of a frame, built by the
+def first_two_passes(scene, camera, width, height, samples,
+                     frame_kw=FRAME_KW, settings=SETTINGS):
+    """The render kernel calls (KernelCall) of bounces 0 and 1 of a frame
+    rendered with render_frame_fused's keywords `frame_kw`, built by the
     renderer's own helpers (bounce 1 = reflected rays and alive mask)."""
-    prep = _prepare_fused_frame(scene, camera, SETTINGS, samples, width,
-                                height, jitter=True, cull_cluster=256,
-                                cull_tile_primary=256, num_steps=3)
+    kw = dict(frame_kw)
+    mode = kw.pop("composite_mode", "kbuffer")
+    cluster, mc = kw["cull_cluster"], kw["max_clusters"]
+    mcs = kw.get("max_clusters_secondary")
+    tile_s = kw.get("cull_tile_secondary", 256)
+    prep = _prepare_fused_frame(scene, camera, settings, samples, width,
+                                height, jitter=True, cull_cluster=cluster,
+                                cull_tile_primary=256, num_steps=3,
+                                composite_mode=mode)
     R = prep["R"]
-    Rp = padded_ray_count(R, 192, None, 256, 256)
+    Rp = padded_ray_count(R, mc, mcs, 256, tile_s, composite_mode=mode)
     dirs = torch.cat([prep["dirs"], prep["dirs"][:Rp - R]])
     us = torch.cat([prep["us"], prep["us"][:, :Rp - R]], dim=1)
     rays_o = camera.origin.expand(Rp, 3)
     alive = torch.ones((Rp,), dtype=torch.bool, device=dirs.device)
     throughput = torch.ones((Rp, 3), device=dirs.device)
     common = (prep["gpack"], prep["bounds"], prep["scene_lo"],
-              prep["scene_hi"], SETTINGS, ZNEAR, ZFAR)
-    pass_kw = dict(PASS_KW, capacity=scene.capacity)
+              prep["scene_hi"], settings, ZNEAR, ZFAR)
+    pass_kw = dict(capacity=scene.capacity, max_hits=kw["max_hits"],
+                   exp_power_static=3.0, cull_cluster=cluster,
+                   max_clusters=mc, max_clusters_secondary=mcs,
+                   cull_tile_secondary=tile_s, cull_tile_primary=256,
+                   scan=prep["scan"],
+                   kernel_stats=kw.get("kernel_stats", True),
+                   attr_precision=kw.get("attr_precision", "highest"))
     call0 = kernel_call(rays_o, dirs, alive, 0, *common, **pass_kw)
-    out0 = render_culled(*call0.args, **call0.kwargs)
+    out0 = call0.kernel(*call0.args, **call0.kwargs)
     _, (o1, d1, _t1, al1) = bounce_epilogue(out0, call0, rays_o, dirs,
                                             throughput, alive, us[0], 0,
-                                            SETTINGS, ZFAR)
+                                            settings, ZFAR)
     call1 = kernel_call(o1, d1, al1, 1, *common, **pass_kw)
     return call0, call1
+
+
+def first_tiles(call, n_tiles: int, ray_pos=(0, 1), cand_pos=(3, 4)):
+    """(args, kwargs) of a kernel call cut to its first `n_tiles` ray
+    tiles: the kernels treat tiles independently, so the rows of the cut
+    call equal the first rows of the whole one."""
+    rows = n_tiles * call.kwargs["tile"]
+    args = list(call.args)
+    for i in ray_pos:
+        args[i] = args[i][:rows]
+    for i in cand_pos:
+        args[i] = args[i][:n_tiles]
+    kwargs = dict(call.kwargs)
+    for k in ("alive", "t_split"):
+        if kwargs.get(k) is not None:
+            kwargs[k] = kwargs[k][:rows]
+    return args, kwargs, rows
+
+
+def psnr_tonemapped(a, b) -> float:
+    """PSNR in dB of two HDR images after the filmic tonemap, in [0, 1]."""
+    ta, tb = (torch.clamp(tonemap(x.float()), 0.0, 1.0) for x in (a, b))
+    mse = ((ta - tb) ** 2).mean().item()
+    return math.inf if mse == 0.0 else 10.0 * math.log10(1.0 / mse)
+
+
+def orbit_views(n: int, width: int, height: int) -> list:
+    """`n` scene cameras (scene/cameras.py) circling the room's vertical
+    axis around room_camera's pose, +-0.25 rad, the z-planes of the smoke's
+    frames: the views measure_fps renders."""
+    eye, c2w = room_camera()
+    views = []
+    blank = np.zeros((height, width, 3), np.float32)
+    for i in range(n):
+        a = -0.25 + 0.5 * i / max(1, n - 1)
+        rz = np.array([[math.cos(a), -math.sin(a), 0.0],
+                       [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]])
+        c2w_i, eye_i = rz @ c2w, rz @ eye
+        # Camera.render_pose negates R and then its first column again
+        R = -c2w_i
+        R[:, 0] = c2w_i[:, 0]
+        T = -R.T @ eye_i
+        fov_x = 2.0 * math.atan(math.tan(0.45) * width / height)
+        view = Camera(colmap_id=i, R=R, T=T, FoVx=fov_x, FoVy=0.9,
+                      image=blank, image_name=f"orbit_{i}", uid=i)
+        view.znear, view.zfar = ZNEAR, ZFAR
+        views.append(view)
+    return views
 
 
 def compare_lanes(out, ref) -> dict:
@@ -263,6 +371,244 @@ def state_finite(state) -> bool:
                for t in (state.scene, state.mu, state.nu)
                for f in tr.PARAM_FIELDS) and bool(
         torch.isfinite(state.total_weight).all())
+
+
+def scan_pass_numbers(calls, mode: str, compare: bool) -> dict:
+    """The scan kernel on a frame's primary and first reflected pass: ms
+    per pass (CUDA events), the pairs it tests (a counters-on run: lane 14),
+    its bound, and - with `compare` - its plain version on the whole pass,
+    held to the kernel."""
+    res = {}
+    for name, call in zip(("primary", "reflected"), calls):
+        ms = cuda_ms(lambda: render_scan(*call.args, **call.kwargs), reps=5)
+        counted = render_scan(*call.args, **dict(call.kwargs, stats=True))
+        pairs = counted[:, OUT_TRAV].sum().item()
+        b_ms, b_by = bound(
+            pairs * FLOPS_PER_PAIR_SCAN[mode], PEAK_FP32,
+            nbytes(call.args[0], call.args[1], call.args[2].table,
+                   call.args[3], call.kwargs["alive"], counted))
+        res.update({f"{name}_ms": ms, f"{name}_pairs": pairs,
+                    f"{name}_bound_ms": b_ms, f"{name}_bound_by": b_by,
+                    f"{name}_rays": call.args[0].shape[0]})
+        if compare:
+            out = render_scan(*call.args, **call.kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = render_scan_reference(*call.args, **call.kwargs,
+                                        tiles_per_batch=512)
+            torch.cuda.synchronize()
+            res[f"{name}_plain_ms"] = (time.perf_counter() - t0) * 1e3
+            cmp = compare_lanes(out, ref)
+            check_lanes(f"render_scan {mode} {name}", cmp)
+            res[f"{name}_compare"] = cmp
+            del out, ref
+        del counted
+    return res
+
+
+def phase_scan_small(dev, record) -> None:
+    """Phase 8: render_scan vs its plain version at 128x128, every variant;
+    a 64x64 frame in each scan mode on cuda and on cpu."""
+    scene, camera = room(16384, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    samples = draw_samples(gen, 128, 128, 3)
+    res = {}
+    for mode, cluster in (("scan", 128), ("scanq", 64)):
+        kw = dict(FRAME_KW, cull_cluster=cluster, max_clusters=64,
+                  max_clusters_secondary=128, composite_mode=mode)
+        for name, call in zip(("primary", "reflected"), first_two_passes(
+                scene, camera, 128, 128, samples, kw)):
+            for stats in (True, False):
+                for ap in (("highest", "bf16") if mode == "scanq"
+                           else ("highest",)):
+                    ckw = dict(call.kwargs, stats=stats, attr_precision=ap)
+                    out = render_scan(*call.args, **ckw)
+                    torch.cuda.synchronize()
+                    ref = render_scan_reference(*call.args, **ckw)
+                    key = f"{mode} {name} stats={stats} {ap}"
+                    res[key] = compare_lanes(out, ref)
+                    check_lanes(f"phase 8 {key}", res[key])
+    worst = max(v["max_abs_err"] for v in res.values())
+    agree = min(v["counters_equal"] for v in res.values())
+    print(f"phase 8: render_scan vs plain at 128x128, room_scene(16384), "
+          f"{len(res)} variants (scan/scanq, primary/reflected, counters "
+          f"on/off, bf16): worst max_abs_err {worst:.3g}, counters equal on "
+          f">= {agree:.4%} of rays", flush=True)
+
+    scene_c, camera_c = room(16384, "cpu")
+    samples = draw_samples(torch.Generator().manual_seed(1), 64, 64, 3)
+    frames = {}
+    for mode in ("scan", "scanq"):
+        kw = dict(FRAME_KW, cull_cluster=128, composite_mode=mode,
+                  kernel_stats=mode == "scan")
+        on_dev = render_frame_fused(
+            scene, camera, SETTINGS, None, 64, 64, num_bounces=2,
+            samples=type(samples)(samples.jitter.to(dev),
+                                  samples.us.to(dev)), **kw)
+        on_cpu = render_frame_fused(scene_c, camera_c, SETTINGS, None, 64,
+                                    64, num_bounces=2, samples=samples, **kw)
+        differ = [f for f, a, b in zip(StepOutputs._fields + ("final",),
+                                       (*on_dev[0], on_dev[1]),
+                                       (*on_cpu[0], on_cpu[1]))
+                  if not torch.equal(a.cpu(), b)]
+        if differ or not torch.isfinite(on_dev[1]).all():
+            raise RuntimeError(f"phase 8: {mode} frame on cuda and cpu "
+                               f"differ in {differ}")
+        frames[mode] = "equal"
+    record.update(phase8_kernel_vs_plain=res, phase8_frames=frames)
+    print("phase 8: 64x64 2-bounce scan and scanq frames, cuda vs cpu: "
+          "every output equal", flush=True)
+
+
+def phase_fast_path(dev, record, smi) -> dict:
+    """Phase 9: the inference fast path at full width.  Returns the
+    numbers the kernels line takes."""
+    W = H = FAST_SIZE
+    scene, camera = room(FAST_N, dev)
+    res = {"bench": {}, "fps": {}}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    samples = draw_samples(gen, W, H, 3)
+
+    # (a) bench.py's configuration: per-pass kernel numbers for both pair
+    # maths, then the frames
+    for mode in ("scanq", "scan"):
+        kw = dict(BENCH_KW, composite_mode=mode)
+        if mode == "scan":
+            kw["attr_precision"] = "highest"   # bf16 comes with scanq only
+        calls = first_two_passes(scene, camera, W, H, samples, kw,
+                                 BENCH_SETTINGS)
+        res["bench"][mode] = scan_pass_numbers(calls, mode, compare=True)
+        del calls
+    frame_kw = dict(num_bounces=2, **BENCH_KW)
+    frames = {}
+    for mode in ("scanq", "scan", "kbuffer"):
+        kw = dict(frame_kw, composite_mode=mode)
+        if mode != "scanq":
+            kw["attr_precision"] = "highest"
+        dispatch_render_frame(scene, camera, BENCH_SETTINGS, gen, W, H,
+                              **kw)                             # warm-up
+        torch.cuda.synchronize()
+        render_scan.launches = render_culled.launches = 0
+        n_timed = 3
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            steps, final = dispatch_render_frame(scene, camera,
+                                                 BENCH_SETTINGS, gen, W, H,
+                                                 **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_timed * 1e3
+        launches = (render_scan.launches, render_culled.launches)
+        expected = ((3 * n_timed, 0) if mode != "kbuffer"
+                    else (0, 3 * n_timed))
+        if launches != expected:
+            raise RuntimeError(f"phase 9a {mode}: render_scan/render_culled "
+                               f"launched {launches}, expected {expected}")
+        if not (torch.isfinite(final).all() and final.mean().item() > 0.0):
+            raise RuntimeError(f"phase 9a {mode}: bad final image")
+        same = dispatch_render_frame(scene, camera, BENCH_SETTINGS, None, W,
+                                     H, samples=samples, **kw)[1]
+        frames[mode] = dict(ms=ms, fps=1e3 / ms, launches=launches,
+                            frame_mrays_s=W * H / ms / 1e3,
+                            starved=steps.overflow.mean().item(),
+                            final=same)
+    for mode in ("scanq", "scan"):
+        frames[mode]["psnr_vs_kbuffer_db"] = psnr_tonemapped(
+            frames[mode]["final"], frames["kbuffer"]["final"])
+    kw = dict(frame_kw, composite_mode="scanq")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dispatch_render_frame(scene, camera, BENCH_SETTINGS, gen, W, H, **kw)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            by_kernel[e.key] = device_time_us(e) / 1e3
+    device_ms = sum(by_kernel.values())
+    scan_ms = sum(v for k, v in by_kernel.items()
+                  if "render_scan_kernel" in k)
+    for f in frames.values():
+        del f["final"]
+    res["bench"]["frames"] = frames
+    res["bench"].update(
+        profiled_frame_ms=prof_ms, profiled_device_ms=device_ms,
+        profiled_scan_kernel_ms=scan_ms,
+        device_idle_share=(max(0.0, 1 - device_ms / prof_ms)
+                           if device_ms > 0 else None),
+        profiled_top_device_ms=sorted(by_kernel.items(),
+                                      key=lambda kv: -kv[1])[:12])
+    b, q = res["bench"], frames["scanq"]
+    idle = ("device idle ~" + f"{b['device_idle_share']:.1%}"
+            if device_ms > 0 else "device time not measured")
+    print(f"phase 9a: {W}x{H}, room_scene({FAST_N}), 2 bounces, bench.py's "
+          f"configuration (scanq, K 16, cluster 128, 128/768 candidates, "
+          f"counters off, bf16): {q['ms']:.1f} ms/frame, {q['fps']:.2f} FPS, "
+          f"{q['frame_mrays_s']:.3f} M frame rays/s, starved "
+          f"{q['starved']:.4%}; render_scan {scan_ms:.1f} of "
+          f"{device_ms:.1f} ms device time, {idle} [{smi}]", flush=True)
+    for mode in ("scanq", "scan"):
+        n = b[mode]
+        print(f"phase 9a: render_scan {mode} per pass: primary "
+              f"{n['primary_ms']:.3f} ms ({n['primary_pairs']:.4g} pairs, "
+              f"bound {n['primary_bound_ms']:.3f} ms by "
+              f"{n['primary_bound_by']}), reflected {n['reflected_ms']:.3f} "
+              f"ms ({n['reflected_pairs']:.4g} pairs, bound "
+              f"{n['reflected_bound_ms']:.3f} ms)"
+              + (f"; plain {n['primary_plain_ms']:.1f} / "
+                 f"{n['reflected_plain_ms']:.1f} ms, max_abs_err "
+                 f"{n['primary_compare']['max_abs_err']:.3g} / "
+                 f"{n['reflected_compare']['max_abs_err']:.3g}"
+                 if "primary_compare" in n else ""), flush=True)
+    print(f"phase 9a: frames: scanq {q['ms']:.1f} ms, scan "
+          f"{frames['scan']['ms']:.1f} ms, kbuffer "
+          f"{frames['kbuffer']['ms']:.1f} ms; tonemapped PSNR vs the "
+          f"k-buffer frame: scanq {q['psnr_vs_kbuffer_db']:.2f} dB, scan "
+          f"{frames['scan']['psnr_vs_kbuffer_db']:.2f} dB [{smi}]",
+          flush=True)
+
+    # (b) measure_fps at the Config defaults
+    cfg = Config()
+    cfg.composite_mode = "scanq"        # measure_fps.main's default
+    cfg.model_path = str(ROOT / "chiprun_out" / "fps_model")
+    Path(cfg.model_path).mkdir(parents=True, exist_ok=True)
+    fps_kw = dict(max_hits=cfg.max_hits, cull_cluster=cfg.cull_cluster,
+                  max_clusters=cfg.max_clusters, composite_mode="scanq",
+                  kernel_stats=False)
+    calls = first_two_passes(scene, camera, W, H, samples, fps_kw,
+                             tr.settings_from_config(cfg))
+    res["fps"]["scanq"] = scan_pass_numbers(calls, "scanq", compare=True)
+    del calls
+    views = orbit_views(N_FPS_VIEWS, W, H)
+    render_scan.launches = render_culled.launches = 0
+    fps = measure_fps(cfg, views, scene, tr.settings_from_config(cfg))
+    launches = (render_scan.launches, render_culled.launches)
+    expected = (2 * N_FPS_VIEWS * 3, 0)
+    if launches != expected:
+        raise RuntimeError(f"phase 9b: render_scan/render_culled launched "
+                           f"{launches}, expected {expected}")
+    res["fps_launches"] = launches[0]
+    res["fps"].update(fps=fps, ms_per_frame=1e3 / fps,
+                      frame_mrays_s=W * H * fps / 1e6)
+    n = res["fps"]["scanq"]
+    print(f"phase 9b: measure_fps() at the Config defaults (scanq, K 32, "
+          f"cluster 256, 192 candidates, counters off), {N_FPS_VIEWS} views "
+          f"at {W}x{H}: {fps:.2f} FPS ({1e3 / fps:.1f} ms/frame); "
+          f"render_scan launches {launches[0]}; per pass: primary "
+          f"{n['primary_ms']:.3f} ms (bound {n['primary_bound_ms']:.3f} ms "
+          f"by {n['primary_bound_by']}, plain {n['primary_plain_ms']:.1f} "
+          f"ms, max_abs_err {n['primary_compare']['max_abs_err']:.3g}), "
+          f"reflected {n['reflected_ms']:.3f} ms (plain "
+          f"{n['reflected_plain_ms']:.1f} ms, max_abs_err "
+          f"{n['reflected_compare']['max_abs_err']:.3g}) [{smi}]",
+          flush=True)
+    res["max_abs_err"] = max(
+        r[f"{p}_compare"]["max_abs_err"]
+        for r in (res["fps"]["scanq"], res["bench"]["scanq"])
+        for p in ("primary", "reflected"))
+    record["phase9_fast_path"] = res
+    return res
 
 
 def main() -> None:
@@ -399,6 +745,36 @@ def main() -> None:
         f"{v['counters_equal']:.4%} of rays" for k, v in phase4.items()),
         flush=True)
 
+    # -- phase 4b: render_culled in groups of 4 on the same primary pass ----
+    ce4_kw = dict(call0.kwargs, check_every=4)
+    ce4_ms = cuda_ms(lambda: render_culled(*call0.args, **ce4_kw), reps=10)
+    out4 = render_culled(*call0.args, **ce4_kw)
+    args4, kw4, rows4 = first_tiles(call0, CHECK_TILES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref4 = render_culled_reference(*args4, **dict(kw4, check_every=4))
+    torch.cuda.synchronize()
+    ce4_plain_ms = (time.perf_counter() - t0) * 1e3
+    ce4_cmp = compare_lanes(out4[:rows4], ref4)
+    check_lanes("phase 4b", ce4_cmp)
+    ce4_pairs = out4[:, OUT_TRAV].sum().item()
+    ce4_bound_ms, ce4_bound_by = bound(
+        ce4_pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        nbytes(*call0.args[:5], call0.kwargs["alive"], out4))
+    record["phase4b_check_every_4"] = dict(
+        ce4_cmp, ms=ce4_ms, plain_ms_first_tiles=ce4_plain_ms,
+        check_tiles=CHECK_TILES, pairs=ce4_pairs, bound_ms=ce4_bound_ms,
+        bound_by=ce4_bound_by, launches_on_main_path=0)
+    print(f"phase 4b: render_culled check_every=4 (pallas_render_culled_v3's "
+          f"exit; not launched at this capacity) on the 800x800 primary "
+          f"pass: {ce4_ms:.3f} ms ({ce4_pairs:.4g} pairs, bound "
+          f"{ce4_bound_ms:.3f} ms by {ce4_bound_by}); plain version on the "
+          f"first {CHECK_TILES} tiles {ce4_plain_ms:.1f} ms, max_abs_err "
+          f"{ce4_cmp['max_abs_err']:.3g}, counters equal on "
+          f"{ce4_cmp['counters_equal']:.4%} of those rays [{smi}]",
+          flush=True)
+    del out4, ref4
+
     render_culled.launches = 0
     frame_kw = dict(num_bounces=2, **FRAME_KW)
     steps, final = dispatch_render_frame(scene, camera, SETTINGS, gen, W, H,
@@ -534,6 +910,38 @@ def main() -> None:
                             bound_ms=b_ms, bound_by=b_by,
                             rays=call.args[0].shape[0])
         del out, acc, ref, ref_acc
+
+    # -- phase 5b: trace_slots in exit mode 1 on the same primary batch -----
+    call = calls[0]
+    m1_kw = dict(call.kwargs, exit_mode=1, check_every=2)
+    m1_ms = cuda_ms(lambda: trace_slots(*call.args, **m1_kw), reps=3)
+    out, acc = trace_slots(*call.args, **m1_kw)
+    args1, kw1, rows1 = first_tiles(call, CHECK_TILES, cand_pos=(5, 6))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_acc = trace_slots_reference(*args1, **dict(kw1, exit_mode=1,
+                                                        check_every=2))
+    torch.cuda.synchronize()
+    m1_plain_ms = (time.perf_counter() - t0) * 1e3
+    m1_cmp = compare_slots(out[:rows1], acc[:rows1], ref, ref_acc, K)
+    check_lanes("phase 5b", m1_cmp)
+    m1_pairs = acc[:, 1].sum().item()
+    m1_bound_ms, m1_bound_by = bound(
+        m1_pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        nbytes(*call.args[:7], call.kwargs["alive"], out, acc))
+    phase5["exit_mode_1"] = dict(
+        m1_cmp, ms=m1_ms, plain_ms_first_tiles=m1_plain_ms,
+        check_tiles=CHECK_TILES, pairs=m1_pairs, bound_ms=m1_bound_ms,
+        bound_by=m1_bound_by, launches_on_main_path=0)
+    print(f"phase 5b: trace_slots exit mode 1 (pallas_trace_slots' pairs, "
+          f"check_every=2; not launched at this capacity) on the step's "
+          f"primary batch: {m1_ms:.3f} ms ({m1_pairs:.4g} pairs, bound "
+          f"{m1_bound_ms:.3f} ms by {m1_bound_by}); plain version on the "
+          f"first {CHECK_TILES} tiles {m1_plain_ms:.1f} ms, max_abs_err "
+          f"{m1_cmp['max_abs_err']:.3g}, ids+counters equal on "
+          f"{m1_cmp['counters_equal']:.4%} of those rays [{smi}]",
+          flush=True)
+    del out, acc, ref, ref_acc, call
     del calls
     payload, ids = hit_grads(steps5, residuals, targets_b, settings,
                              num_bounces, cap)
@@ -576,7 +984,7 @@ def main() -> None:
               f"{v['bound_ms']:.3f} ms by {v['bound_by']}, max_abs_err "
               f"{v['max_abs_err']:.3g}, ids+counters equal on "
               f"{v['counters_equal']:.4%} of rays)"
-              for k, v in phase5.items() if k != "scatter")
+              for k, v in phase5.items() if k in ("primary", "reflected"))
           + f" [{smi}]", flush=True)
     print(f"phase 5: scatter_grads on all 3 bounces' hits "
           f"({phase5['scatter']['rows']} slots, "
@@ -682,6 +1090,11 @@ def main() -> None:
           f"{expected_ts}, {expected_sc}) [{smi}]", flush=True)
     for k, v in top[:8]:
         print(f"phase 7:   {v:9.2f} ms  {k[:90]}", flush=True)
+    del st, state, targets, prep, cull, prof
+    torch.cuda.empty_cache()
+
+    phase_scan_small(dev, record)
+    fast = phase_fast_path(dev, record, smi)
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -725,6 +1138,23 @@ def main() -> None:
         "bound_ms": sc_bound_ms,
         "bound_by": sc_bound_by,
         "library_ms": sc_lib_ms,
+    }, {
+        "name": "render_scan",
+        "route": "cuda",
+        "source": src + "render_scan.cu",
+        "replaces": jax_src + "render_kernel_v7.py:362",
+        "also_replaces": jax_src + "render_kernel_v6.py:200",
+        # measure_fps() at the Config defaults: the main path (phase 9b)
+        "launches": fast["fps_launches"],
+        "max_abs_err": fast["max_abs_err"],
+        "ms": fast["fps"]["scanq"]["primary_ms"],
+        "plain_ms": fast["fps"]["scanq"]["primary_plain_ms"],
+        "bound_ms": fast["fps"]["scanq"]["primary_bound_ms"],
+        "bound_by": fast["fps"]["scanq"]["primary_bound_by"],
+        "library_ms": None,
+        # the same kernel at bench.py's configuration (phase 9a)
+        "bench_ms": fast["bench"]["scanq"]["primary_ms"],
+        "direct_ms": fast["bench"]["scan"]["primary_ms"],
     }]
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

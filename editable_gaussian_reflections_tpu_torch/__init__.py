@@ -10,7 +10,11 @@ Ported so far:
     ops/cuda/render_kernel.py);
   * the fused training step: training.train_step ->
     raytracer.render_tile_with_grads_fused, through csrc/trace_slots.cu
-    (ops/cuda/trace_slots.py) and csrc/scatter_grads.cu (ops/cuda/scatter.py).
+    (ops/cuda/trace_slots.py) and csrc/scatter_grads.cu (ops/cuda/scatter.py);
+  * the inference fast path: measure_fps.py and render_frame_fused with
+    composite_mode "scan"/"scanq", through csrc/render_scan.cu
+    (ops/cuda/scan_kernel.py), with the scene loading the CLI needs
+    (scene/scene.py, scene/cameras.py, dataset/blender.py, utils/ply.py).
 
 Entry points build their tensors on the CUDA card unless the caller passes
 device="cpu" (device.py); on CPU tensors every kernel wrapper runs its plain

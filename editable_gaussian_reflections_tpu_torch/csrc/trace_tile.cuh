@@ -1,5 +1,6 @@
 // trace_tile.cuh - the culled ray x Gaussian walk shared by the render
-// kernel (render_culled.cu) and the training slots kernel (trace_slots.cu).
+// kernel (render_culled.cu) and the training slots kernel (trace_slots.cu),
+// and the pair math the streaming scan kernel (render_scan.cu) reuses.
 //
 // One block per ray tile, one thread per ray.  The block walks the tile's
 // candidate clusters (nearest first); for each cluster it stages the 22
@@ -113,6 +114,116 @@ inline bool init_trace_params(TraceParams& p, const float* rays_o,
   p.log_thr = log_thr;
   p.exp_power = exp_power;
   return true;
+}
+
+// The pair math as functions, for the streaming scan kernel
+// (render_scan.cu): the same float operations as trace_tile's inline copy
+// below.  trace_tile keeps that copy because routing it through these
+// functions made nvcc schedule the k-buffer walks ~9% slower on an H100
+// (render_culled primary pass 60.3 -> 65.6 ms, trace_slots 68.9 -> 75.0 ms
+// at the 800x800 / 100k-room shapes; tools/walk_ab.py).  Keep the two in
+// step.
+
+// One ray, as every thread of a walk holds it.
+struct RayState {
+  float ox, oy, oz, dx, dy, dz;
+  float t_split;  // read in window_mode 1/2 only
+  bool live;
+};
+
+__device__ __forceinline__ RayState load_ray(const TraceParams& p, int r) {
+  RayState ray;
+  ray.ox = p.rays_o[3 * r];
+  ray.oy = p.rays_o[3 * r + 1];
+  ray.oz = p.rays_o[3 * r + 2];
+  ray.dx = p.rays_d[3 * r];
+  ray.dy = p.rays_d[3 * r + 1];
+  ray.dz = p.rays_d[3 * r + 2];
+  ray.live = p.alive[r] > 0.0f;
+  ray.t_split = p.window_mode != 0 ? p.t_split[r] : 0.0f;
+  return ray;
+}
+
+// Whether a ray x Gaussian pair is a hit, from the pair's ray-frame
+// quantities (the JAX _pair_math's validity): in front of the Gaussian's
+// centre, inside its unit sphere, inside [near, far] and the window, on a
+// live ray, and on reflected passes not a backfacing near hit.
+// backfacing() - the Gaussian's normal is long enough and faces along the
+// ray - is evaluated only when that test runs: its loads stay off the
+// common path.
+template <class Backfacing>
+__device__ __forceinline__ bool pair_valid(const TraceParams& p,
+                                           const RayState& ray, float gvalid,
+                                           float dot_ol, float sq, float t,
+                                           const Backfacing& backfacing) {
+  bool valid = (gvalid > 0.0f) && (dot_ol <= 0.0f) && (sq <= 1.0f) &&
+               (t > p.near) && (t < p.far) && ray.live;
+  if (p.window_mode == 1) valid = valid && (t < ray.t_split);
+  if (p.window_mode == 2) valid = valid && (t > ray.t_split);
+  if (valid && p.secondary_static != 0) {
+    const bool reject = (t < p.bf_max_dist) && backfacing();
+    valid = p.secondary_static == 1 ? !reject
+                                    : (p.secondary <= 0.0f || !reject);
+  }
+  return valid;
+}
+
+// The generalized-Gaussian opacity of a hit at squared unit-sphere distance
+// sq: exp and pow in float64, rounded once.
+template <bool CUBE>
+__device__ __forceinline__ float pair_alpha(const TraceParams& p, float sq,
+                                            float sf2, float opacity) {
+  const float sqs = fmaxf(sq * sf2, 0.0f);
+  float powered;
+  if (CUBE) {
+    powered = sqs * sqs * sqs;
+  } else if (p.int_power > 0) {
+    powered = sqs;
+    for (int e = 1; e < p.int_power; ++e) powered = powered * sqs;
+  } else {
+    powered = (float)pow((double)sqs, (double)p.exp_power);
+  }
+  const float gaussval =
+      (float)exp((double)(-powered / (2.0f * p.exp_power)));
+  return MAX_ALPHA * gaussval * opacity;
+}
+
+// The direct pair math (the JAX render_kernel.py:_pair_math): the ray in
+// the Gaussian's unit-sphere frame, its closest approach t and squared
+// distance sq.  G(row) reads the Gaussian's gpack row; gvalid is its
+// ROW_VALID, which the caller has read.  Returns whether the pair is a hit;
+// t and alpha are set for hits.
+template <bool CUBE, class Row>
+__device__ __forceinline__ bool pair_direct(const TraceParams& p,
+                                            const RayState& ray, const Row& G,
+                                            float gvalid, float& t,
+                                            float& alpha) {
+  const float rx = ray.ox - G(ROW_MEAN);
+  const float ry = ray.oy - G(ROW_MEAN + 1);
+  const float rz = ray.oz - G(ROW_MEAN + 2);
+  float lo[3], ld[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float r0 = G(ROW_ROT + i), r1 = G(ROW_ROT + 3 + i),
+                r2 = G(ROW_ROT + 6 + i);
+    const float inv = G(ROW_INV + i);
+    lo[i] = inv * (r0 * rx + r1 * ry + r2 * rz);
+    ld[i] = inv * (r0 * ray.dx + r1 * ray.dy + r2 * ray.dz);
+  }
+  const float dot_ol = lo[0] * ld[0] + lo[1] * ld[1] + lo[2] * ld[2];
+  const float dot_ll = ld[0] * ld[0] + ld[1] * ld[1] + ld[2] * ld[2];
+  const float dot_oo = lo[0] * lo[0] + lo[1] * lo[1] + lo[2] * lo[2];
+  const float inv_ll = 1.0f / fmaxf(dot_ll, 1e-30f);
+  t = -dot_ol * inv_ll;
+  const float sq = dot_oo - dot_ol * dot_ol * inv_ll;
+  const bool valid = pair_valid(p, ray, gvalid, dot_ol, sq, t, [&] {
+    return G(ROW_NLEN) > p.bf_thr &&
+           G(ROW_NRM) * ld[0] + G(ROW_NRM + 1) * ld[1] +
+                   G(ROW_NRM + 2) * ld[2] >
+               0.0f;
+  });
+  if (valid) alpha = pair_alpha<CUBE>(p, sq, G(ROW_SF2), G(ROW_OPACITY));
+  return valid;
 }
 
 // The walk of this thread's ray (blockIdx.x = tile, threadIdx.x = ray in

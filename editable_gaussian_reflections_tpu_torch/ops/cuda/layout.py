@@ -19,11 +19,13 @@ hit.  csrc/trace_slots.cu spells out the same block order.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..gaussian_kernel import MAX_ALPHA
 from ..intersect import GaussianFrames
-from ..precision import norm, rounded
+from ..precision import WIDE, norm, rounded
 
 # gpack row layout ([N_ROWS, N]; a cluster block is [N_ROWS, cluster])
 ROW_MEAN = 0        # 3 rows
@@ -224,3 +226,77 @@ def unpack_slots(slots: torch.Tensor, acc: torch.Tensor, K: int,
     )
     frames["rot_mat"] = rot
     return hits, attrs, frames
+
+
+# scan table columns ([N, SCAN_COLS], pack_scan_table)
+SCAN_COLS = 32
+SCAN_GEOM = 22      # direct table: gpack rows 0..21 as columns (ROW_*)
+SCAN_ATTR = 22      # 10 attribute columns, in ATTR_ROWS order, both tables
+Q_S = 0             # quadric table: 6 - S00, S11, S22, S01, S02, S12
+Q_NQ = 6            # 3 - -(S mu')
+Q_C = 9             # mu'^T S mu'
+Q_ND = 10           # 3 - M^T nrm
+Q_OPACITY = 13
+Q_SF2 = 14
+Q_NLEN = 15
+Q_VALID = 16
+PAIR_MATHS = ("direct", "quadric")
+
+
+class ScanTable(NamedTuple):
+    """A frame's scan table and the pair math its layout is for."""
+
+    table: torch.Tensor   # [N, SCAN_COLS] f32
+    center: torch.Tensor  # [3] f32: the quadric form's origin (zeros for
+                          # the direct table)
+    pair_math: str        # "direct" (scan, JAX v6) | "quadric" (scanq, v7)
+
+
+def pack_scan_table(gpack: torch.Tensor, pair_math: str) -> ScanTable:
+    """[N_ROWS, N] gpack -> the frame's ScanTable for `pair_math`.
+
+    Quadric weights (render_kernel_v7.py:94-137): with M[i, j] = inv_i *
+    rot[3j + i] the Gaussian's world -> unit-sphere matrix and mu' = mean -
+    centre, S = M^T M, q = S mu', c = mu'^T S mu' and M^T nrm.  The centre
+    (the valid-mass mean of the means), S, q, c and M^T nrm are computed in
+    WIDE with every sum spelled out and rounded once, so the table is the
+    same on every device."""
+    if pair_math not in PAIR_MATHS:
+        raise ValueError(f"pair_math={pair_math!r}: expected one of "
+                         f"{PAIR_MATHS}")
+    n = gpack.shape[1]
+    attrs = gpack[list(ATTR_ROWS)].T
+    if pair_math == "direct":
+        table = torch.cat([gpack[:SCAN_GEOM].T, attrs], dim=1)
+        center = torch.zeros((3,), dtype=torch.float32, device=gpack.device)
+        return ScanTable(table.contiguous(), center, pair_math)
+
+    g = gpack.to(WIDE)
+    mean = [g[ROW_MEAN + i] for i in range(3)]
+    valid = g[ROW_VALID]
+    mass = torch.clamp(valid.sum(), min=1.0)
+    center = torch.stack([(m * valid).sum() / mass for m in mean]).to(
+        torch.float32)
+    mu = [mean[i] - center[i].to(WIDE) for i in range(3)]
+    # M[i][j] = inv_i * rot[3j + i]
+    M = [[g[ROW_INV + i] * g[ROW_ROT + 3 * j + i] for j in range(3)]
+         for i in range(3)]
+
+    def col_dot(i, j):  # (M^T M)[i][j]
+        return M[0][i] * M[0][j] + M[1][i] * M[1][j] + M[2][i] * M[2][j]
+
+    S = [[col_dot(i, j) for j in range(3)] for i in range(3)]
+    q = [S[i][0] * mu[0] + S[i][1] * mu[1] + S[i][2] * mu[2]
+         for i in range(3)]
+    c = mu[0] * q[0] + mu[1] * q[1] + mu[2] * q[2]
+    nrm = [g[ROW_NRM + k] for k in range(3)]
+    m_nd = [M[0][i] * nrm[0] + M[1][i] * nrm[1] + M[2][i] * nrm[2]
+            for i in range(3)]
+    cols = [S[0][0], S[1][1], S[2][2], S[0][1], S[0][2], S[1][2],
+            -q[0], -q[1], -q[2], c, *m_nd]
+    quad = torch.stack(cols, dim=1).to(torch.float32)
+    geom = gpack[[ROW_OPACITY, ROW_SF2, ROW_NLEN, ROW_VALID]].T
+    pad = torch.zeros((n, SCAN_ATTR - Q_VALID - 1), dtype=torch.float32,
+                      device=gpack.device)
+    table = torch.cat([quad, geom, pad, attrs], dim=1)
+    return ScanTable(table.contiguous(), center, pair_math)

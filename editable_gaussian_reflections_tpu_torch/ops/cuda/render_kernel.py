@@ -120,11 +120,30 @@ def _pair_math(o, d, alive, t_split, g, *, near, far, secondary, bf_max_dist,
     dot_ol = lo[0] * ld[0] + lo[1] * ld[1] + lo[2] * ld[2]
     dot_ll = ld[0] * ld[0] + ld[1] * ld[1] + ld[2] * ld[2]
     dot_oo = lo[0] * lo[0] + lo[1] * lo[1] + lo[2] * lo[2]
+    gvalid = g[:, ROW_VALID, :]
+    t, alpha, valid = pair_tail(
+        dot_ll, dot_ol, dot_oo, gvalid, row(ROW_NLEN),
+        lambda: (row(ROW_NRM) * ld[0] + row(ROW_NRM + 1) * ld[1]
+                 + row(ROW_NRM + 2) * ld[2]),
+        row(ROW_SF2), row(ROW_OPACITY), alive, t_split, near=near, far=far,
+        secondary=secondary, bf_max_dist=bf_max_dist, bf_thr=bf_thr,
+        exp_power=exp_power, window_mode=window_mode,
+        secondary_static=secondary_static)
+    return t, alpha, valid, gvalid
+
+
+def pair_tail(dot_ll, dot_ol, dot_oo, gvalid, nlen, ndotd, sf2, opacity,
+              alive, t_split, *, near, far, secondary, bf_max_dist, bf_thr,
+              exp_power, window_mode, secondary_static):
+    """From a pair's three ray-frame dots to (t, alpha, valid) [A, tile, C]:
+    closest approach, validity and the generalized-Gaussian opacity, shared
+    by the direct and the quadric pair math.  gvalid is [A, C]; nlen, sf2
+    and opacity [A, 1, C]; ndotd() gives the normal's component along the
+    ray, needed on reflected passes only."""
     inv_ll = 1.0 / torch.clamp(dot_ll, min=1e-30)
     t = -dot_ol * inv_ll
     sq = dot_oo - dot_ol * dot_ol * inv_ll
 
-    gvalid = g[:, ROW_VALID, :]
     valid = (gvalid[:, None, :] > 0.0) & (dot_ol <= 0.0) & (sq <= 1.0)
     valid &= (t > near) & (t < far)
     if window_mode == 1:
@@ -132,9 +151,7 @@ def _pair_math(o, d, alive, t_split, g, *, near, far, secondary, bf_max_dist,
     elif window_mode == 2:
         valid &= t > t_split[..., None]
     if secondary_static != 0:
-        ndotd = (row(ROW_NRM) * ld[0] + row(ROW_NRM + 1) * ld[1]
-                 + row(ROW_NRM + 2) * ld[2])
-        reject = (t < bf_max_dist) & (row(ROW_NLEN) > bf_thr) & (ndotd > 0.0)
+        reject = (t < bf_max_dist) & (nlen > bf_thr) & (ndotd() > 0.0)
         if secondary_static == 1:
             valid &= ~reject
         else:
@@ -142,7 +159,7 @@ def _pair_math(o, d, alive, t_split, g, *, near, far, secondary, bf_max_dist,
     valid &= alive[..., None] > 0.0
 
     k2 = 2.0 * exp_power
-    sqs = torch.clamp(sq * row(ROW_SF2), min=0.0)
+    sqs = torch.clamp(sq * sf2, min=0.0)
     if float(exp_power).is_integer() and 1 <= exp_power <= 8:
         powered = sqs
         for _ in range(int(exp_power) - 1):
@@ -150,8 +167,8 @@ def _pair_math(o, d, alive, t_split, g, *, near, far, secondary, bf_max_dist,
     else:
         powered = rounded(torch.pow, sqs, exp_power)
     gaussval = rounded(torch.exp, div(-powered, k2))
-    alpha = MAX_ALPHA * gaussval * row(ROW_OPACITY)
-    return t, alpha, valid, gvalid
+    alpha = MAX_ALPHA * gaussval * opacity
+    return t, alpha, valid
 
 
 def _drain(st, sa, sid, t, alpha, valid, first_id, K):

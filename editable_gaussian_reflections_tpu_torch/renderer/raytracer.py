@@ -1,22 +1,29 @@
-"""The fused eval render: one culled k-buffer kernel per bounce.
+"""The fused render: one culled render kernel per bounce.
 
-Twin of the fused k-buffer path of the JAX renderer/raytracer.py
-(render_frame_fused and its SPP wrappers).  Wavefront style: all rays
-advance one bounce together, with per-ray liveness instead of per-thread
-breaks.  Per bounce: re-tile the rays (pixel tiles for primary rays; a
-stable sort by liveness, origin Morton cell and direction bin for reflected
-rays), cull clusters per tile (ops/culling.py), run the render kernel
-(ops/cuda/render_kernel.py), then the per-ray bounce epilogue (normal
-normalization, GGX sampling, Cook-Torrance throughput).
+Twin of the fused path of the JAX renderer/raytracer.py (render_frame_fused
+and its SPP wrappers).  Wavefront style: all rays advance one bounce
+together, with per-ray liveness instead of per-thread breaks.  Per bounce:
+re-tile the rays (pixel tiles for primary rays; a stable sort by liveness,
+origin Morton cell and direction bin for reflected rays), cull clusters per
+tile (ops/culling.py), run the render kernel, then the per-ray bounce
+epilogue (normal normalization, GGX sampling, Cook-Torrance throughput).
+
+composite_mode picks the kernel: "kbuffer" the exact top-K k-buffer
+(ops/cuda/render_kernel.py); "scan" and "scanq" the streaming scan
+composite with no K cap (ops/cuda/scan_kernel.py; direct and quadric pair
+math), the inference fast path of measure_fps and the viewer.  The scan
+modes depth-sort each cluster's Gaussians along the view axis and each
+tile's candidates by cluster-centre depth, and fall back to the k-buffer
+kernel where the JAX renderer does (scan_fits).
 
 The training step's forward + loss-fused backward over a batch of ray tiles
 (render_tile_with_grads_fused) runs the same wavefront through the slots
 kernel (ops/cuda/trace_slots.py), the composite, the hand-written backward
 (ops/render_grads.py) and the gradient scatter (ops/cuda/scatter.py).
 
-Not ported yet, and raising instead of falling back: composite_mode
-"scan"/"scanq" (the streaming kernels), split_far=True (the two-pass bounce)
-and the non-fused render_frame/render_accumulated/render_tile_with_grads.
+Not ported yet, and raising instead of falling back: split_far=True (the
+two-pass bounce) and the non-fused render_frame/render_accumulated/
+render_tile_with_grads.
 
 Randomness: the JAX package draws jitter and GGX uniforms from a key; the
 port draws the same quantities (FrameSamples) from a torch.Generator, or
@@ -43,14 +50,21 @@ from ..ops.culling import (
     morton_codes,
     morton_order,
     select_candidates,
+    sort_within_clusters,
     tile_pixel_order,
 )
-from ..ops.cuda.layout import pack_frames, unpack_composite, unpack_slots
+from ..ops.cuda.layout import (
+    pack_frames,
+    pack_scan_table,
+    unpack_composite,
+    unpack_slots,
+)
 from ..ops.cuda.render_kernel import check_every_for, render_culled
+from ..ops.cuda.scan_kernel import ATTR_PRECISIONS, render_scan, scan_fits
 from ..ops.cuda.scatter import scatter_add
 from ..ops.cuda.trace_slots import exit_mode_for, trace_slots
 from ..ops.gaussian_kernel import ROUGHNESS_DOWNWEIGHT_GRAD_POWER
-from ..ops.precision import norm, rounded
+from ..ops.precision import WIDE, dot, norm, rounded
 from ..ops.render_grads import (
     SCATTER_COLS,
     backward_step,
@@ -63,6 +77,7 @@ from ..ops.trace import RayHits
 from ..scene.gaussian_scene import GaussianScene, build_frames
 
 COMPOSITE_MODES = ("kbuffer", "scan", "scanq")
+SCAN_MODES = ("scan", "scanq")
 
 
 class RenderSettings(NamedTuple):
@@ -210,12 +225,6 @@ def check_composite_mode(composite_mode: str, split_far: bool = False) -> None:
         raise ValueError(
             f"composite_mode={composite_mode!r}: expected one of "
             "'kbuffer' | 'scan' | 'scanq'")
-    if composite_mode != "kbuffer":
-        raise NotImplementedError(
-            f"composite_mode={composite_mode!r}: the streaming scan kernels "
-            "(JAX pallas_render_culled_v6/_v7) are not ported yet; they are "
-            "Queue 2 items of ROADMAP.md, due after the training slots "
-            "kernel")
     if split_far:
         raise NotImplementedError(
             "split_far=True: the two-pass near/far bounce is not ported yet "
@@ -227,11 +236,15 @@ def _prepare_fused_frame(scene: GaussianScene, camera: CameraParams,
                          samples: FrameSamples | None, width: int,
                          height: int, *, jitter: bool, cull_cluster: int,
                          cull_tile_primary: int, num_steps: int,
-                         generator: torch.Generator | None = None):
+                         generator: torch.Generator | None = None,
+                         composite_mode: str = "kbuffer"):
     """Morton sort + cluster bounds + gpack, pixel-tile ray ordering and the
     per-step GGX uniforms in tile order.  The frame's randomness is
-    `samples`, or drawn from `generator` when that is None.  Returns a dict
-    of everything _fused_bounce_core consumes plus (ray_perm, ray_inv, R)."""
+    `samples`, or drawn from `generator` when that is None.  Scan modes
+    also depth-sort each cluster along the camera's forward axis and build
+    the frame's scan table once (None where scan_fits says the JAX renderer
+    would composite with the k-buffer kernel).  Returns a dict of
+    everything _fused_bounce_core consumes plus (ray_perm, ray_inv, R)."""
     if samples is None:
         if generator is None:
             raise ValueError("a frame needs samples or a generator")
@@ -243,8 +256,20 @@ def _prepare_fused_frame(scene: GaussianScene, camera: CameraParams,
     perm = morton_order(frames)
     frames = frames.take(perm)
     attrs = attrs.take(perm)
+    if composite_mode in SCAN_MODES:
+        # the scan composite follows table order within a chunk: sort each
+        # cluster by depth along the view axis (membership, and so the
+        # bounds and the candidate lists, unchanged)
+        perm2 = sort_within_clusters(frames, -camera.c2w[:, 2], cull_cluster)
+        frames = frames.take(perm2)
+        attrs = attrs.take(perm2)
     bounds = cluster_bounds(frames, cull_cluster)
     gpack = pack_frames(frames, attrs).contiguous()
+    scan = None
+    if composite_mode in SCAN_MODES and scan_fits(gpack.shape[1],
+                                                  cull_cluster):
+        scan = pack_scan_table(
+            gpack, "quadric" if composite_mode == "scanq" else "direct")
 
     # square pixel tiles sized to the primary cull tile (256 -> 16x16)
     tpx = math.isqrt(cull_tile_primary)
@@ -262,7 +287,7 @@ def _prepare_fused_frame(scene: GaussianScene, camera: CameraParams,
     scene_lo, scene_hi = live_bounds(frames.mean, frames.valid)
     us = samples.us[:, ray_perm]
     rays_o = camera.origin.expand(R, 3)
-    return dict(gpack=gpack, bounds=bounds, scene_lo=scene_lo,
+    return dict(gpack=gpack, scan=scan, bounds=bounds, scene_lo=scene_lo,
                 scene_hi=scene_hi, rays_o=rays_o, dirs=dirs, us=us,
                 ray_perm=ray_perm, ray_inv=ray_inv, R=R)
 
@@ -289,8 +314,11 @@ def secondary_order(rays_o, rays_d, alive, scene_lo, scene_hi,
 
 
 class KernelCall(NamedTuple):
-    """One bounce's render_culled arguments, rays in wavefront order."""
+    """One bounce's render kernel and its arguments, rays in wavefront
+    order: kernel(*args, **kwargs)."""
 
+    kernel: object                  # render_culled / render_scan /
+                                    # trace_slots
     args: tuple
     kwargs: dict
     inv_order: torch.Tensor | None  # output row of each canonical ray
@@ -298,15 +326,36 @@ class KernelCall(NamedTuple):
                                     # per ray in canonical order
 
 
+def center_depth_order(rays_o, rays_d, cands, cnear, centers, tile: int):
+    """Each tile's candidate list re-sorted by cluster-centre depth along
+    the tile's mean direction, empty entries last (raytracer.py:1038-1059):
+    the order in which the scan composite takes the chunks.  The tile means
+    are taken in WIDE and rounded once, the depth dot is spelled out and the
+    sort is stable, so the order is the same on every device."""
+    T = cands.shape[0]
+    tpo = rays_o.to(WIDE).reshape(T, tile, 3).mean(dim=1).to(torch.float32)
+    tpd = rays_d.to(WIDE).reshape(T, tile, 3).mean(dim=1).to(torch.float32)
+    tpd = tpd / torch.clamp(norm(tpd, keepdim=True), min=1e-12)
+    listed = cands >= 0
+    cid = torch.where(listed, cands, 0).to(torch.int64)
+    cdep = dot(centers[cid] - tpo[:, None, :], tpd[:, None, :])
+    key = torch.where(listed, cdep, torch.full_like(cdep, float("inf")))
+    order = torch.sort(key, dim=1, stable=True).indices
+    return cands.gather(1, order), cnear.gather(1, order)
+
+
 def kernel_call(rays_o, rays_d, alive, step: int, gpack, bounds, scene_lo,
                 scene_hi, settings: RenderSettings, znear: float,
                 zfar: float, *, capacity: int, max_hits: int,
                 exp_power_static: float, cull_cluster: int,
                 max_clusters: int, max_clusters_secondary: int | None,
-                cull_tile_secondary: int, cull_tile_primary: int
-                ) -> KernelCall:
+                cull_tile_secondary: int, cull_tile_primary: int,
+                scan=None, kernel_stats: bool = True,
+                attr_precision: str = "highest") -> KernelCall:
     """Order the wavefront of bounce `step`, cull per tile, and assemble
-    the render kernel's arguments."""
+    the render kernel's call: render_scan over the frame's scan table
+    `scan` when there is one (scan modes within scan_fits), else
+    render_culled."""
     near = znear if step == 0 else 0.0
     inv_order = None
     if step > 0:
@@ -321,18 +370,28 @@ def kernel_call(rays_o, rays_d, alive, step: int, gpack, bounds, scene_lo,
     tdrop_ray = tdrop.repeat_interleave(tile)
     if inv_order is not None:
         tdrop_ray = tdrop_ray[inv_order]
-    args = (rays_o.contiguous(), rays_d.contiguous(), gpack, cands, cnear,
-            near, zfar, exp_power_static, 1.0 if step > 0 else 0.0,
-            settings.backfacing_max_dist,
-            settings.backfacing_invalid_normal_threshold)
     kwargs = dict(
         transmittance_threshold=settings.transmittance_threshold,
         eps_forward_normalization=settings.eps_forward_normalization,
         max_hits=max_hits, cluster=cull_cluster, tile=tile, alive=alive,
-        check_every=check_every_for(capacity),
         # the backfacing test only applies to reflected rays
         secondary_static=1 if step > 0 else 0)
-    return KernelCall(args, kwargs, inv_order, tdrop_ray)
+    if scan is not None:
+        # the k-buffer's exit needs near-sorted lists; the scan takes them
+        # in centre-depth order, so they are re-sorted for it alone
+        cands, cnear = center_depth_order(rays_o, rays_d, cands, cnear,
+                                          bounds.center, tile)
+        kernel, table = render_scan, scan
+        kwargs.update(stats=kernel_stats, attr_precision=(
+            attr_precision if scan.pair_math == "quadric" else "highest"))
+    else:
+        kernel, table = render_culled, gpack
+        kwargs.update(check_every=check_every_for(capacity))
+    args = (rays_o.contiguous(), rays_d.contiguous(), table, cands, cnear,
+            near, zfar, exp_power_static, 1.0 if step > 0 else 0.0,
+            settings.backfacing_max_dist,
+            settings.backfacing_invalid_normal_threshold)
+    return KernelCall(kernel, args, kwargs, inv_order, tdrop_ray)
 
 
 def next_wavefront(normal, roughness, depth, f0, rays_o, rays_d, throughput,
@@ -401,7 +460,7 @@ def _fused_bounce_core(rays_o, rays_d, us, gpack, bounds, scene_lo, scene_hi,
         call = kernel_call(rays_o, rays_d, alive, step, gpack, bounds,
                            scene_lo, scene_hi, settings, znear, zfar,
                            **pass_kw)
-        out = render_culled(*call.args, **call.kwargs)
+        out = call.kernel(*call.args, **call.kwargs)
         record, (rays_o, rays_d, throughput, alive) = bounce_epilogue(
             out, call, rays_o, rays_d, throughput, alive, us[step], step,
             settings, zfar)
@@ -415,20 +474,24 @@ def _fused_bounce_core(rays_o, rays_d, us, gpack, bounds, scene_lo, scene_hi,
 def padded_ray_count(R: int, max_clusters: int,
                      max_clusters_secondary: int | None,
                      cull_tile_primary: int, cull_tile_secondary: int,
-                     rays_per_call: int = 65536) -> int:
+                     rays_per_call: int = 65536,
+                     composite_mode: str = "kbuffer") -> int:
     """Rays after the JAX renderer's padding rule: R rounded up to a
     multiple of its per-call ray count (raytracer.py:1332-1363).  The padded
     rays (copies of the leading rays) join the secondary re-sort, so they
     change tile membership; keeping the rule keeps the result equal to the
-    JAX render.  The cap itself came from a TPU scalar-memory budget."""
+    JAX render.  The cap itself came from a TPU scalar-memory budget, 8
+    bytes per candidate for the k-buffer kernels and 4 for the scan
+    kernels' packed word."""
     rays_per_call = min(rays_per_call, R)
 
     def pad8(m):
         return (m + 7) // 8 * 8
 
+    cand_bytes = 4.0 if composite_mode in SCAN_MODES else 8.0
     per_ray = max(pad8(max_clusters) / cull_tile_primary,
                   pad8(max_clusters_secondary or max_clusters)
-                  / cull_tile_secondary) * 8.0
+                  / cull_tile_secondary) * cand_bytes
     tile_lcm = max(cull_tile_primary, cull_tile_secondary)
     cap = max(tile_lcm, int(0.4 * 2**20 / per_ray) // tile_lcm * tile_lcm)
     rays_per_call = min(rays_per_call, cap)
@@ -455,27 +518,39 @@ def render_frame_fused(
     split_far: bool = False,
     composite_mode: str = "kbuffer",
     samples: FrameSamples | None = None,
+    kernel_stats: bool = True,
+    attr_precision: str = "highest",
 ):
-    """Whole-frame render where each bounce is one render_culled launch.
+    """Whole-frame render where each bounce is one render kernel launch:
+    render_culled (composite_mode "kbuffer") or render_scan ("scan": direct
+    pair math; "scanq": quadric), module docstring.
 
-    The frame's randomness comes from `samples` when given, else it is
-    drawn from `generator`.  Requires sqrt(cull_tile_primary) | height and
-    | width and the scene capacity padded to cull_cluster (fused_path_ok).
-    Returns (StepOutputs [S, H*W, ...], final [H*W, 3]) in linear pixel
-    order, on the scene's device."""
+    `kernel_stats=False` compiles the scan kernels' counters out (lanes
+    num_accumulated, num_traversed, chunks read zero; every other output is
+    the same); `attr_precision="bf16"` rounds scanq's attribute products'
+    operands to bf16.  The k-buffer kernel ignores both.  The frame's
+    randomness comes from `samples` when given, else it is drawn from
+    `generator`.  Requires sqrt(cull_tile_primary) | height and | width and
+    the scene capacity padded to cull_cluster (fused_path_ok).  Returns
+    (StepOutputs [S, H*W, ...], final [H*W, 3]) in linear pixel order, on
+    the scene's device."""
     check_composite_mode(composite_mode, split_far)
+    if attr_precision not in ATTR_PRECISIONS:
+        raise ValueError(f"attr_precision={attr_precision!r}: expected one "
+                         f"of {ATTR_PRECISIONS}")
     full_f32_matmuls()
     prep = _prepare_fused_frame(
         scene, camera, settings, samples, width, height, jitter=jitter,
         cull_cluster=cull_cluster, cull_tile_primary=cull_tile_primary,
-        num_steps=num_bounces + 1, generator=generator)
+        num_steps=num_bounces + 1, generator=generator,
+        composite_mode=composite_mode)
     dirs, us, ray_inv, R = prep["dirs"], prep["us"], prep["ray_inv"], prep["R"]
     if R % 256:
         raise ValueError(f"{width}x{height}: pixel count must be a multiple "
                          "of 256")
     Rp = padded_ray_count(R, max_clusters, max_clusters_secondary,
                           cull_tile_primary, cull_tile_secondary,
-                          rays_per_call)
+                          rays_per_call, composite_mode)
     pad = Rp - R
     if pad:
         # duplicate leading rays into the padded tail (sliced off below);
@@ -492,20 +567,27 @@ def render_frame_fused(
         max_clusters=max_clusters,
         max_clusters_secondary=max_clusters_secondary,
         cull_tile_secondary=cull_tile_secondary,
-        cull_tile_primary=cull_tile_primary)
+        cull_tile_primary=cull_tile_primary, scan=prep["scan"],
+        kernel_stats=kernel_stats, attr_precision=attr_precision)
     unpad = StepOutputs(*(a[:, :R][:, ray_inv] for a in stacked))
     return unpad, final[:R][ray_inv]
 
 
 def fused_path_ok(scene: GaussianScene, width: int, height: int,
                   cull_cluster: int, composite_mode: str = "kbuffer") -> bool:
-    """Shape conditions for render_frame_fused: 16x16 pixel tiles and a
-    cluster-padded capacity.  Clusters below 128 are refused too: the JAX
-    renderer sends them to its non-fused path, which the port does not have
-    yet, so the two never render the same scene differently."""
+    """Shape conditions for render_frame_fused (raytracer.py:1383-1398):
+    16x16 pixel tiles and a cluster-padded capacity, and a cluster of at
+    least 128 - or 32 in the scan modes while the scene is within scan_fits
+    (a scan request that falls back to the k-buffer kernel needs 128 too).
+    The JAX renderer sends anything else to its non-fused path, which the
+    port does not have yet, so the two never render the same scene
+    differently."""
     check_composite_mode(composite_mode)
     if height % 16 or width % 16 or scene.capacity % cull_cluster:
         return False
+    if composite_mode in SCAN_MODES and scan_fits(scene.capacity,
+                                                  cull_cluster):
+        return cull_cluster >= 32
     return cull_cluster >= 128
 
 
@@ -695,7 +777,7 @@ def slots_call(rays_o, rays_d, alive, step: int, gpack, table, ftable,
         max_hits=max_hits, cluster=cull_cluster, tile=cull_tile, alive=alive,
         secondary_static=1 if step > 0 else 0, exit_mode=exit_mode,
         check_every=check_every)
-    return KernelCall(args, kwargs, inv_order, tdrop_ray)
+    return KernelCall(trace_slots, args, kwargs, inv_order, tdrop_ray)
 
 
 def fused_forward(
@@ -724,7 +806,7 @@ def fused_forward(
             cull_tile=cull_tile, cull_cluster=cull_cluster,
             max_clusters=max_clusters, n_capacity=n_capacity,
             exp_power_static=exp_power_static, tile_rays=tile_rays)
-        slots, acc = trace_slots(*call.args, **call.kwargs)
+        slots, acc = call.kernel(*call.args, **call.kwargs)
         if call.inv_order is not None:
             # everything downstream is row-local: back to canonical order
             slots, acc = slots[call.inv_order], acc[call.inv_order]

@@ -1,9 +1,13 @@
-"""General numpy helpers (the numpy-only part of the JAX package's
-utils/general.py, copied so the port never imports that package)."""
+"""General helpers (the numpy-only part of the JAX package's
+utils/general.py, copied so the port never imports that package, and
+set_seeds)."""
 
 from __future__ import annotations
 
+import random
+
 import numpy as np
+import torch
 
 
 def inverse_sigmoid(x):
@@ -28,3 +32,12 @@ def get_expon_lr_func(lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
         return delay_rate * log_lerp
 
     return helper
+
+
+def set_seeds(seed: int = 0):
+    """general_utils.py:115-119: seed Python's, numpy's and torch's global
+    generators (the render's own samples come from explicit generators)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return seed
