@@ -6,9 +6,9 @@ on one CUDA GPU.
 
 Phases, one line each (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build every kernel of the port
-     (csrc/render_culled.cu, trace_slots.cu, scatter_grads.cu, render_scan.cu)
-     with nvcc into build/kernels/, one nvcc per source, all started together
-     (timed, with the ptxas register lines);
+     (csrc/render_culled.cu, trace_slots.cu, scatter_grads.cu, render_scan.cu,
+     trace_hits.cu) with nvcc into build/kernels/, one nvcc per source, all
+     started together (timed, with the ptxas register lines);
   2. the kernel vs its plain PyTorch version on the same CUDA tensors:
      room_scene(16384) at 128x128, Config defaults (K=32, cluster 256,
      192 candidates), primary rays and reflected rays with their alive mask;
@@ -54,7 +54,29 @@ Phases, one line each (any failure raises and the script exits non-zero):
      version, the scan (v6) frame, and the k-buffer frame with its
      tonemapped PSNR against scanq; (b) measure_fps() at the Config defaults
      (scanq, cluster 256, 192 candidates, counters off) over 8 views
-     orbiting room_camera, with the kernels' launch counts.
+     orbiting room_camera, with the kernels' launch counts;
+ 10. the non-fused trace kernel (trace_hits) vs its plain version at 128x128,
+     room_scene(16384), on the renderer's own passes: brute and culled,
+     primary and reflected, and a brute pass of a ragged ray count (1000);
+ 11. the non-fused eval render at full width: room_scene(100_000) at
+     1365x768 (a 16:9 image at the default -r 768, which the fused path
+     cannot take: 1365 is not a multiple of 16), 2 bounces, Config defaults
+     (K 32, cluster 256, 256-ray cull tiles, 192 candidates, 8192-ray
+     tiles, rays in linear order) through dispatch_render_frame ->
+     render_frame, culled: ms/frame, M frame rays/s, starved share, device
+     idle share, trace_hits on the first launch of the primary and first
+     reflected pass (CUDA events) with its pairs and bound, kernel vs plain
+     on its first NF_CHECK_TILES cull tiles, and the tonemapped PSNR
+     against the brute frame of the same samples (what culling in row
+     strips costs), also over the pixels starved at no bounce;
+ 12. the non-fused training step at full width: train_step with train.py's
+     culling rule, which at 1365x768 (ray tile 8190, not a multiple of the
+     256-ray cull tile) is use_culling=False - the brute trace - on
+     room_scene(175_000) (seed 1) towards the seed-0 room's G-buffers:
+     1 warm-up, 2 timed and 1 profiled step; ms/step, M rays/s, l1_diffuse,
+     peak GB, device idle share, the brute trace's ms, pairs and bound on
+     the first launch of the primary and first reflected pass, and kernel
+     vs plain on its first NF_CHECK_TILES ray blocks.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -97,6 +119,10 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.scatter import (
     scatter_add,
     scatter_add_reference,
 )
+from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_hits import (
+    trace_hits,
+    trace_hits_reference,
+)
 from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
     trace_slots,
     trace_slots_reference,
@@ -104,22 +130,27 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
 from editable_gaussian_reflections_tpu_torch.ops.render_grads import (
     new_grad_accumulator,
 )
+from editable_gaussian_reflections_tpu_torch.ops import trace as trace_mod
 from editable_gaussian_reflections_tpu_torch.ops.tonemap import tonemap
 from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
     CameraParams,
     RayTargets,
     RenderSettings,
     StepOutputs,
+    TileSamples,
     _prepare_fused_frame,
     bounce_epilogue,
     draw_samples,
+    draw_tile_samples,
     full_f32_matmuls,
     fused_forward,
     hit_grads,
     kernel_call,
     padded_ray_count,
     render_accumulated_chunked,
+    render_frame,
     render_frame_fused,
+    tiles_per_launch_for,
 )
 from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
@@ -139,7 +170,7 @@ FRAME_KW = dict(max_hits=32, cull_cluster=256, max_clusters=192)
 SETTINGS = RenderSettings()
 ZNEAR, ZFAR = 0.05, 50.0
 KERNEL_SOURCES = ("render_culled", "trace_slots", "scatter_grads",
-                  "render_scan")
+                  "render_scan", "trace_hits")
 # the roofline of one H100 SXM (NVIDIA's data sheet): FP32 and FP64 outside
 # the tensor cores, HBM3
 PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -167,6 +198,14 @@ N_FPS_VIEWS = 8
 TRAIN_W = TRAIN_H = 768
 TRAIN_N = 175_000      # init_num_pts + init_num_pts_farfield
 N_TIMED_STEPS = 3
+# the non-fused path: a 16:9 image at the default -r 768 loads as 1365x768
+# (dataset/blender.py: out_w = int(resolution * aspect)); the eval render's
+# scene is bench.py's room_scene(100_000), the training step's TRAIN_N
+NF_W, NF_H = 1365, 768
+NF_RENDER_N = 100_000
+N_TIMED_NF_STEPS = 2
+# trace_hits vs its plain version runs on this many 256-ray blocks
+NF_CHECK_TILES = 16
 
 
 def room(n: int, device, seed: int = 0) -> tuple:
@@ -235,9 +274,12 @@ def first_tiles(call, n_tiles: int, ray_pos=(0, 1), cand_pos=(3, 4)):
     return args, kwargs, rows
 
 
-def psnr_tonemapped(a, b) -> float:
-    """PSNR in dB of two HDR images after the filmic tonemap, in [0, 1]."""
+def psnr_tonemapped(a, b, mask=None) -> float:
+    """PSNR in dB of two HDR images after the filmic tonemap, in [0, 1];
+    over the pixels where `mask` holds, when given."""
     ta, tb = (torch.clamp(tonemap(x.float()), 0.0, 1.0) for x in (a, b))
+    if mask is not None:
+        ta, tb = ta[mask], tb[mask]
     mse = ((ta - tb) ** 2).mean().item()
     return math.inf if mse == 0.0 else 10.0 * math.log10(1.0 / mse)
 
@@ -608,6 +650,359 @@ def phase_fast_path(dev, record, smi) -> dict:
         for r in (res["fps"]["scanq"], res["bench"]["scanq"])
         for p in ("primary", "reflected"))
     record["phase9_fast_path"] = res
+    return res
+
+
+def recorded_trace_calls(run, limit: int = 2) -> list:
+    """The first `limit` trace_hits calls (args, kwargs) that `run()` makes
+    through the non-fused renderer (ops/trace.py), at the main path's own
+    shapes and inputs."""
+    calls = []
+    real = trace_mod.trace_hits
+
+    def record(*args, **kwargs):
+        if len(calls) < limit:
+            calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    trace_mod.trace_hits = record
+    try:
+        run()
+    finally:
+        trace_mod.trace_hits = real
+    return calls
+
+
+def hits_subset(args, kwargs, n_tiles: int):
+    """A trace_hits call cut to its first `n_tiles` 256-ray blocks (cull
+    tiles when culled): the rays of a block are traced independently of
+    every other block, so the cut call's rows equal the first rows of the
+    whole one."""
+    rows = n_tiles * 256
+    args = list(args)
+    args[0], args[1] = args[0][:rows], args[1][:rows]
+    if args[3] is not None:
+        args[3], args[4] = args[3][:n_tiles], args[4][:n_tiles]
+    return args, kwargs, rows
+
+
+def compare_hits(out, ref) -> dict:
+    """trace_hits' outputs against its plain version's (both without the
+    attributes): ids and traversed counts per ray (>= 99.9% of rays equal,
+    phase 2's rule); on the rays where they are, t (empty slots as 0),
+    alpha, gaussval, local hit and log T to rtol 1e-4 / atol 1e-4*scale,
+    each with its own scale."""
+    t, ids, alpha, gv, lh, log_t, trav = out
+    rt_, rids, ralpha, rgv, rlh, rlog_t, rtrav = ref
+    same = (ids == rids).all(dim=1) & (trav == rtrav)
+    finite = all(bool(torch.isfinite(x).all()) for x in (alpha, gv, lh,
+                                                         log_t))
+    if not bool(same.any()):
+        return dict(max_abs_err=math.inf, float_ok=False, counters_equal=0.0,
+                    finite=finite)
+    pairs = ((torch.where(t < 1e37, t, 0.0), torch.where(rt_ < 1e37, rt_,
+                                                         0.0)),
+             (alpha, ralpha), (gv, rgv), (lh, rlh), (log_t, rlog_t))
+    worst, ok = 0.0, True
+    for a, b in pairs:
+        a, b = a[same], b[same]
+        scale = max(1.0, b.abs().max().item())
+        err = (a - b).abs()
+        worst = max(worst, err.max().item())
+        ok = ok and bool((err <= 1e-4 * b.abs() + 1e-4 * scale).all())
+    return dict(max_abs_err=worst, float_ok=ok,
+                counters_equal=same.float().mean().item(), finite=finite)
+
+
+def trace_pass_numbers(calls, where: str) -> dict:
+    """trace_hits on recorded launches (the primary and first reflected
+    pass of the first batch of tiles): ms per launch (CUDA events), the
+    pairs it tests (traversed, summed over its rays), its bound, and its
+    plain version on the first NF_CHECK_TILES blocks, held to the
+    kernel."""
+    res = {}
+    for name, (args, kwargs) in zip(("primary", "reflected"), calls):
+        ms = cuda_ms(lambda: trace_hits(*args, **kwargs), reps=3)
+        out = trace_hits(*args, **kwargs)
+        out = out[:5] + out[6:]
+        pairs = out[6].to(torch.float64).sum().item()
+        b_ms, b_by = bound(pairs * FLOPS_PER_PAIR, PEAK_FP32,
+                           nbytes(*args[:5], *out)
+                           + 4 * args[0].shape[0])       # the alive mask
+        sub_args, sub_kw, rows = hits_subset(args, kwargs, NF_CHECK_TILES)
+        plain_kw = {k: v for k, v in sub_kw.items() if k != "extract_attrs"}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = trace_hits_reference(*sub_args, **plain_kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        cmp = compare_hits(tuple(x[:rows] for x in out), ref)
+        check_lanes(f"{where} trace_hits {name}", cmp)
+        res[name] = dict(cmp, ms=ms, pairs=pairs, bound_ms=b_ms,
+                         bound_by=b_by, rays=args[0].shape[0],
+                         plain_ms=plain_ms, plain_rays=rows,
+                         mode="brute" if args[3] is None else "culled")
+        del out, ref
+    return res
+
+
+def phase_trace_small(dev, record) -> None:
+    """Phase 10: trace_hits vs its plain version at 128x128,
+    room_scene(16384), on the renderer's own passes."""
+    scene, camera = room(16384, dev)
+    W = H = 128
+    samples = draw_tile_samples(torch.Generator(device=dev).manual_seed(7),
+                                W, H, 8192, 2)
+    res = {}
+    for culled in (False, True):
+        mode = "culled" if culled else "brute"
+        calls = recorded_trace_calls(lambda: render_frame(
+            scene, camera, SETTINGS, None, W, H, num_bounces=1,
+            use_culling=culled, samples=samples, **FRAME_KW))
+        for name, (args, kwargs) in zip(("primary", "reflected"), calls):
+            out = trace_hits(*args, **kwargs)
+            torch.cuda.synchronize()
+            plain_kw = {k: v for k, v in kwargs.items()
+                        if k != "extract_attrs"}
+            ref = trace_hits_reference(*args, **plain_kw)
+            res[f"{mode} {name}"] = compare_hits(out[:5] + out[6:], ref)
+            check_lanes(f"phase 10 {mode} {name}", res[f"{mode} {name}"])
+        if not culled:
+            # a ragged brute ray count: padded to the block, padding dropped
+            args, kwargs = calls[0]
+            args = (args[0][:1000], args[1][:1000], *args[2:])
+            out = trace_hits(*args, **kwargs)
+            ref = trace_hits_reference(*args, **{
+                k: v for k, v in kwargs.items() if k != "extract_attrs"})
+            res["brute ragged 1000 rays"] = compare_hits(out[:5] + out[6:],
+                                                         ref)
+            check_lanes("phase 10 brute ragged", res["brute ragged 1000 rays"])
+    worst = max(v["max_abs_err"] for v in res.values())
+    agree = min(v["counters_equal"] for v in res.values())
+    record["phase10_kernel_vs_plain"] = res
+    print(f"phase 10: trace_hits vs plain at 128x128, room_scene(16384), "
+          f"K=32, {len(res)} passes (brute/culled, primary/reflected, a "
+          f"ragged brute count): worst max_abs_err {worst:.3g}, ids and "
+          f"counters equal on >= {agree:.4%} of rays", flush=True)
+
+
+def profile_device(fn) -> tuple:
+    """(host ms, {kernel: device ms}) of one profiled call of fn."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            by_kernel[e.key] = device_time_us(e) / 1e3
+    return host_ms, by_kernel
+
+
+def phase_nonfused_render(dev, record, smi) -> dict:
+    """Phase 11: the non-fused eval render at full width (culled)."""
+    W, H = NF_W, NF_H
+    scene, camera = room(NF_RENDER_N, dev)
+    kw = dict(num_bounces=2, **FRAME_KW)
+    tile = min(8192, W * H)
+    T = -(-(W * H) // tile)
+    n_batches = -(-T // tiles_per_launch_for(T, tile, 3, FRAME_KW["max_hits"],
+                                              dev))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    samples = draw_tile_samples(gen, W, H, tile, 3)
+    calls = recorded_trace_calls(lambda: dispatch_render_frame(
+        scene, camera, SETTINGS, None, W, H, samples=samples, **kw))
+    passes = trace_pass_numbers(calls, "phase 11")
+    if passes["primary"]["mode"] != "culled":
+        raise RuntimeError("phase 11: the frame was not traced culled")
+    del calls
+
+    dispatch_render_frame(scene, camera, SETTINGS, gen, W, H, **kw)  # warm-up
+    torch.cuda.synchronize()
+    trace_hits.launches = render_culled.launches = 0
+    n_timed = 3
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        steps, final = dispatch_render_frame(scene, camera, SETTINGS, gen, W,
+                                             H, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    launches = (trace_hits.launches, render_culled.launches)
+    expected = (n_timed * n_batches * 3, 0)
+    if launches != expected:
+        raise RuntimeError(f"phase 11: trace_hits/render_culled launched "
+                           f"{launches}, expected {expected}")
+    if not (tuple(final.shape) == (W * H, 3) and torch.isfinite(final).all()
+            and all(torch.isfinite(a).all() for a in steps)
+            and final.mean().item() > 0.0):
+        raise RuntimeError("phase 11: bad frame")
+    starved = steps.overflow.mean().item()
+    host_ms, by_kernel = profile_device(lambda: dispatch_render_frame(
+        scene, camera, SETTINGS, gen, W, H, **kw))
+    device_ms = sum(by_kernel.values())
+    kernel_ms = sum(v for k, v in by_kernel.items()
+                    if "trace_hits_kernel" in k)
+    c_steps, culled = dispatch_render_frame(scene, camera, SETTINGS, None, W,
+                                            H, samples=samples, **kw)
+    brute = render_frame(scene, camera, SETTINGS, None, W, H,
+                         samples=samples, use_culling=False, **kw)[1]
+    psnr = psnr_tonemapped(culled, brute)
+    # the same over the pixels no bounce of which was starved: what is left
+    # once the dropped candidates are set aside
+    unstarved = c_steps.overflow.sum(dim=0) == 0
+    psnr_unstarved = psnr_tonemapped(culled, brute, unstarved)
+    starved_by_bounce = c_steps.overflow.mean(dim=1).tolist()
+    res = dict(ms=ms, frame_mrays_s=W * H / ms / 1e3, starved=starved,
+               launches=launches[0], batches=n_batches, passes=passes,
+               profiled_frame_ms=host_ms, profiled_device_ms=device_ms,
+               profiled_trace_hits_ms=kernel_ms,
+               device_idle_share=(max(0.0, 1 - device_ms / host_ms)
+                                  if device_ms > 0 else None),
+               profiled_top_device_ms=sorted(by_kernel.items(),
+                                             key=lambda kv: -kv[1])[:12],
+               psnr_vs_brute_db=psnr, psnr_unstarved_db=psnr_unstarved,
+               unstarved_pixels=unstarved.float().mean().item(),
+               starved_by_bounce=starved_by_bounce)
+    record["phase11_nonfused_render"] = res
+    idle = (f"device idle ~{res['device_idle_share']:.1%}" if device_ms > 0
+            else "device time not measured")
+    p, r = passes["primary"], passes["reflected"]
+    print(f"phase 11: non-fused eval render {W}x{H}, room_scene("
+          f"{NF_RENDER_N}), 2 bounces, K 32, cluster 256, 192 candidates, "
+          f"culled in linear ray order: {ms:.1f} ms/frame, "
+          f"{W * H / ms / 1e3:.3f} M frame rays/s, starved {starved:.4%}; "
+          f"trace_hits {kernel_ms:.1f} of {device_ms:.1f} ms device time, "
+          f"{idle}; launches {launches[0]} ({n_batches} batch(es) per "
+          f"bounce); tonemapped PSNR vs the brute frame {psnr:.2f} dB, "
+          f"{psnr_unstarved:.2f} dB over the "
+          f"{res['unstarved_pixels']:.2%} of pixels starved at no bounce "
+          f"(starved per bounce "
+          f"{', '.join(f'{x:.2%}' for x in starved_by_bounce)}) [{smi}]",
+          flush=True)
+    print(f"phase 11: trace_hits culled, first launch ({p['rays']} rays) "
+          f"per pass: primary {p['ms']:.3f} ms "
+          f"({p['pairs']:.4g} pairs, bound {p['bound_ms']:.3f} ms by "
+          f"{p['bound_by']}), reflected {r['ms']:.3f} ms ({r['pairs']:.4g} "
+          f"pairs, bound {r['bound_ms']:.3f} ms); plain on the first "
+          f"{NF_CHECK_TILES} cull tiles {p['plain_ms']:.1f} / "
+          f"{r['plain_ms']:.1f} ms, max_abs_err {p['max_abs_err']:.3g} / "
+          f"{r['max_abs_err']:.3g}, ids+counters equal on "
+          f"{min(p['counters_equal'], r['counters_equal']):.4%} [{smi}]",
+          flush=True)
+    return res
+
+
+def phase_nonfused_step(dev, record, smi) -> dict:
+    """Phase 12: the non-fused (brute) training step at full width."""
+    W, H = NF_W, NF_H
+    cfg = Config()
+    settings = tr.settings_from_config(cfg)
+    num_bounces, K = 2, cfg.max_hits
+    tile = tr.pick_tile_size(W * H, cfg.ray_tile)
+    scene_t, camera = room(TRAIN_N, dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    gb, _ = dispatch_render_frame(scene_t, camera, settings, gen, W, H,
+                                  num_bounces=2, **FRAME_KW)
+    targets = RayTargets(diffuse=gb.rgb[0], specular=gb.rgb[1] + gb.rgb[2],
+                         depth=gb.depth[0], normal=gb.normal[0],
+                         roughness=gb.roughness[0], f0=gb.f0[0])
+    del scene_t, gb
+    scene0, _ = room(TRAIN_N, dev, seed=1)
+    state = tr.init_train_state(scene0)
+    cap = scene0.capacity
+    # train.py's rule: cull only when the frame and the ray tile divide into
+    # cull tiles and the capacity into clusters
+    use_culling = (cfg.cull and (W * H) % cfg.cull_tile == 0
+                   and tile % cfg.cull_tile == 0
+                   and cap % cfg.cull_cluster == 0)
+    if use_culling:
+        raise RuntimeError(f"phase 12: tile {tile} culls; expected brute")
+    lrs = tr.lr_tree(cfg, 1, 1.0)
+    hyper = dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
+                 scale_decay=cfg.scale_decay, apply_grads=1.0)
+    step_kw = dict(num_bounces=num_bounces, max_hits=K,
+                   chunk=cfg.trace_chunk, tile=tile, use_pallas=True,
+                   exp_power_static=float(cfg.exp_power),
+                   use_culling=use_culling, cull_tile=cfg.cull_tile,
+                   cull_cluster=cfg.cull_cluster,
+                   max_clusters=cfg.max_clusters)
+    n_tiles = W * H // tile
+    n_batches = -(-n_tiles // tiles_per_launch_for(n_tiles, tile,
+                                                    num_bounces + 1, K, dev))
+
+    def step(st):
+        return tr.train_step(st, camera, targets, settings, lrs, hyper, gen,
+                             W, H, **step_kw)
+
+    calls = recorded_trace_calls(lambda: step(state))
+    passes = trace_pass_numbers(calls, "phase 12")
+    if passes["primary"]["mode"] != "brute":
+        raise RuntimeError("phase 12: the step was not traced brute")
+    del calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, _m = step(state)                                         # warm-up
+    torch.cuda.synchronize()
+    trace_hits.launches = scatter_add.launches = trace_slots.launches = 0
+    l1s = []
+    t0 = time.perf_counter()
+    for _ in range(N_TIMED_NF_STEPS):
+        st, m = step(st)
+        l1s.append(m["l1_diffuse"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / N_TIMED_NF_STEPS * 1e3
+    launches = (trace_hits.launches, scatter_add.launches,
+                trace_slots.launches)
+    expected = (N_TIMED_NF_STEPS * n_batches * (num_bounces + 1),
+                N_TIMED_NF_STEPS * n_batches, 0)
+    if launches != expected:
+        raise RuntimeError(f"phase 12: trace_hits/scatter_grads/trace_slots "
+                           f"launched {launches}, expected {expected}")
+    l1s = [x.item() for x in l1s]
+    if not (all(map(math.isfinite, l1s)) and state_finite(st)):
+        raise RuntimeError(f"phase 12: non-finite step: l1 {l1s}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host_ms, by_kernel = profile_device(lambda: step(st))
+    device_ms = sum(by_kernel.values())
+    kernel_ms = sum(v for k, v in by_kernel.items()
+                    if "trace_hits_kernel" in k)
+    rays = W * H
+    res = dict(step_ms=step_ms, step_mrays_s=rays / step_ms / 1e3,
+               l1_diffuse=l1s, peak_gb=peak_gb, launches=launches[0],
+               launches_scatter=launches[1], batches=n_batches, tile=tile,
+               passes=passes, profiled_step_ms=host_ms,
+               profiled_device_ms=device_ms,
+               profiled_trace_hits_ms=kernel_ms,
+               device_idle_share=(max(0.0, 1 - device_ms / host_ms)
+                                  if device_ms > 0 else None),
+               profiled_top_device_ms=sorted(by_kernel.items(),
+                                             key=lambda kv: -kv[1])[:12])
+    record["phase12_nonfused_step"] = res
+    idle = (f"device idle ~{res['device_idle_share']:.1%}" if device_ms > 0
+            else "device time not measured")
+    p, r = passes["primary"], passes["reflected"]
+    print(f"phase 12: non-fused training step {W}x{H} (tile {tile}, "
+          f"use_culling=False), room_scene({TRAIN_N}) (capacity {cap}), 2 "
+          f"bounces, K={K}, {n_tiles} tiles in {n_batches} batch(es): "
+          f"{step_ms:.1f} ms/step, {rays / step_ms / 1e3:.3f} M rays/s; "
+          f"trace_hits {kernel_ms:.1f} of {device_ms:.1f} ms device time, "
+          f"{idle}; l1_diffuse {', '.join(f'{x:.6f}' for x in l1s)}; peak "
+          f"{peak_gb:.1f} GB; launches trace_hits {launches[0]}, "
+          f"scatter_grads {launches[1]} [{smi}]", flush=True)
+    print(f"phase 12: trace_hits brute, first launch ({p['rays']} rays) per "
+          f"pass: primary {p['ms']:.3f} ms "
+          f"({p['pairs']:.4g} pairs, bound {p['bound_ms']:.3f} ms by "
+          f"{p['bound_by']}), reflected {r['ms']:.3f} ms; plain on the "
+          f"first {NF_CHECK_TILES} ray blocks {p['plain_ms']:.1f} / "
+          f"{r['plain_ms']:.1f} ms, max_abs_err {p['max_abs_err']:.3g} / "
+          f"{r['max_abs_err']:.3g}, ids+counters equal on "
+          f"{min(p['counters_equal'], r['counters_equal']):.4%} [{smi}]",
+          flush=True)
+    for k, v in res["profiled_top_device_ms"][:6]:
+        print(f"phase 12:   {v:9.2f} ms  {k[:90]}", flush=True)
     return res
 
 
@@ -995,8 +1390,8 @@ def main() -> None:
 
     # -- phase 6: one small step on cuda and on cpu, same samples -----------
     small = {}
-    samples = tr.draw_train_samples(torch.Generator().manual_seed(4), 64, 64,
-                                    1024, num_bounces + 1)
+    samples = draw_tile_samples(torch.Generator().manual_seed(4), 64, 64,
+                                1024, num_bounces + 1)
     small_kw = dict(step_kw, tile=1024)
     for d in (dev, torch.device("cpu")):
         sc6, cam6 = room(4096, d)
@@ -1007,8 +1402,8 @@ def main() -> None:
                             (R6, 3))))
         small[d.type] = tr.train_step(
             tr.init_train_state(sc6), cam6, tg6, settings, lrs, hyper, None,
-            64, 64, samples=tr.TrainSamples(samples.jitter.to(d),
-                                            samples.us.to(d)), **small_kw)
+            64, 64, samples=TileSamples(samples.jitter.to(d),
+                                        samples.us.to(d)), **small_kw)
     diff = states_equal(small["cuda"][0], small["cpu"][0])
     m6 = {k: {dt: v[1][k].item() for dt, v in small.items()}
           for k in small["cuda"][1]}
@@ -1095,6 +1490,9 @@ def main() -> None:
 
     phase_scan_small(dev, record)
     fast = phase_fast_path(dev, record, smi)
+    phase_trace_small(dev, record)
+    nf_frame = phase_nonfused_render(dev, record, smi)
+    nf_step = phase_nonfused_step(dev, record, smi)
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -1155,6 +1553,29 @@ def main() -> None:
         # the same kernel at bench.py's configuration (phase 9a)
         "bench_ms": fast["bench"]["scanq"]["primary_ms"],
         "direct_ms": fast["bench"]["scan"]["primary_ms"],
+    }, {
+        "name": "trace_hits",
+        "route": "cuda",
+        "source": src + "trace_hits.cu",
+        # the brute pass of the non-fused training step (phase 12)
+        "replaces": jax_src + "trace_kernel.py:435",
+        "also_replaces": jax_src + "trace_kernel.py:485",
+        "launches": nf_step["launches"] + nf_frame["launches"],
+        "launches_step": nf_step["launches"],
+        "launches_frame": nf_frame["launches"],
+        "max_abs_err": max(r[p]["max_abs_err"] for r in (
+            nf_step["passes"], nf_frame["passes"])
+            for p in ("primary", "reflected")),
+        "ms": nf_step["passes"]["primary"]["ms"],
+        "plain_ms": nf_step["passes"]["primary"]["plain_ms"],
+        "plain_rays": nf_step["passes"]["primary"]["plain_rays"],
+        "bound_ms": nf_step["passes"]["primary"]["bound_ms"],
+        "bound_by": nf_step["passes"]["primary"]["bound_by"],
+        "library_ms": None,
+        # the culled pass of the non-fused eval render (phase 11)
+        "culled_ms": nf_frame["passes"]["primary"]["ms"],
+        "culled_plain_ms": nf_frame["passes"]["primary"]["plain_ms"],
+        "culled_bound_ms": nf_frame["passes"]["primary"]["bound_ms"],
     }]
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

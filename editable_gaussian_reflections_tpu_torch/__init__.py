@@ -14,7 +14,11 @@ Ported so far:
   * the inference fast path: measure_fps.py and render_frame_fused with
     composite_mode "scan"/"scanq", through csrc/render_scan.cu
     (ops/cuda/scan_kernel.py), with the scene loading the CLI needs
-    (scene/scene.py, scene/cameras.py, dataset/blender.py, utils/ply.py).
+    (scene/scene.py, scene/cameras.py, dataset/blender.py, utils/ply.py);
+  * the non-fused path: render_frame, render(), render_accumulated and
+    train_step(use_culling=False) -> raytracer.render_tile_with_grads, the
+    frames and steps the fused path cannot take, through csrc/trace_hits.cu
+    (ops/cuda/trace_hits.py; brute or culled).
 
 Entry points build their tensors on the CUDA card unless the caller passes
 device="cpu" (device.py); on CPU tensors every kernel wrapper runs its plain

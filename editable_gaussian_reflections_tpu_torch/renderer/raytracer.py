@@ -21,19 +21,28 @@ The training step's forward + loss-fused backward over a batch of ray tiles
 kernel (ops/cuda/trace_slots.py), the composite, the hand-written backward
 (ops/render_grads.py) and the gradient scatter (ops/cuda/scatter.py).
 
+The non-fused path (render_frame, render_accumulated, and for training
+render_tile_with_grads) is the JAX renderer's path for frames the fused one
+cannot take: per bounce one trace_hits launch (ops/cuda/trace_hits.py; brute
+or culled, the K nearest hits of each ray with their payload), then the
+composite (ops/composite.py) and the GGX epilogue on the [R, K] hits, rays
+in the frame's own order, no re-sort between bounces.
+
 Not ported yet, and raising instead of falling back: split_far=True (the
-two-pass bounce) and the non-fused render_frame/render_accumulated/
-render_tile_with_grads.
+two-pass bounce).  The JAX package's XLA tracer (its use_pallas=False
+path) is not ported: the port's kernels are its only tracer.
 
 Randomness: the JAX package draws jitter and GGX uniforms from a key; the
-port draws the same quantities (FrameSamples) from a torch.Generator, or
-takes them from the caller - which is how the tests hand both renderers the
-same samples.
+port draws the same quantities (FrameSamples for a fused frame; TileSamples,
+per ray tile, on the non-fused path) from a torch.Generator, or takes them
+from the caller - which is how the tests hand both renderers the same
+samples.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -73,8 +82,17 @@ from ..ops.render_grads import (
     pack_scatter_payload,
     sign,
 )
-from ..ops.trace import RayHits
-from ..scene.gaussian_scene import GaussianScene, build_frames
+from ..ops.trace import (
+    RayHits,
+    gather_frames,
+    trace_rays_brute,
+    trace_rays_culled,
+)
+from ..scene.gaussian_scene import (
+    GaussianScene,
+    SceneAttributes,
+    build_frames,
+)
 
 COMPOSITE_MODES = ("kbuffer", "scan", "scanq")
 SCAN_MODES = ("scan", "scanq")
@@ -579,9 +597,8 @@ def fused_path_ok(scene: GaussianScene, width: int, height: int,
     16x16 pixel tiles and a cluster-padded capacity, and a cluster of at
     least 128 - or 32 in the scan modes while the scene is within scan_fits
     (a scan request that falls back to the k-buffer kernel needs 128 too).
-    The JAX renderer sends anything else to its non-fused path, which the
-    port does not have yet, so the two never render the same scene
-    differently."""
+    dispatch_render_frame sends anything else to the non-fused render_frame,
+    as the JAX dispatch does."""
     check_composite_mode(composite_mode)
     if height % 16 or width % 16 or scene.capacity % cull_cluster:
         return False
@@ -635,19 +652,17 @@ def render_accumulated_chunked(
     fused: bool = True,
     **kwargs,
 ):
-    """At most `spp_chunk` samples per render_accumulated_fused call,
-    averaged on the host in float64 (one launch sequence per chunk, as the
-    reference accumulates one launch per sample).  The sample stream equals
-    the single-call one.  Returns float32 CPU tensors.
+    """At most `spp_chunk` samples per render_accumulated_fused call
+    (render_accumulated with fused=False), averaged on the host in float64
+    (one launch sequence per chunk, as the reference accumulates one launch
+    per sample).  The sample stream equals the single-call one.  Returns
+    float32 CPU tensors.
 
     A chunk is fetched one chunk behind the dispatches: its device-to-host
     copy is queued (into pinned memory, without blocking) before the next
     chunk is dispatched, and the host waits for it only after that, so the
     transfer and the float64 accumulation overlap the next chunk's work."""
-    if not fused:
-        raise NotImplementedError(
-            "fused=False: the non-fused render_accumulated is not ported yet "
-            "(ROADMAP.md Queue 1, item 2)")
+    accumulate = render_accumulated_fused if fused else render_accumulated
 
     def fetch(tensors):
         if tensors[0].device.type != "cuda":
@@ -668,7 +683,7 @@ def render_accumulated_chunked(
         cur = None
         if done < spp:
             m = min(spp_chunk, spp - done)
-            steps, final = render_accumulated_fused(
+            steps, final = accumulate(
                 scene, camera, settings, seed, width, height, spp=m,
                 key_offset=done, **kwargs)
             cur = (m, *fetch([*steps, final]))
@@ -682,6 +697,287 @@ def render_accumulated_chunked(
         pending = cur
     acc = [a.to(torch.float32) for a in acc]
     return StepOutputs(*acc[:-1]), acc[-1]
+
+
+# ---------------------------------------------------------------------------
+# The non-fused path: per bounce one trace_hits launch, then the composite
+# and the GGX epilogue on the [R, K] hits
+# ---------------------------------------------------------------------------
+
+
+class TileSamples(NamedTuple):
+    """The random numbers of a frame or a training step traced in ray tiles
+    (the JAX non-fused path and training step draw them per tile:
+    fold_in(key_b, i), then one split per bounce)."""
+
+    jitter: torch.Tensor | None  # [H, W, 2] sub-pixel offsets, [-0.5, 0.5)
+    us: torch.Tensor             # [T, S, tile, 2] GGX uniforms per ray tile
+                                 # and bounce, rays in the tile's order (a
+                                 # frame's padded rays included)
+
+
+def draw_tile_samples(generator: torch.Generator, width: int, height: int,
+                      tile: int, num_steps: int, jitter: bool = True
+                      ) -> TileSamples:
+    """Draw the jitter and the per-tile GGX uniforms of width x height rays
+    in tiles of `tile` (the last one padded) on the generator's device."""
+    dev = generator.device
+    jit = None
+    if jitter:
+        jit = torch.rand((height, width, 2), generator=generator,
+                         device=dev) - 0.5
+    T = -(-(width * height) // tile)
+    us = torch.rand((T, num_steps, tile, 2), generator=generator, device=dev)
+    return TileSamples(jitter=jit, us=us)
+
+
+# device bytes a batch holds per (bounce, ray, slot): hits, gathered
+# attributes and frames, gradient payload and the backward's transients,
+# with room to spare (the fused full-width training step peaked at 30.7 GB
+# for 56.6M of them, 540 B each, on an H100 80GB HBM3); bounds
+# tiles_per_launch_for
+BYTES_PER_RAY_HIT = 640
+
+
+def tiles_per_launch_for(num_tiles: int, tile: int, num_steps: int,
+                         max_hits: int, device: torch.device) -> int:
+    """How many ray tiles one launch per bounce takes: as many as fit in
+    half the card's total memory, 1 GiB on the CPU."""
+    if device.type == "cuda":
+        budget = torch.cuda.get_device_properties(device).total_memory // 2
+    else:
+        budget = 1 << 30
+    per_tile = tile * num_steps * max_hits * BYTES_PER_RAY_HIT
+    return max(1, min(num_tiles, budget // per_tile))
+
+
+def _mask_hits(hits: RayHits, alive: torch.Tensor) -> RayHits:
+    """Disable the hits of dead rays (the wavefront's per-thread break)."""
+    valid = hits.valid & alive[:, None]
+    return hits._replace(
+        valid=valid,
+        alpha=torch.where(valid, hits.alpha, torch.zeros_like(hits.alpha)),
+        full_T=torch.where(alive, hits.full_T, torch.ones_like(hits.full_T)))
+
+
+def render_tile(rays_o, rays_d, gpack, attrs: SceneAttributes,
+                settings: RenderSettings, znear: float, zfar: float,
+                us: torch.Tensor, num_bounces: int, max_hits: int, *,
+                exp_power_static: float = 3.0, culling: dict | None = None,
+                keep_residuals: bool = False):
+    """Forward bounce loop of a batch of rays (raytracer.py:143-285): per
+    bounce the trace (culled through culling.select_candidates on the rays'
+    own order when `culling` = {bounds, cull_tile, cluster, mc} is given,
+    else brute), dead rays' hits masked, attributes gathered by id, the
+    composite, and the GGX epilogue.  No secondary throughput cutoff, as
+    the JAX non-fused loop has none.
+
+    The JAX renderer runs this per ray tile; the rays here may hold several
+    tiles back to back, since nothing in it spans rays beyond a cull tile
+    (each JAX tile is a whole number of cull tiles).  us [S, R, 2]: each
+    bounce's GGX uniforms per ray.  gpack and attrs are in the same (for
+    culling, Morton-sorted) layout.  Returns (StepOutputs [S, R, ...],
+    final [R, 3], residuals): with keep_residuals, per bounce (hits, comp,
+    the gathered attributes as a dict)."""
+    R = rays_o.shape[0]
+    dev = rays_o.device
+    alive = torch.ones((R,), dtype=torch.bool, device=dev)
+    throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
+    bf = dict(backfacing_max_dist=settings.backfacing_max_dist,
+              backfacing_invalid_normal_threshold=(
+                  settings.backfacing_invalid_normal_threshold))
+    thr = settings.transmittance_threshold
+    outs, residuals = [], []
+    for step in range(num_bounces + 1):
+        near = znear if step == 0 else 0.0
+        secondary = 1.0 if step > 0 else 0.0
+        if culling is not None:
+            cands, cnear, _num, _ovf, tdrop = select_candidates(
+                rays_o, rays_d, culling["bounds"], near, zfar,
+                tile=culling["cull_tile"], max_clusters=culling["mc"])
+            tdrop_ray = tdrop.repeat_interleave(culling["cull_tile"])
+            hits, _ = trace_rays_culled(
+                rays_o, rays_d, gpack, cands, cnear, exp_power_static, near,
+                zfar, secondary, transmittance_threshold=thr,
+                max_hits=max_hits, cluster=culling["cluster"],
+                tile=culling["cull_tile"], **bf)
+        else:
+            hits, _ = trace_rays_brute(rays_o, rays_d, gpack,
+                                       exp_power_static, near, zfar,
+                                       secondary, max_hits=max_hits, **bf)
+            tdrop_ray = torch.full((R,), float("inf"), device=dev)
+        hits = _mask_hits(hits, alive)
+        g = attrs.take(hits.ids.to(torch.int64))
+        comp = composite(hits, g.rgb, g.normal, g.f0, g.roughness, thr,
+                         settings.eps_forward_normalization)
+        if keep_residuals:
+            residuals.append((hits, comp, g._asdict()))
+
+        rgb_step = comp.rgb if step == 0 else comp.rgb * throughput
+        next_origin, next_dir, next_throughput, next_alive = next_wavefront(
+            comp.normal, comp.roughness, comp.depth, comp.f0, rays_o, rays_d,
+            throughput, alive, us[step], settings)
+        outs.append(dict(
+            rgb=rgb_step, normal=comp.normal, f0=comp.f0,
+            roughness=comp.roughness, depth=comp.depth,
+            transmittance=comp.T_final, total_transmittance=comp.full_T,
+            throughput=next_throughput, alive=alive.to(torch.float32),
+            overflow=_starved(tdrop_ray, zfar, comp.full_T, alive, thr)))
+        rays_o, rays_d = next_origin, next_dir
+        throughput, alive = next_throughput, next_alive
+
+    steps = StepOutputs(**{k: torch.stack([o[k] for o in outs], dim=0)
+                           for k in outs[0]})
+    return steps, steps.rgb.sum(dim=0), residuals
+
+
+def render_frame(
+    scene: GaussianScene,
+    camera: CameraParams,
+    settings: RenderSettings,
+    generator: torch.Generator | None,
+    width: int,
+    height: int,
+    num_bounces: int = 2,
+    max_hits: int = 32,
+    chunk: int = 2048,
+    tile: int = 8192,
+    jitter: bool = True,
+    exp_power_static: float = 3.0,
+    use_culling: bool = False,
+    cull_tile: int = 256,
+    cull_cluster: int = 256,
+    max_clusters: int = 192,
+    samples: TileSamples | None = None,
+):
+    """Full-frame non-fused render (raytracer.py:685-795).  Returns
+    (StepOutputs [S, H*W, ...], final [H*W, 3]) in linear pixel order.
+
+    With `use_culling`, the scene is Morton-sorted and bounded per cluster,
+    and the rays are traced culled in cull tiles; where the shapes do not
+    divide (H*W, the capacity or the ray tile by the cull tile or cluster)
+    it warns and traces brute, as the JAX renderer does.  The rays go in
+    square pixel tiles (or 16 x cull_tile/16) where the frame divides into
+    them, else in linear order.  Ray tiles of `tile` rays; the last is
+    padded with copies of the leading rays, which take their own samples.
+    `samples` (TileSamples, us [T, S, tile, 2]) is drawn from `generator`
+    when None.  As many tiles as tiles_per_launch_for allows go through one
+    trace launch per bounce: each tile keeps its own samples and rays, so
+    this equals tile by tile.  `chunk` (the JAX brute trace's Gaussian
+    chunk) is not read: the kernel blocks the Gaussians its own way, which
+    does not change the result.  The port has no XLA tracer (the JAX
+    use_pallas=False path): its kernels, on the CPU their plain versions,
+    always trace."""
+    del chunk
+    full_f32_matmuls()
+    R = width * height
+    cull_tile = min(cull_tile, 256)
+    if use_culling and (R % cull_tile or scene.capacity % cull_cluster
+                        or min(tile, R) % cull_tile):
+        warnings.warn(
+            f"culling disabled: shapes must divide (H*W={R}, "
+            f"cull_tile={cull_tile}, capacity={scene.capacity}, "
+            f"cull_cluster={cull_cluster}, tile={min(tile, R)}) - falling "
+            "back to the brute trace (~10x slower). Pad the scene capacity "
+            "to a multiple of cull_cluster and pick a resolution divisible "
+            "by cull_tile.", stacklevel=2)
+        use_culling = False
+    frames, attrs = build_frames(scene, settings.alpha_threshold,
+                                 settings.exp_power,
+                                 settings.global_scale_factor)
+    dev = scene.xyz.device
+    culling = ray_perm = ray_inv = None
+    if use_culling:
+        perm = morton_order(frames)
+        frames, attrs = frames.take(perm), attrs.take(perm)
+        culling = dict(bounds=cluster_bounds(frames, cull_cluster),
+                       cull_tile=cull_tile, cluster=cull_cluster,
+                       mc=max_clusters)
+        th = tw = math.isqrt(cull_tile)
+        if height % th or width % tw or th * tw != cull_tile:
+            th, tw = 16, cull_tile // 16
+        if height % th == 0 and width % tw == 0:
+            perm_np, inv_np = tile_pixel_order(height, width, th, tw)
+            ray_perm = torch.as_tensor(perm_np, dtype=torch.int64, device=dev)
+            ray_inv = torch.as_tensor(inv_np, dtype=torch.int64, device=dev)
+    gpack = pack_frames(frames, attrs).contiguous()
+
+    tile = min(tile, R)
+    T = -(-R // tile)
+    num_steps = num_bounces + 1
+    if samples is None:
+        if generator is None:
+            raise ValueError("a frame needs samples or a generator")
+        samples = draw_tile_samples(generator, width, height, tile,
+                                    num_steps, jitter)
+    if tuple(samples.us.shape) != (T, num_steps, tile, 2):
+        raise ValueError(f"samples.us has shape {tuple(samples.us.shape)}, "
+                         f"render_frame takes per-tile uniforms "
+                         f"{(T, num_steps, tile, 2)} (TileSamples)")
+    dirs = primary_ray_directions(
+        width, height, camera.fov_y, camera.c2w,
+        jitter=samples.jitter if jitter else None).reshape(-1, 3)
+    if ray_perm is not None:
+        dirs = dirs[ray_perm]
+    pad = T * tile - R
+    if pad:
+        dirs = torch.cat([dirs, dirs[:pad]], dim=0)
+    dirs_t = dirs.reshape(T, tile, 3)
+    tiles_per_launch = tiles_per_launch_for(T, tile, num_steps, max_hits, dev)
+    parts = []
+    for b0 in range(0, T, tiles_per_launch):
+        b1 = min(T, b0 + tiles_per_launch)
+        n = (b1 - b0) * tile
+        us = samples.us[b0:b1].permute(1, 0, 2, 3).reshape(num_steps, n, 2)
+        steps, final, _ = render_tile(
+            camera.origin.expand(n, 3), dirs_t[b0:b1].reshape(n, 3), gpack,
+            attrs, settings, camera.znear, camera.zfar, us, num_bounces,
+            max_hits, exp_power_static=exp_power_static, culling=culling)
+        parts.append((steps, final))
+    steps = StepOutputs(*(torch.cat([p[0][i] for p in parts], dim=1)[:, :R]
+                          for i in range(len(StepOutputs._fields))))
+    final = torch.cat([p[1] for p in parts])[:R]
+    if ray_inv is not None:
+        steps = StepOutputs(*(a[:, ray_inv] for a in steps))
+        final = final[ray_inv]
+    return steps, final
+
+
+def render_accumulated(
+    scene: GaussianScene,
+    camera: CameraParams,
+    settings: RenderSettings,
+    seed: int,
+    width: int,
+    height: int,
+    spp: int = 8,
+    key_offset: int = 0,
+    max_clusters_secondary: int | None = None,
+    cull_tile_secondary: int = 256,
+    **frame_kwargs,
+):
+    """Mean of `spp` render_frame samples (raytracer.py:1531-1589); sample
+    i draws from a generator seeded with fold_in(seed, key_offset + i), so
+    host-side chunking (render_accumulated_chunked with fused=False)
+    reproduces the single-call stream.  The fused-path knobs
+    max_clusters_secondary and cull_tile_secondary are accepted, so one
+    option set splats into either path, and ignored: the non-fused renderer
+    culls every bounce with one cull tile and candidate budget."""
+    del max_clusters_secondary, cull_tile_secondary
+    dev = scene.xyz.device
+    acc = None
+    for i in range(spp):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(fold_in(seed, key_offset + i))
+        steps, final = render_frame(scene, camera, settings, gen, width,
+                                    height, **frame_kwargs)
+        if acc is None:
+            acc = (steps, final)
+        else:
+            acc = (StepOutputs(*(a + b for a, b in zip(acc[0], steps))),
+                   acc[1] + final)
+    inv = 1.0 / spp
+    return StepOutputs(*(a * inv for a in acc[0])), acc[1] * inv
 
 
 # ---------------------------------------------------------------------------
@@ -919,6 +1215,52 @@ def render_tile_with_grads_fused(
     acc = grad_acc
     if acc is None:
         acc = new_grad_accumulator(n_capacity, payload.device)
+    scatter_add(acc, payload, ids)
+    grads = grads_from_accumulator(acc) if grad_acc is None else None
+    return steps, final, grads
+
+
+def render_tile_with_grads(
+    rays_o, rays_d, frames, attrs: SceneAttributes, raw_scene: GaussianScene,
+    targets: RayTargets, settings: RenderSettings, znear: float, zfar: float,
+    us: torch.Tensor, num_bounces: int, max_hits: int, *, gpack,
+    culling: dict | None = None, exp_power_static: float = 3.0,
+    grad_acc: torch.Tensor | None = None,
+):
+    """Forward + loss-fused backward of a batch of rays on the non-fused
+    path (raytracer.py:335-376): render_tile keeping its residuals, then
+    per bounce the hits' frames gathered by id (with the raw scene's
+    rotation and activated scaling) and backward_step, and one scatter_add
+    launch adding every bounce's per-hit gradients into the float64
+    accumulator.
+
+    frames, attrs, raw_scene and gpack are in one layout (the scene's own
+    when brute; Morton-sorted with `culling`); so are the grads.  us
+    [S, R, 2] as in render_tile.  grad_acc: the step's [N, SCATTER_COLS]
+    float64 sums to add into (the caller rounds them once); without it the
+    function makes its own and returns the rounded ParamGrads, with it the
+    third return value is None.
+
+    Returns (StepOutputs [S, R, ...], final rgb [R, 3], ParamGrads | None).
+    """
+    steps, final, residuals = render_tile(
+        rays_o, rays_d, gpack, attrs, settings, znear, zfar, us, num_bounces,
+        max_hits, exp_power_static=exp_power_static, culling=culling,
+        keep_residuals=True)
+    n = raw_scene.capacity
+    scaling_act = rounded(torch.exp, raw_scene.scaling)
+    for step, (hits, comp, attrs_d) in enumerate(residuals):
+        ids = hits.ids.to(torch.int64)
+        fg = gather_frames(frames, ids)
+        frames_d = dict(opacity=fg.opacity, scaling_act=scaling_act[ids],
+                        rotation_raw=raw_scene.rotation[ids], rot_mat=fg.rot,
+                        inv_sizes=fg.inv_sizes, sf=fg.sf)
+        residuals[step] = (hits, comp, attrs_d, frames_d)
+    payload, ids = hit_grads(steps, residuals, targets, settings,
+                             num_bounces, n)
+    acc = grad_acc
+    if acc is None:
+        acc = new_grad_accumulator(n, payload.device)
     scatter_add(acc, payload, ids)
     grads = grads_from_accumulator(acc) if grad_acc is None else None
     return steps, final, grads

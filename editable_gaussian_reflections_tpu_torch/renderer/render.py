@@ -1,10 +1,17 @@
-"""Frame dispatch (twin of the JAX renderer/render.py).
+"""Frame dispatch and the render() facade (twin of the JAX
+renderer/render.py).
 
-Ported: camera_params, default_backend_kwargs and dispatch_render_frame.
-render() (the SimpleNamespace facade) comes with a later slice.
+dispatch_render_frame routes a frame to the fused whole-frame path
+(render_frame_fused) when its shapes allow, and to the non-fused
+render_frame otherwise, exactly where the JAX dispatch does.  render()
+returns a SimpleNamespace with the JAX facade's field names ([S, C, H, W] /
+[3, H, W] numpy arrays).  Denoising (renderer/denoise.py) is not ported
+yet: render(denoise=True) raises.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -15,8 +22,10 @@ from .raytracer import (
     CameraParams,
     FrameSamples,
     RenderSettings,
+    TileSamples,
     check_composite_mode,
     fused_path_ok,
+    render_frame,
     render_frame_fused,
 )
 
@@ -37,9 +46,11 @@ def camera_params(camera, znear=0.01, zfar=999.9,
 
 def default_backend_kwargs(cfg) -> dict:
     """dispatch_render_frame's culling and composite options from a Config
-    (render.py:38-60).  The JAX package picks its XLA path on a CPU backend;
-    the port has one path, the fused kernels, on every device."""
-    return dict(cull_cluster=cfg.cull_cluster,
+    (render.py:38-60): culling as cfg.cull says.  The JAX package picks its
+    XLA path on a CPU backend or with backend "xla"; the port has one path,
+    its kernels, on every device."""
+    return dict(use_culling=cfg.cull, cull_tile=cfg.cull_tile,
+                cull_cluster=cfg.cull_cluster,
                 max_clusters=cfg.max_clusters,
                 max_clusters_secondary=cfg.max_clusters_secondary or None,
                 cull_tile_secondary=cfg.cull_tile_secondary,
@@ -51,33 +62,117 @@ def dispatch_render_frame(scene: GaussianScene, cam: CameraParams,
                           settings: RenderSettings,
                           generator: torch.Generator | None, W: int, H: int,
                           *, num_bounces: int = 2, max_hits: int = 32,
+                          chunk: int = 2048, tile: int = 8192,
                           jitter: bool = True,
-                          samples: FrameSamples | None = None,
-                          cull_cluster: int = 256, max_clusters: int = 64,
+                          samples: FrameSamples | TileSamples | None = None,
+                          use_culling: bool = True, cull_tile: int = 256,
+                          cull_cluster: int = 256,
+                          max_clusters: int | None = None,
                           max_clusters_secondary: int | None = None,
                           cull_tile_secondary: int = 256,
                           split_far: bool = False,
                           composite_mode: str = "kbuffer",
                           kernel_stats: bool = True,
                           attr_precision: str = "highest"):
-    """Render one frame through the fused path.
+    """Render one frame (render.py:63-109): through render_frame_fused when
+    culling is asked for and fused_path_ok holds (16x16
+    pixel tiles, a cluster-padded capacity, the cluster minimum), else
+    through the non-fused render_frame, which itself falls back from
+    culled to brute where the shapes do not divide.
 
-    The JAX dispatch falls back to its non-fused render_frame when the fused
-    path is not eligible; that renderer is not ported yet, so here such a
-    frame raises instead."""
+    The two paths draw their samples differently, as in the JAX package:
+    `samples` is a FrameSamples (us [S, H*W, 2]) for the fused path and a
+    TileSamples (us [T, S, tile, 2]) for render_frame.  max_clusters None
+    takes each path's own default (64 fused, 192 non-fused).  The fused-path
+    knobs (secondary budget and cull tile, composite mode, kernel_stats,
+    attr_precision) are not read by render_frame; chunk and tile are not
+    read by the fused path.  split_far and unknown composite modes raise."""
     check_composite_mode(composite_mode, split_far)
-    if not fused_path_ok(scene, W, H, cull_cluster, composite_mode):
-        raise ValueError(
-            f"{W}x{H} with capacity {scene.capacity}, cluster {cull_cluster} "
-            f"and composite_mode {composite_mode!r} does not fit the fused "
-            "path (16x16 pixel tiles, capacity a multiple of the cluster, "
-            "cluster >= 128, or >= 32 for a resident scan table); the "
-            "non-fused render_frame it would fall back to is not ported yet")
-    return render_frame_fused(
+    if use_culling and fused_path_ok(scene, W, H, cull_cluster,
+                                     composite_mode):
+        return render_frame_fused(
+            scene, cam, settings, generator, W, H, num_bounces=num_bounces,
+            max_hits=max_hits, jitter=jitter, cull_cluster=cull_cluster,
+            max_clusters=64 if max_clusters is None else max_clusters,
+            max_clusters_secondary=max_clusters_secondary,
+            cull_tile_secondary=cull_tile_secondary,
+            composite_mode=composite_mode, samples=samples,
+            kernel_stats=kernel_stats, attr_precision=attr_precision)
+    return render_frame(
         scene, cam, settings, generator, W, H, num_bounces=num_bounces,
-        max_hits=max_hits, jitter=jitter, cull_cluster=cull_cluster,
-        max_clusters=max_clusters,
-        max_clusters_secondary=max_clusters_secondary,
-        cull_tile_secondary=cull_tile_secondary,
-        composite_mode=composite_mode, samples=samples,
-        kernel_stats=kernel_stats, attr_precision=attr_precision)
+        max_hits=max_hits, chunk=chunk, tile=tile, jitter=jitter,
+        use_culling=use_culling, cull_tile=cull_tile,
+        cull_cluster=cull_cluster,
+        max_clusters=192 if max_clusters is None else max_clusters,
+        samples=samples)
+
+
+def render(
+    camera,
+    scene: GaussianScene,
+    settings: RenderSettings = RenderSettings(),
+    generator: torch.Generator | None = None,
+    num_bounces: int = 2,
+    max_hits: int = 32,
+    chunk: int = 2048,
+    tile: int = 8192,
+    jitter: bool = True,
+    denoise: bool = False,
+    znear: float = 0.01,
+    zfar: float = 999.9,
+    targets_available: bool = True,
+    **backend_kwargs,
+):
+    """Render a scene camera (scene/cameras.py) through
+    dispatch_render_frame on the scene's device; `backend_kwargs` are
+    dispatch_render_frame's (default_backend_kwargs(cfg) splats in).
+    Without a generator (and without `samples`) the frame draws from a
+    generator seeded 0.  Returns a SimpleNamespace: rgb [S, 3, H, W] per
+    bounce, final [3, H, W], overflow_frac (the share of starved bounce x
+    ray slots), depth / normal / roughness / f0 / transmittance [S, C, H, W]
+    and the camera's targets [C, H, W] (None without them)."""
+    if denoise:
+        raise NotImplementedError(
+            "denoise=True: renderer/denoise.py (the spp-aware a-trous filter "
+            "and the KPN denoiser) is not ported yet (ROADMAP.md Queue 1, "
+            "item 10)")
+    dev = scene.xyz.device
+    if generator is None and backend_kwargs.get("samples") is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    H, W = camera.image_height, camera.image_width
+    cam = camera_params(camera, znear, zfar, device=dev)
+    steps, final = dispatch_render_frame(
+        scene, cam, settings, generator, W, H, num_bounces=num_bounces,
+        max_hits=max_hits, chunk=chunk, tile=tile, jitter=jitter,
+        **backend_kwargs)
+
+    def chw(a):  # [S, R, C] -> [S, C, H, W]
+        a = a.cpu().numpy()
+        if a.ndim == 2:
+            a = a[..., None]
+        return a.reshape(a.shape[0], H, W, a.shape[-1]).transpose(0, 3, 1, 2)
+
+    t = camera if targets_available else None
+
+    def tgt(name):
+        img = None if t is None else getattr(t, name, None)
+        return None if img is None else np.asarray(img).transpose(2, 0, 1)
+
+    return SimpleNamespace(
+        rgb=chw(steps.rgb),
+        final=final.cpu().numpy().reshape(H, W, 3).transpose(2, 0, 1),
+        # share of (step, ray) slots starved by candidate-list overflow
+        overflow_frac=float(steps.overflow.mean()),
+        depth=chw(steps.depth),
+        normal=chw(steps.normal),
+        roughness=chw(steps.roughness),
+        f0=chw(steps.f0),
+        transmittance=chw(steps.transmittance),
+        target=tgt("original_image"),
+        target_diffuse=tgt("diffuse_image"),
+        target_specular=tgt("specular_image"),
+        target_depth=tgt("depth_image"),
+        target_normal=tgt("normal_image"),
+        target_roughness=tgt("roughness_image"),
+        target_f0=tgt("f0_image"),
+    )

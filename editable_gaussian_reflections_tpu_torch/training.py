@@ -8,6 +8,10 @@
     forward + loss-fused backward (renderer/raytracer.py
     render_tile_with_grads_fused: one slots-trace launch per bounce and one
     gradient-scatter launch per batch of tiles), scale decay, Adam, clamps;
+  * with use_culling=False (what the JAX step runs when the ray tile is not
+    a multiple of the cull tile, or with cfg.cull off) the non-fused step:
+    the scene in its own order, one brute trace_hits launch per bounce and
+    one gradient-scatter launch per batch of tiles (render_tile_with_grads);
   * pruning by accumulated total_weight clears live_mask and zeroes the
     pruned slots' Adam moments; on prune iterations the reference zeroes
     all gradients before the Adam step (apply_grads=0).
@@ -22,12 +26,12 @@ many tiles as fit half the card's total memory (`tiles_per_launch_for`), so
 the launch count depends only on the card and the step's shapes.
 
 Randomness: the JAX step draws its jitter and GGX uniforms from a key; the
-port draws the same quantities (TrainSamples) from a torch.Generator, or
+port draws the same quantities (TileSamples) from a torch.Generator, or
 takes them from the caller, as the tests do to hand both the same numbers.
 
-Not ported yet, and raising: the non-fused step (use_pallas=False or
-use_culling=False: render_tile_with_grads and the brute-force trace) and
-split_far.
+Not ported yet, and raising: split_far, and use_pallas=False (the JAX
+package's XLA tracer; the port traces with its kernels, on the CPU with
+their plain versions).
 """
 
 from __future__ import annotations
@@ -52,7 +56,11 @@ from .renderer.raytracer import (
     CameraParams,
     RayTargets,
     RenderSettings,
+    TileSamples,
+    draw_tile_samples,
+    render_tile_with_grads,
     render_tile_with_grads_fused,
+    tiles_per_launch_for,
 )
 from .scene.gaussian_scene import (
     GaussianScene,
@@ -72,24 +80,11 @@ class TrainState(NamedTuple):
     total_weight: torch.Tensor  # [N] accumulated per-Gaussian weight
 
 
-class TrainSamples(NamedTuple):
-    """The random numbers one step consumes."""
-
-    jitter: torch.Tensor | None  # [H, W, 2] sub-pixel offsets, [-0.5, 0.5)
-    us: torch.Tensor             # [T, S, tile, 2] GGX uniforms per ray tile
-                                 # and bounce, rays in the tile's order
-
-
 PARAM_FIELDS = ("xyz", "scaling", "rotation", "opacity", "diffuse", "normal",
                 "f0", "roughness")
 _GRAD_TO_PARAM = dict(mean="xyz", scale="scaling", rotation="rotation",
                       opacity="opacity", rgb="diffuse", normal="normal",
                       f0="f0", roughness="roughness")
-# device bytes a batch holds per (bounce, ray, slot): slots, unpacked
-# frames, gradient payload and the backward's transients, with room to
-# spare (the full-width step peaked at 30.7 GB for 56.6M of them, 540 B
-# each, on an H100 80GB HBM3); bounds tiles_per_launch
-BYTES_PER_RAY_HIT = 640
 
 
 def init_train_state(scene: GaussianScene) -> TrainState:
@@ -151,16 +146,17 @@ def prepare_render_inputs(scene: GaussianScene, settings: RenderSettings,
                           use_pallas: bool, use_culling: bool, cull_tile: int,
                           cull_cluster: int, max_clusters: int,
                           split_far: bool = False):
-    """Per-step scene preprocessing of the fused path: activated frames,
-    Morton sort (the BVH-refit analog), cluster bounds and the kernels'
-    tables, all in the sorted layout.
+    """Per-step scene preprocessing: activated frames and gpack; with
+    culling also the Morton sort (the BVH-refit analog), cluster bounds and
+    the slots kernel's tables, all in the sorted layout.  Without culling
+    the scene keeps its order: culling and gauss_perm are None.
 
     Returns (frames, attrs, gpack, culling, scene_for_bwd, gauss_perm)."""
-    if not (use_pallas and use_culling):
+    if not use_pallas:
         raise NotImplementedError(
-            f"use_pallas={use_pallas}, use_culling={use_culling}: the "
-            "non-fused training step (render_tile_with_grads, the brute-force "
-            "trace) is not ported yet (ROADMAP.md Queue 1, items 2 and 3)")
+            "use_pallas=False: the JAX package's XLA tracer (ops/trace.py "
+            "trace_rays) is not ported; the port traces with its kernels "
+            "(plain PyTorch versions on the CPU)")
     if split_far:
         raise NotImplementedError(
             "split_far=True: the two-pass near/far bounce is not ported yet "
@@ -168,6 +164,9 @@ def prepare_render_inputs(scene: GaussianScene, settings: RenderSettings,
     frames, attrs = build_frames(scene, settings.alpha_threshold,
                                  settings.exp_power,
                                  settings.global_scale_factor)
+    if not use_culling:
+        return (frames, attrs, pack_frames(frames, attrs).contiguous(), None,
+                scene, None)
     gauss_perm = morton_order(frames)
     frames = frames.take(gauss_perm)
     attrs = attrs.take(gauss_perm)
@@ -203,18 +202,6 @@ def prepare_rays(width: int, height: int, camera: CameraParams,
     return dirs, ray_perm, ray_inv
 
 
-def tiles_per_launch_for(num_tiles: int, tile: int, num_steps: int,
-                         max_hits: int, device: torch.device) -> int:
-    """How many ray tiles one launch per bounce takes: as many as fit in
-    half the card's total memory, 1 GiB on the CPU."""
-    if device.type == "cuda":
-        budget = torch.cuda.get_device_properties(device).total_memory // 2
-    else:
-        budget = 1 << 30
-    per_tile = tile * num_steps * max_hits * BYTES_PER_RAY_HIT
-    return max(1, min(num_tiles, budget // per_tile))
-
-
 def tile_batch(origin, dirs_t, targets_t: RayTargets, us_t, b0: int,
                b1: int):
     """Tiles b0..b1-1 as one batch of rays: (rays_o, rays_d, targets,
@@ -230,11 +217,14 @@ def tile_batch(origin, dirs_t, targets_t: RayTargets, us_t, b0: int,
 def grads_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
                      camera: CameraParams, us_t, num_bounces: int,
                      max_hits: int, exp_power_static: float, gpack,
-                     culling: dict, n_capacity: int,
-                     tiles_per_launch: int | None = None):
-    """The fused forward + backward over [T, tile, ...] ray tiles, in
-    batches of `tiles_per_launch` tiles (module docstring; None:
-    tiles_per_launch_for's count).
+                     culling: dict | None, n_capacity: int,
+                     tiles_per_launch: int | None = None, *, frames=None,
+                     attrs=None, scene_for_bwd: GaussianScene | None = None):
+    """The forward + backward over [T, tile, ...] ray tiles, in batches of
+    `tiles_per_launch` tiles (module docstring; None: tiles_per_launch_for's
+    count): the fused path (render_tile_with_grads_fused) with `culling`,
+    else the non-fused brute path (render_tile_with_grads), which reads
+    `frames`, `attrs` and `scene_for_bwd` (prepare_render_inputs').
 
     us_t [T, S, tile, 2] are each tile's GGX uniforms.  Returns (ParamGrads
     summed over tiles, rounded once; l1_diffuse summed over rays; the sum
@@ -250,13 +240,21 @@ def grads_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
         b1 = min(T, b0 + tiles_per_launch)
         rays_o, rays_d, targets, us = tile_batch(origin, dirs_t, targets_t,
                                                  us_t, b0, b1)
-        steps, _final, _ = render_tile_with_grads_fused(
-            rays_o, rays_d, targets, settings, camera.znear, camera.zfar, us,
-            num_bounces, max_hits, gpack=gpack, table=culling["table"],
-            ftable=culling["ftable"], bounds=culling["bounds"],
-            cull_tile=culling["cull_tile"], cull_cluster=culling["cluster"],
-            max_clusters=culling["mc"], n_capacity=n_capacity,
-            exp_power_static=exp_power_static, tile_rays=tile, grad_acc=acc)
+        if culling is None:
+            steps, _final, _ = render_tile_with_grads(
+                rays_o, rays_d, frames, attrs, scene_for_bwd, targets,
+                settings, camera.znear, camera.zfar, us, num_bounces,
+                max_hits, gpack=gpack, exp_power_static=exp_power_static,
+                grad_acc=acc)
+        else:
+            steps, _final, _ = render_tile_with_grads_fused(
+                rays_o, rays_d, targets, settings, camera.znear, camera.zfar,
+                us, num_bounces, max_hits, gpack=gpack,
+                table=culling["table"], ftable=culling["ftable"],
+                bounds=culling["bounds"], cull_tile=culling["cull_tile"],
+                cull_cluster=culling["cluster"], max_clusters=culling["mc"],
+                n_capacity=n_capacity, exp_power_static=exp_power_static,
+                tile_rays=tile, grad_acc=acc)
         err = (steps.rgb[0] - targets.diffuse).abs()
         per_ray = div(err[:, 0] + err[:, 1] + err[:, 2], 3.0)
         l1_tiles.append(per_ray.reshape(b1 - b0, tile).to(torch.float64)
@@ -318,20 +316,6 @@ def apply_updates(state: TrainState, grads: ParamGrads, lrs: dict,
     )
 
 
-def draw_train_samples(generator: torch.Generator, width: int, height: int,
-                       tile: int, num_steps: int, jitter: bool = True
-                       ) -> TrainSamples:
-    """Draw a step's jitter and GGX uniforms on the generator's device."""
-    dev = generator.device
-    jit = None
-    if jitter:
-        jit = torch.rand((height, width, 2), generator=generator,
-                         device=dev) - 0.5
-    T = width * height // tile
-    us = torch.rand((T, num_steps, tile, 2), generator=generator, device=dev)
-    return TrainSamples(jitter=jit, us=us)
-
-
 def prepare_step(state: TrainState, camera: CameraParams,
                  targets: RayTargets, settings: RenderSettings,
                  generator: torch.Generator | None, width: int, height: int,
@@ -339,14 +323,14 @@ def prepare_step(state: TrainState, camera: CameraParams,
                  use_pallas: bool = False, use_culling: bool = False,
                  cull_tile: int = 256, cull_cluster: int = 256,
                  max_clusters: int = 192, split_far: bool = False,
-                 samples: TrainSamples | None = None) -> dict:
+                 samples: TileSamples | None = None) -> dict:
     """Everything a step computes before its ray tiles: the scene's sorted
     tables, the samples, the primary rays and targets in pixel-tile order
     cut into [T, tile, ...] ray tiles.  Returns a dict of grads_over_tiles'
-    inputs plus gauss_perm."""
+    inputs plus gauss_perm (None when not culling)."""
     scene = state.scene
     cull_tile = min(cull_tile, 256)
-    _frames, _attrs, gpack, culling, _scene_s, gauss_perm = (
+    frames, attrs, gpack, culling, scene_s, gauss_perm = (
         prepare_render_inputs(scene, settings, use_pallas, use_culling,
                               cull_tile, cull_cluster, max_clusters,
                               split_far=split_far))
@@ -360,7 +344,7 @@ def prepare_step(state: TrainState, camera: CameraParams,
     if samples is None:
         if generator is None:
             raise ValueError("a step needs samples or a generator")
-        samples = draw_train_samples(generator, width, height, tile_sz,
+        samples = draw_tile_samples(generator, width, height, tile_sz,
                                      num_bounces + 1, jitter)
     dirs, ray_perm, _ray_inv = prepare_rays(
         width, height, camera, samples.jitter if jitter else None, cull_tile,
@@ -371,7 +355,8 @@ def prepare_step(state: TrainState, camera: CameraParams,
         dirs_t=dirs.reshape(num_tiles, tile_sz, 3),
         targets_t=RayTargets(*(a.reshape((num_tiles, tile_sz) + a.shape[1:])
                                for a in targets)),
-        us_t=samples.us, gpack=gpack, culling=culling, gauss_perm=gauss_perm)
+        us_t=samples.us, gpack=gpack, culling=culling, gauss_perm=gauss_perm,
+        frames=frames, attrs=attrs, scene_for_bwd=scene_s)
 
 
 def train_step(
@@ -396,14 +381,16 @@ def train_step(
     cull_cluster: int = 256,
     max_clusters: int = 192,
     split_far: bool = False,
-    samples: TrainSamples | None = None,
+    samples: TileSamples | None = None,
 ):
     """One training iteration (the JAX train_step's contract).
 
-    use_pallas/use_culling select the fused kernel path (the JAX package's
-    Pallas culled backend), the only one ported: anything else raises.
-    `chunk` belongs to the non-fused path and is not read.  The step's
-    randomness is `samples`, or drawn from `generator` when that is None.
+    use_culling selects the fused kernel path (the JAX package's Pallas
+    culled backend), else the non-fused brute path (module docstring);
+    use_pallas=False (the XLA tracer) raises.  `chunk` (the JAX brute
+    trace's Gaussian chunk) is not read: the kernel blocks the Gaussians its
+    own way.  The step's randomness is `samples`, or drawn from `generator`
+    when that is None.
 
     Returns (new TrainState, metrics) with metrics l1_diffuse (mean over
     rays) and starved (share of bounce x ray slots whose candidate list
@@ -416,9 +403,11 @@ def train_step(
     grads, l1, starved = grads_over_tiles(
         camera.origin, prep["dirs_t"], prep["targets_t"], settings, camera,
         prep["us_t"], num_bounces, max_hits, exp_power_static, prep["gpack"],
-        prep["culling"], state.scene.capacity)
-    # grads are in the Morton-sorted layout; back to the scene's slots
-    grads = grads.take(torch.argsort(prep["gauss_perm"]))
+        prep["culling"], state.scene.capacity, frames=prep["frames"],
+        attrs=prep["attrs"], scene_for_bwd=prep["scene_for_bwd"])
+    if prep["gauss_perm"] is not None:
+        # grads are in the Morton-sorted layout; back to the scene's slots
+        grads = grads.take(torch.argsort(prep["gauss_perm"]))
     new_state = apply_updates(state, grads, lrs, hyper)
     R = width * height
     metrics = dict(

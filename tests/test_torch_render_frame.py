@@ -236,17 +236,31 @@ def test_unported_modes_raise(call):
 
 
 def test_dispatch_raises_where_jax_falls_back():
+    """Where the JAX dispatch falls back to its non-fused render_frame, so
+    does the port's (it raised before that path was ported): a width that
+    is not a multiple of 16 and a cluster below 128 render through
+    render_frame, never render_frame_fused, and so does the non-fused SPP
+    accumulation (tests/test_torch_render_tile.py holds them against
+    JAX)."""
+    from unittest import mock
+
+    from editable_gaussian_reflections_tpu_torch.renderer import render
+
     _, _, tscene, tcam = _scene_and_camera()
     gen = torch.Generator().manual_seed(0)
     settings = trt.RenderSettings()
-    with pytest.raises(ValueError, match="fused path"):
-        dispatch_render_frame(tscene, tcam, settings, gen, 40, 32)
-    with pytest.raises(ValueError, match="fused path"):
-        dispatch_render_frame(tscene, tcam, settings, gen, 32, 32,
-                              cull_cluster=64)
-    with pytest.raises(NotImplementedError):
-        trt.render_accumulated_chunked(tscene, tcam, settings, 0, 32, 32,
-                                       spp=1, fused=False)
+    with mock.patch.object(render, "render_frame_fused",
+                           side_effect=AssertionError("fused path")):
+        for W, kw in ((40, {}), (32, dict(cull_cluster=64))):
+            steps, final = dispatch_render_frame(
+                tscene, tcam, settings, gen, W, 32, num_bounces=1,
+                max_hits=16, **kw)
+            assert final.shape == (W * 32, 3) and steps.rgb.shape[0] == 2
+            assert torch.isfinite(final).all() and final.mean() > 0.0
+    _, final = trt.render_accumulated_chunked(
+        tscene, tcam, settings, 0, 32, 32, spp=1, fused=False,
+        num_bounces=0, max_hits=16)
+    assert final.shape == (32 * 32, 3) and torch.isfinite(final).all()
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from editable_gaussian_reflections_tpu.utils.synth import (
 )
 from editable_gaussian_reflections_tpu_torch.ops.tonemap import tonemap
 from editable_gaussian_reflections_tpu_torch.renderer import raytracer as trt
+from editable_gaussian_reflections_tpu_torch.renderer import render
 from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
 )
@@ -191,12 +193,17 @@ def test_fused_path_ok_follows_the_mode():
     big = tgs.pad_to(tscene, 196_608)                  # beyond scan_fits
     assert not trt.fused_path_ok(big, 32, 32, 32, "scanq")
     assert trt.fused_path_ok(big, 32, 32, 128, "scanq")
-    with pytest.raises(ValueError, match="fused path"):
-        dispatch_render_frame(big, _scene_and_camera()[3],
-                              trt.RenderSettings(), None, 32, 32,
-                              cull_cluster=32, composite_mode="scan",
-                              samples=jax_samples(jax.random.PRNGKey(0), 32,
-                                                  32, 3))
+    # beyond scan_fits a cluster of 32 leaves the fused path: the dispatch
+    # falls back to the non-fused render_frame, as JAX's does
+    gen = torch.Generator().manual_seed(0)
+    with mock.patch.object(render, "render_frame_fused",
+                           side_effect=AssertionError("fused path")):
+        _, final = dispatch_render_frame(big, _scene_and_camera()[3],
+                                         trt.RenderSettings(), gen, 32, 32,
+                                         num_bounces=0, max_hits=16,
+                                         cull_cluster=32,
+                                         composite_mode="scan")
+    assert torch.isfinite(final).all() and final.mean() > 0.0
 
 
 def test_scan_falls_back_to_the_kbuffer_kernel_above_the_resident_size(

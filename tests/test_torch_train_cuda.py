@@ -195,7 +195,7 @@ HYPER = dict(beta_1=0.9, beta_2=0.999, scale_decay=0.9999, apply_grads=1.0)
 
 def _step(device, samples):
     state, camera, targets = _step_inputs(device)
-    s = tr.TrainSamples(samples.jitter.to(device), samples.us.to(device))
+    s = rt.TileSamples(samples.jitter.to(device), samples.us.to(device))
     new, metrics = tr.train_step(state, camera, targets, rt.RenderSettings(),
                                  LRS, HYPER, None, 64, 64, samples=s,
                                  **STEP_KW)
@@ -214,8 +214,8 @@ def _assert_states_equal(a, b):
 
 
 def _samples():
-    return tr.draw_train_samples(torch.Generator().manual_seed(4), 64, 64,
-                                 1024, 3)
+    return rt.draw_tile_samples(torch.Generator().manual_seed(4), 64, 64,
+                                1024, 3)
 
 
 def test_batched_step_equals_tile_by_tile(cuda):
@@ -229,8 +229,8 @@ def test_batched_step_equals_tile_by_tile(cuda):
         state, camera, targets, rt.RenderSettings(), None, 64, 64, nb,
         STEP_KW["tile"], True, True, True, STEP_KW["cull_tile"],
         STEP_KW["cull_cluster"], STEP_KW["max_clusters"],
-        samples=tr.TrainSamples(samples.jitter.to(cuda),
-                                samples.us.to(cuda)))
+        samples=rt.TileSamples(samples.jitter.to(cuda),
+                               samples.us.to(cuda)))
 
     def grads(tiles_per_launch):
         before = (trace_slots.launches, scatter_add.launches)

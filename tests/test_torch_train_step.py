@@ -259,8 +259,8 @@ def _port_inputs(ref):
     targets = trt.targets_from_numpy(
         {f: ref[f"targets/{f}"] for f in trt.RayTargets._fields},
         device="cpu")
-    samples = ttr.TrainSamples(jitter=torch.tensor(ref["jitter"]),
-                               us=torch.tensor(ref["us"]))
+    samples = trt.TileSamples(jitter=torch.tensor(ref["jitter"]),
+                              us=torch.tensor(ref["us"]))
     return state, camera, targets, samples
 
 
@@ -507,11 +507,16 @@ def test_settings_from_config():
 
 
 def test_unported_paths_raise(jax_ref):
-    for kw in (dict(use_pallas=False), dict(use_culling=False)):
-        with pytest.raises(NotImplementedError, match="non-fused"):
-            _port_step(jax_ref, **kw)
+    """The XLA tracer (use_pallas=False) and split_far raise; the non-fused
+    step (use_culling=False, ported since: tests/test_torch_render_tile.py
+    holds it against JAX) steps."""
+    with pytest.raises(NotImplementedError, match="XLA tracer"):
+        _port_step(jax_ref, use_pallas=False)
     with pytest.raises(NotImplementedError, match="split_far"):
         _port_step(jax_ref, split_far=True)
+    new, metrics = _port_step(jax_ref, use_culling=False)
+    assert new.count == 1 and np.isfinite(metrics["l1_diffuse"].item())
+    assert (new.total_weight > 0).any()
 
 
 def test_entry_points_default_to_the_card():
