@@ -7,7 +7,8 @@ on one CUDA GPU.
 Phases, one line each (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build every kernel of the port
      (csrc/render_culled.cu, trace_slots.cu, scatter_grads.cu, render_scan.cu,
-     trace_hits.cu) with nvcc into build/kernels/, one nvcc per source, all
+     trace_hits.cu, render_table.cu, bench_dtype.cu, sort_slots.cu) with
+     nvcc into build/kernels/, one nvcc per source, all
      started together (timed, with the ptxas register lines);
   2. the kernel vs its plain PyTorch version on the same CUDA tensors:
      room_scene(16384) at 128x128, Config defaults (K=32, cluster 256,
@@ -78,6 +79,27 @@ Phases, one line each (any failure raises and the script exits non-zero):
      the first launch of the primary and first reflected pass, and kernel
      vs plain on its first NF_CHECK_TILES ray blocks.
 
+ 13. the round-2 render (render_culled_table, csrc/render_table.cu) at the
+     eval render's shapes (room_scene(100_000), 800x800, 16x16 tile order,
+     K 32, cluster 256, tile 256, 192 candidates): the primary and first
+     reflected pass launched once each, timed beside render_culled on the
+     same calls, held bit for bit to the plain version on the first
+     CHECK_TILES tiles and to render_culled's lanes on the tiles both walk
+     whole, and on every tile with no exit (threshold 0, near 0);
+ 14. the tools/bench_v5.py twin at its defaults (100k room, 800x800, K 16,
+     65,536 rays; its four configurations and a v6 row; v4 and v5 launch
+     render_culled, v6 render_scan): then V5_CFG's passes (render_culled on
+     v5's prepared lists) held bit for bit to the plain version on whole
+     passes, timed against their bound;
+ 15. the tools/bench_vpu_dtype.py twin at its defaults (256x512, 512
+     rounds, 20 calls): us per call in float32 and bf16 against the
+     instruction-rate bounds, the bf16 speedup; kernel vs plain, bit for
+     bit with equal infinities, at MIX_CHECK_REPS rounds and at the timed
+     512;
+ 16. the slot sort (csrc/sort_slots.cu) vs plain on the Pallas test's
+     inputs and on 655,360 x 32 slots with 5 auxiliary blocks, bit for bit;
+     timed against its byte bound.
+
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
 chiprun_out/chip_smoke.json.  Exits non-zero without a CUDA device.
@@ -92,6 +114,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -101,15 +124,36 @@ from editable_gaussian_reflections_tpu_torch.config import Config
 from editable_gaussian_reflections_tpu_torch.measure_fps import measure_fps
 from editable_gaussian_reflections_tpu_torch.ops.cuda import build
 from editable_gaussian_reflections_tpu_torch.ops.cuda.layout import (
+    ATTR_ROWS,
+    NUM_ATTR,
+    OUT_CHUNKS,
     OUT_NUMACC,
     OUT_TRAV,
+    ROW_VALID,
     SLOT_BLOCKS,
     SLOT_ID,
     SLOT_T,
+    TABLE_A,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.bench_dtype import (
+    DTYPES,
+    mix,
+    mix_reference,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.render_fine import (
+    render_culled_v5_reference,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.render_kernel import (
     render_culled,
     render_culled_reference,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.render_table import (
+    render_culled_table,
+    render_culled_table_reference,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.sort_slots import (
+    sort_slots_aux,
+    sort_slots_aux_reference,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.scan_kernel import (
     render_scan,
@@ -159,6 +203,10 @@ from editable_gaussian_reflections_tpu_torch.scene.cameras import Camera
 from editable_gaussian_reflections_tpu_torch.scene.gaussian_scene import (
     from_arrays,
 )
+from editable_gaussian_reflections_tpu_torch.tools import (
+    bench_v5,
+    bench_vpu_dtype,
+)
 from editable_gaussian_reflections_tpu_torch.utils.synth import (
     room_camera,
     room_scene,
@@ -170,7 +218,8 @@ FRAME_KW = dict(max_hits=32, cull_cluster=256, max_clusters=192)
 SETTINGS = RenderSettings()
 ZNEAR, ZFAR = 0.05, 50.0
 KERNEL_SOURCES = ("render_culled", "trace_slots", "scatter_grads",
-                  "render_scan", "trace_hits")
+                  "render_scan", "trace_hits", "render_table", "bench_dtype",
+                  "sort_slots")
 # the roofline of one H100 SXM (NVIDIA's data sheet): FP32 and FP64 outside
 # the tensor cores, HBM3
 PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -206,6 +255,27 @@ NF_RENDER_N = 100_000
 N_TIMED_NF_STEPS = 2
 # trace_hits vs its plain version runs on this many 256-ray blocks
 NF_CHECK_TILES = 16
+# tools/bench_v5.py's defaults (scene, frame side, rays), and a v6 row
+# beside its configurations
+BENCH_V5_N, BENCH_V5_RES, BENCH_V5_RAYS = 100_000, 800, 65536
+BENCH_V5_CONFIGS = bench_v5.DEFAULT_CONFIGS.split(",") + ["v6:64:128:128:256"]
+BENCH_V5_ITERS = 10
+# the v5 configuration whose passes are held against the plain version
+V5_CFG = "v5:64:128:128:256"
+# the op mix's instruction rates on one H100 SXM: the clock implied by the FP32
+# peak (132 SMs x 128 lanes x 2 flops), 128 FP32 lanes (packed bf16 runs on
+# the same pipe) and 16 MUFU lanes per SM and clock (Hopper white paper)
+SMS = 132
+CLOCK_HZ = PEAK_FP32 / (SMS * 128 * 2)
+FP32_LANES_S, MUFU_LANES_S = SMS * 128 * CLOCK_HZ, SMS * 16 * CLOCK_HZ
+# instructions per element and round on the FP32 pipe (bench_dtype.cu)
+MIX_FP32_INSTR = {"f32": 10.0, "bf16": 5.5}
+MIX_CHECK_REPS = 16
+# tools/bench_vpu_dtype.py's defaults: rows, cols, rounds, timed calls
+MIX_SHAPE, MIX_REPS, MIX_ITERS = (256, 512), 512, 20
+# the slot sort's large case: the eval render's rays, K 32, the Pallas
+# test's 5 auxiliary blocks
+SORT_RAYS, SORT_K, SORT_AUX = 655_360, 32, 5
 
 
 def room(n: int, device, seed: int = 0) -> tuple:
@@ -1006,6 +1076,300 @@ def phase_nonfused_step(dev, record, smi) -> dict:
     return res
 
 
+def attr_table(gpack) -> torch.Tensor:
+    """The [N, TABLE_A] attribute table of a gpack: its attribute rows
+    (layout.ATTR_ROWS, pack_attr_table's column order) as columns."""
+    n = gpack.shape[1]
+    pad = torch.zeros((n, TABLE_A - NUM_ATTR), dtype=gpack.dtype,
+                      device=gpack.device)
+    return torch.cat([gpack[list(ATTR_ROWS)].T, pad], dim=1).contiguous()
+
+
+def table_call(call, table):
+    """A render_culled KernelCall as render_culled_table's call on the same
+    rays and candidates (its arguments, the table after the gpack)."""
+    args = (*call.args[:3], table, *call.args[3:])
+    kwargs = {k: call.kwargs[k] for k in (
+        "transmittance_threshold", "eps_forward_normalization", "max_hits",
+        "cluster", "tile", "alive", "secondary_static")}
+    return SimpleNamespace(args=args, kwargs=kwargs)
+
+
+def all_listed_pairs(gpack, cands, cluster: int) -> torch.Tensor:
+    """Per tile, the valid Gaussians of every listed cluster: the traversed
+    lane of a tile that processed its whole list."""
+    per_cluster = gpack[ROW_VALID].reshape(-1, cluster).sum(dim=1)
+    listed = cands >= 0
+    return torch.where(listed, per_cluster[cands.clamp(min=0).long()],
+                       0.0).sum(dim=1)
+
+
+def no_exit(args, kwargs, near_pos):
+    """A call's arguments with threshold 0 and every near distance 0: no
+    ray saturates and no candidate lies behind, so every tile walks its
+    whole list."""
+    args = list(args)
+    args[near_pos] = torch.zeros_like(args[near_pos])
+    return args, dict(kwargs, transmittance_threshold=0.0)
+
+
+def exact(where: str, a, b) -> None:
+    if not torch.equal(a, b):
+        diff = (a != b).any(dim=-1) if a.dim() > 1 else a != b
+        raise RuntimeError(f"{where}: not bit for bit equal on "
+                           f"{diff.float().mean().item():.4%} of rows")
+
+
+def phase_round2(dev, record, smi) -> dict:
+    """Phase 13: the round-2 render (render_culled_table) at the eval
+    render's shapes."""
+    W = H = FAST_SIZE
+    scene, camera = room(FAST_N, dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    calls = first_two_passes(scene, camera, W, H, draw_samples(gen, W, H, 3))
+    table = attr_table(calls[0].args[2])
+    tcalls = [table_call(c, table) for c in calls]
+    # the path: one launch per pass, as tests/test_render_kernel.py runs it
+    render_culled_table.launches = 0
+    outs = [render_culled_table(*c.args, **c.kwargs) for c in tcalls]
+    torch.cuda.synchronize()
+    launches = render_culled_table.launches
+    if launches != 2:
+        raise RuntimeError(f"phase 13: render_culled_table launched "
+                           f"{launches} times, expected 2")
+    res = {}
+    for name, call, tc, out in zip(("primary", "reflected"), calls, tcalls,
+                                   outs):
+        tile, cluster = tc.kwargs["tile"], tc.kwargs["cluster"]
+        ms = cuda_ms(lambda: render_culled_table(*tc.args, **tc.kwargs),
+                     reps=5)
+        culled_ms = cuda_ms(lambda: render_culled(*call.args, **call.kwargs),
+                            reps=5)
+        args, kw, rows = first_tiles(tc, CHECK_TILES, cand_pos=(4, 5))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = render_culled_table_reference(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        exact(f"phase 13 {name} kernel vs plain", out[:rows], ref)
+        # render_culled on the same candidates, on the tiles where both
+        # walked the whole list
+        culled = render_culled(*call.args, **call.kwargs)
+        full = all_listed_pairs(call.args[2], call.args[3], cluster)
+        both = ((out[::tile, OUT_TRAV] == full)
+                & (culled[::tile, OUT_TRAV] == full))
+        rows_both = both.repeat_interleave(tile)
+        exact(f"phase 13 {name} vs render_culled (whole lists)",
+              out[rows_both, :OUT_CHUNKS], culled[rows_both, :OUT_CHUNKS])
+        # and with no exit anywhere: every tile walks its whole list
+        na, nkw = no_exit(tc.args, tc.kwargs, 5)
+        ca, ckw = no_exit(call.args, call.kwargs, 4)
+        a = render_culled_table(*na, **nkw)
+        b = render_culled(*ca, **ckw)
+        exact(f"phase 13 {name} vs render_culled (no exit)",
+              a[:, :OUT_CHUNKS], b[:, :OUT_CHUNKS])
+        pairs = out[:, OUT_TRAV].sum().item()
+        b_ms, b_by = bound(pairs * FLOPS_PER_PAIR, PEAK_FP32,
+                           nbytes(*tc.args[:6], tc.kwargs["alive"], out))
+        res[name] = dict(ms=ms, render_culled_ms=culled_ms, pairs=pairs,
+                         bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                         plain_rays=rows, rays=tc.args[0].shape[0],
+                         max_abs_err=0.0,
+                         tiles_whole_list=both.float().mean().item(),
+                         chunks=out[::tile, OUT_CHUNKS].mean().item(),
+                         render_culled_chunks=culled[::tile, OUT_CHUNKS]
+                         .mean().item())
+        del a, b, culled, ref
+    res["launches"] = launches
+    record["phase13_round2"] = res
+    p, r = res["primary"], res["reflected"]
+    print(f"phase 13: round-2 render (render_culled_table) at the "
+          f"{W}x{H} eval render's passes, room_scene({FAST_N}), K 32, "
+          f"cluster 256, 192 candidates: primary {p['ms']:.3f} ms "
+          f"(render_culled {p['render_culled_ms']:.3f} ms; {p['pairs']:.4g} "
+          f"pairs, bound {p['bound_ms']:.3f} ms by {p['bound_by']}), "
+          f"reflected {r['ms']:.3f} ms (render_culled "
+          f"{r['render_culled_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms); "
+          f"kernel = plain bit for bit on the first {CHECK_TILES} tiles "
+          f"(plain {p['plain_ms']:.1f} / {r['plain_ms']:.1f} ms); lanes 0-14 "
+          f"= render_culled's bit for bit on the tiles both walk whole "
+          f"({p['tiles_whole_list']:.2%} / {r['tiles_whole_list']:.2%}) "
+          f"and on every tile with no exit; launches {launches} [{smi}]",
+          flush=True)
+    del scene, calls, tcalls, outs, table
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bench_v5(dev, record, smi) -> dict:
+    """Phase 14: the tools/bench_v5.py twin at its defaults, and V5_CFG's
+    passes against their plain version."""
+    inputs = bench_v5.bench_inputs(BENCH_V5_N, BENCH_V5_RES, BENCH_V5_RAYS,
+                                   dev)
+    render_culled.launches = render_scan.launches = 0
+    rows = [bench_v5.run_config(inputs, cfg, 16, BENCH_V5_ITERS)
+            for cfg in BENCH_V5_CONFIGS]
+    torch.cuda.synchronize()
+    launches = dict(render_culled=render_culled.launches,
+                    render_scan=render_scan.launches)
+    per_cfg = 2 * (1 + BENCH_V5_ITERS)
+    n_cfg = {v: sum(c.startswith(v) for c in BENCH_V5_CONFIGS)
+             for v in ("v4", "v5", "v6")}
+    expected = dict(render_culled=per_cfg * (n_cfg["v4"] + n_cfg["v5"]),
+                    render_scan=per_cfg * n_cfg["v6"])
+    if launches != expected:
+        raise RuntimeError(f"phase 14: launches {launches}, expected "
+                           f"{expected}")
+    for row in rows:
+        if not all(math.isfinite(row[k]) for k in (
+                "primary_ms", "secondary_ms", "chunks_p", "chunks_s")):
+            raise RuntimeError(f"phase 14: bad row {row}")
+    ver, cl, tl, mcp, mcs = V5_CFG.split(":")
+    cl, tl = int(cl), int(tl)
+    passes = {}
+    for which, mc in (("primary", int(mcp)), ("secondary", int(mcs))):
+        fn, args, kw = bench_v5.pass_call(inputs, ver, cl, tl, mc, which, 16)
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = render_culled_v5_reference(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        exact(f"phase 14 v5 {which} kernel vs plain", out, ref)
+        ms = cuda_ms(lambda: fn(*args, **kw), reps=10)
+        pairs = out[:, OUT_TRAV].sum().item()
+        b_ms, b_by = bound(pairs * FLOPS_PER_PAIR, PEAK_FP32,
+                           nbytes(*args[:5], out) + 4 * args[0].shape[0])
+        passes[which] = dict(ms=ms, pairs=pairs, bound_ms=b_ms,
+                             bound_by=b_by, plain_ms=plain_ms,
+                             rays=args[0].shape[0], max_abs_err=0.0)
+        del out, ref
+    res = dict(rows=rows, launches=launches, passes=passes)
+    record["phase14_bench_v5"] = res
+    for row in rows:
+        print(f"phase 14: bench_v5 {row['cfg']}: primary "
+              f"{row['primary_ms']:.3f} ms, secondary "
+              f"{row['secondary_ms']:.3f} ms, frame proxy "
+              f"{row['frame_proxy_mrays']:.3f} M rays/s, chunks "
+              f"{row['chunks_p']:.1f} / {row['chunks_s']:.1f} [{smi}]",
+              flush=True)
+    print(f"phase 14: launches {launches}", flush=True)
+    for which, p in passes.items():
+        print(f"phase 14: {V5_CFG} {which} ({p['rays']} rays): "
+              f"render_culled_v5 {p['ms']:.3f} ms, {p['pairs']:.4g} pairs, "
+              f"bound {p['bound_ms']:.3f} ms by {p['bound_by']}; = plain bit "
+              f"for bit (plain {p['plain_ms']:.1f} ms, whole pass) [{smi}]",
+              flush=True)
+    del inputs
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dtype(dev, record, smi) -> dict:
+    """Phase 15: the tools/bench_vpu_dtype.py twin at its defaults, the
+    kernels against their plain versions at MIX_CHECK_REPS rounds and at
+    the timed MIX_REPS, bit for bit (infinities equal)."""
+    (rows, cols), reps, iters = MIX_SHAPE, MIX_REPS, MIX_ITERS
+    mix.launches = 0
+    run = bench_vpu_dtype.run(rows, cols, reps, iters, dev)
+    launches = mix.launches
+    if launches != 2 * (1 + iters):
+        raise RuntimeError(f"phase 15: mix launched {launches} times")
+    x = torch.tensor(np.random.default_rng(0).uniform(0.1, 0.9, (rows, cols)),
+                     dtype=torch.float32, device=dev)
+    res = dict(launches=launches)
+    n = rows * cols
+    for name, dtype in DTYPES.items():
+        exact(f"phase 15 {name} kernel vs plain at {MIX_CHECK_REPS} rounds",
+              mix(x, MIX_CHECK_REPS, dtype),
+              mix_reference(x, MIX_CHECK_REPS, dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = mix_reference(x, reps, dtype)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        out = mix(x, reps, dtype)
+        exact(f"phase 15 {name} kernel vs plain at {reps} rounds", out, ref)
+        us, tops, _checksum = run[name]
+        # the bound: the slower of the FP32 pipe and MUFU at their
+        # instruction rates, against reading x and writing acc once
+        fp32_ms = n * reps * MIX_FP32_INSTR[name] / FP32_LANES_S * 1e3
+        mufu_ms = n * reps / MUFU_LANES_S * 1e3
+        b_ms, b_by = bound(0.0, PEAK_FP32, 2 * 4 * n)
+        if max(fp32_ms, mufu_ms) >= b_ms:
+            b_ms, b_by = max(fp32_ms, mufu_ms), "operations"
+        res[name] = dict(ms=us / 1e3, tops=tops, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_pipe=("FP32 pipe" if fp32_ms >= mufu_ms
+                                     else "MUFU.EX2"),
+                         fp32_pipe_ms=fp32_ms, mufu_ms=mufu_ms,
+                         inf_share=torch.isinf(out).float().mean().item(),
+                         max_abs_err=0.0)
+    res["speedup"] = res["f32"]["ms"] / res["bf16"]["ms"]
+    record["phase15_dtype"] = res
+    f, b = res["f32"], res["bf16"]
+    print(f"phase 15: bench_vpu_dtype {rows}x{cols}, {reps} rounds: f32 "
+          f"{f['ms'] * 1e3:.1f} us ({f['tops']:.3f} T ops/s; bound "
+          f"{f['bound_ms'] * 1e3:.1f} us by {f['bound_by']}, "
+          f"{f['bound_pipe']}), bf16 {b['ms'] * 1e3:.1f} us "
+          f"({b['tops']:.3f} T ops/s; bound {b['bound_ms'] * 1e3:.1f} us by "
+          f"{b['bound_by']}, {b['bound_pipe']}); bf16 speedup "
+          f"{res['speedup']:.2f}x; kernel = plain bit for bit at "
+          f"{MIX_CHECK_REPS} and {reps} rounds in both types (infinite at "
+          f"{reps}: f32 {f['inf_share']:.2%}, bf16 {b['inf_share']:.2%}); "
+          f"plain {f['plain_ms']:.1f} / {b['plain_ms']:.1f} ms; launches "
+          f"{launches} [{smi}]", flush=True)
+    return res
+
+
+def sort_inputs(R: int, K: int, A: int, seed: int, dev) -> list:
+    """tests/test_pallas_kernel.py's slot-sort inputs at R x K: exact ties
+    (t[:, 3] = t[:, 5]), empty slots in front and interleaved."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0, 10, (R, K)).astype(np.float32)
+    t[:, 3] = t[:, 5]
+    t[0, :4] = 3.0e38
+    t[1, ::2] = 3.0e38
+    ids = rng.integers(0, 1000, (R, K)).astype(np.int32)
+    aux = rng.normal(size=(R, A * K)).astype(np.float32)
+    return [torch.tensor(a, device=dev) for a in (t, ids, aux)]
+
+
+def phase_sort(dev, record, smi) -> dict:
+    """Phase 16: the slot-sort kernel against its plain version on the
+    Pallas test's inputs and on SORT_RAYS x SORT_K slots."""
+    small = sort_inputs(8, 16, 5, 7, dev)
+    large = sort_inputs(SORT_RAYS, SORT_K, SORT_AUX, 11, dev)
+    sort_slots_aux.launches = 0
+    outs = [sort_slots_aux(*small), sort_slots_aux(*large)]
+    torch.cuda.synchronize()
+    launches = sort_slots_aux.launches
+    if launches != 2:
+        raise RuntimeError(f"phase 16: sort launched {launches} times")
+    for name, inp, out in zip(("test inputs", "large"), (small, large),
+                              outs):
+        for a, b in zip(out, sort_slots_aux_reference(*inp)):
+            exact(f"phase 16 {name}", a, b)
+    ms = cuda_ms(lambda: sort_slots_aux(*large), reps=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sort_slots_aux_reference(*large)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    b_ms, b_by = bound(SORT_RAYS * SORT_K * SORT_K / 2, PEAK_FP32,
+                       nbytes(*large, *outs[1]))
+    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               launches=launches, rays=SORT_RAYS, k=SORT_K, aux=SORT_AUX,
+               max_abs_err=0.0)
+    record["phase16_sort"] = res
+    print(f"phase 16: slot sort = plain bit for bit on the Pallas test's "
+          f"inputs (8x16, 5 aux) and on {SORT_RAYS}x{SORT_K} with "
+          f"{SORT_AUX} aux blocks: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
+          f"bound {b_ms:.3f} ms by {b_by}); launches {launches} [{smi}]",
+          flush=True)
+    return res
+
+
 def main() -> None:
     # the smoke drives one card: only the first visible one is made visible,
     # before CUDA initialises, so the device count it reports is the one used
@@ -1493,6 +1857,10 @@ def main() -> None:
     phase_trace_small(dev, record)
     nf_frame = phase_nonfused_render(dev, record, smi)
     nf_step = phase_nonfused_step(dev, record, smi)
+    round2 = phase_round2(dev, record, smi)
+    v5 = phase_bench_v5(dev, record, smi)
+    dtype = phase_dtype(dev, record, smi)
+    sort = phase_sort(dev, record, smi)
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -1501,7 +1869,8 @@ def main() -> None:
         "route": "cuda",
         "source": src + "render_culled.cu",
         "replaces": jax_src + "render_kernel_v3.py:500",
-        "also_replaces": jax_src + "render_kernel_v3.py:322",
+        "also_replaces": [jax_src + "render_kernel_v3.py:322",
+                          jax_src + "render_kernel_v5.py:386"],
         "launches": launches,
         # worst float-lane error over both passes at the main path's shapes
         "max_abs_err": max(c["max_abs_err"] for c in phase4.values()),
@@ -1510,6 +1879,13 @@ def main() -> None:
         "bound_ms": rc_bound_ms,
         "bound_by": rc_bound_by,
         "library_ms": None,
+        # the same kernel as pallas_render_culled_v5's port, on the bench_v5
+        # twin's run (phase 14; v4 and v5 rows), times at V5_CFG's primary
+        "bench_v5_launches": v5["launches"]["render_culled"],
+        "v5_ms": v5["passes"]["primary"]["ms"],
+        "v5_plain_ms": v5["passes"]["primary"]["plain_ms"],
+        "v5_bound_ms": v5["passes"]["primary"]["bound_ms"],
+        "v5_secondary_ms": v5["passes"]["secondary"]["ms"],
     }, {
         "name": "trace_slots",
         "route": "cuda",
@@ -1576,6 +1952,49 @@ def main() -> None:
         "culled_ms": nf_frame["passes"]["primary"]["ms"],
         "culled_plain_ms": nf_frame["passes"]["primary"]["plain_ms"],
         "culled_bound_ms": nf_frame["passes"]["primary"]["bound_ms"],
+    }, {
+        "name": "render_table",
+        "route": "cuda",
+        "source": src + "render_table.cu",
+        "replaces": jax_src + "render_kernel.py:354",
+        # the eval render's primary and reflected pass (phase 13)
+        "launches": round2["launches"],
+        "max_abs_err": 0.0,
+        "ms": round2["primary"]["ms"],
+        "plain_ms": round2["primary"]["plain_ms"],
+        "plain_rays": round2["primary"]["plain_rays"],
+        "bound_ms": round2["primary"]["bound_ms"],
+        "bound_by": round2["primary"]["bound_by"],
+        "library_ms": None,
+        "reflected_ms": round2["reflected"]["ms"],
+        "render_culled_ms": round2["primary"]["render_culled_ms"],
+    }, {
+        "name": "bench_dtype",
+        "route": "cuda",
+        "source": src + "bench_dtype.cu",
+        "replaces": "tools/bench_vpu_dtype.py:53",
+        # the bench_vpu_dtype twin's run (phase 15): float32, and bf16 beside
+        "launches": dtype["launches"],
+        "max_abs_err": dtype["f32"]["max_abs_err"],
+        "ms": dtype["f32"]["ms"],
+        "plain_ms": dtype["f32"]["plain_ms"],
+        "bound_ms": dtype["f32"]["bound_ms"],
+        "bound_by": dtype["f32"]["bound_by"],
+        "library_ms": None,
+        "bf16_ms": dtype["bf16"]["ms"],
+        "bf16_bound_ms": dtype["bf16"]["bound_ms"],
+    }, {
+        "name": "sort_slots",
+        "route": "cuda",
+        "source": src + "sort_slots.cu",
+        "replaces": "tests/test_pallas_kernel.py:279",
+        "launches": sort["launches"],
+        "max_abs_err": 0.0,
+        "ms": sort["ms"],
+        "plain_ms": sort["plain_ms"],
+        "bound_ms": sort["bound_ms"],
+        "bound_by": sort["bound_by"],
+        "library_ms": None,
     }]
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

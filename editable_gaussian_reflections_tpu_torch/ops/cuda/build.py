@@ -2,7 +2,8 @@
 
 Each csrc/<name>.cu is compiled by nvcc into a shared library with a plain C
 interface, under build/kernels/ beside the package (a directory git
-ignores).  The library's file name carries a hash of the sources and flags,
+ignores).  A measurement tool may build a source of its own directory the
+same way, with csrc/ on the include path.  The library's file name carries a hash of the sources and flags,
 so an edited source is rebuilt and a stale library is never loaded.  Nothing
 here runs at import time: the CPU tests import every module.
 """
@@ -40,24 +41,27 @@ def find_nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def library_path(name: str) -> Path:
-    """Where csrc/<name>.cu is built, keyed by sources and flags."""
+def library_path(name: str, src_dir: Path | None = None) -> Path:
+    """Where <src_dir>/<name>.cu (csrc/ by default) is built, keyed by the
+    sources it may include and the flags."""
+    src_dir = Path(src_dir or CSRC)
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in sorted({*CSRC.glob("*.cu*"), *src_dir.glob("*.cu*")}):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(names) -> list[Path]:
-    """Compile each csrc/<name>.cu whose library does not exist yet, one
-    nvcc process per source, all started together; returns the libraries'
-    paths in the order of `names`.
+def build_all(names, src_dir: Path | None = None) -> list[Path]:
+    """Compile each <src_dir>/<name>.cu (csrc/ by default) whose library
+    does not exist yet, one nvcc process per source, all started together;
+    returns the libraries' paths in the order of `names`.
 
     The compiler's output (registers, spills from -Xptxas -v) is kept
     beside each library as <library>.log."""
-    outs = [library_path(name) for name in names]
+    src_dir = Path(src_dir or CSRC)
+    outs = [library_path(name, src_dir) for name in names]
     jobs = []
     try:
         for name, out in zip(names, outs):
@@ -66,8 +70,8 @@ def build_all(names) -> list[Path]:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   str(CSRC / f"{name}.cu")]
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+                   str(src_dir / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             jobs.append((name, out, tmp, proc))
@@ -92,12 +96,13 @@ def build_all(names) -> list[Path]:
     return outs
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library exists; returns its path."""
-    return build_all([name])[0]
+def build(name: str, src_dir: Path | None = None) -> Path:
+    """Compile <src_dir>/<name>.cu unless its library exists; returns its
+    path."""
+    return build_all([name], src_dir)[0]
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build (once) and load csrc/<name>.cu's library."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, src_dir: Path | None = None) -> ctypes.CDLL:
+    """Build (once) and load <src_dir>/<name>.cu's library."""
+    return ctypes.CDLL(str(build(name, src_dir)))

@@ -201,11 +201,12 @@ def _seqsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, dim=-1)[..., -1]
 
 
-def _composite(st, sa, sid, log_t, gpack, thr, eps_norm):
+def _composite(st, sa, sid, log_t, attr_rows, thr, eps_norm):
     """Depth-sorted front-to-back composite of the slots [R, K] plus the
-    truncated-tail correction (render_kernel_v3.py:154-204).  Slots are
-    sorted by (t, id); the Pallas kernels' order-free form equals this
-    except on exact depth ties.  WIDE accumulation, as in the kernel."""
+    truncated-tail correction (render_kernel_v3.py:154-204), the shading
+    attributes read by id from attr_rows [NUM_ATTR, N].  Slots are sorted
+    by (t, id); the Pallas kernels' order-free form equals this except on
+    exact depth ties.  WIDE accumulation, as in the kernel."""
     st, sa, sid = sort_slots(st, sa, sid)
     valid = st < INF
     la = torch.log1p((-sa).to(WIDE))
@@ -225,7 +226,7 @@ def _composite(st, sa, sid, log_t, gpack, thr, eps_norm):
     full_T = torch.exp(log_t).to(torch.float32)
     factor = 1.0 + ((T_final.to(WIDE) - full_T.to(WIDE))
                     / torch.clamp(1.0 - T_final.to(WIDE), min=eps_norm))
-    attrs = gpack[list(ATTR_ROWS)][:, sid].to(WIDE)               # [10, R, K]
+    attrs = attr_rows[:, sid].to(WIDE)                           # [10, R, K]
     cols = _seqsum(w[None] * attrs) * factor[None]               # [10, R]
     return torch.cat([cols.T.to(torch.float32),
                       (depth * factor).to(torch.float32)[:, None],
@@ -356,7 +357,8 @@ def render_culled_reference(
         secondary_static=secondary_static, exit_mode=0)
     for rows, st, sa, sid, log_t, trav, chunks, gp in walk:
         out[rows, :14] = _composite(
-            st, sa, sid, log_t, gp, _f32(transmittance_threshold),
+            st, sa, sid, log_t, gp[list(ATTR_ROWS)],
+            _f32(transmittance_threshold),
             _f32(eps_forward_normalization))
         out[rows, 14] = trav.repeat_interleave(tile)
         out[rows, 15] = chunks.repeat_interleave(tile)
@@ -457,3 +459,44 @@ def check_every_for(capacity: int) -> int:
     otherwise (raytracer.py:1080-1082, render_kernel_v3.py:490)."""
     return 8 if (capacity + 128) * N_ROWS * 4 <= RESIDENT_LIMIT else 4
 
+
+
+# pallas_render_culled_v5's candidate preparation (render_kernel_v5.py:
+# 402-431), taken by its port (ops/cuda/render_fine.py).  Each of the three
+# changes where the walk may exit, and so full_T and the counters.
+V5_SPAN = 128
+
+
+def v5_check_every(check_every: int, cluster: int, span: int = V5_SPAN) -> int:
+    """v5's early-exit group size: at least one drain span of `span //
+    cluster` clusters, rounded down to whole spans (render_kernel_v5.py:
+    405-409)."""
+    span = max(span, cluster)
+    if span % cluster:
+        raise ValueError(f"span={span} is not a multiple of cluster="
+                         f"{cluster}")
+    per_span = span // cluster
+    return max(check_every, per_span) // per_span * per_span
+
+
+def pad_candidates(candidates, cand_near, multiple: int):
+    """Candidate lists [T, MC] padded with empty entries (-1, near 3e38) to
+    a multiple of `multiple` (render_kernel_v5.py:414-420)."""
+    mc = candidates.shape[1]
+    pad = -mc % multiple
+    if pad == 0:
+        return candidates, cand_near
+    return (torch.nn.functional.pad(candidates, (0, pad), value=-1),
+            torch.nn.functional.pad(cand_near, (0, pad), value=3.0e38))
+
+
+def truncate_near(candidates, cand_near) -> torch.Tensor:
+    """v5's packed near distances as float32 (render_kernel_v5.py:425-431):
+    an empty candidate's 3e38, any other max(near, 0), truncated toward
+    zero to bf16 (the float's bits & 0xFFFF0000), so never above the true
+    near and the exit stays conservative.  v5 tests `behind` on the int32
+    bits (:347-351), which order non-negative floats as the floats do: the
+    walks' float test on these values decides the same."""
+    near = torch.where(candidates < 0, torch.full_like(cand_near, 3.0e38),
+                       torch.clamp(cand_near, min=0.0))
+    return (near.contiguous().view(torch.int32) & -65536).view(torch.float32)
