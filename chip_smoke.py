@@ -59,6 +59,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
  10. the non-fused trace kernel (trace_hits) vs its plain version at 128x128,
      room_scene(16384), on the renderer's own passes: brute and culled,
      primary and reflected, and a brute pass of a ragged ray count (1000);
+     the compiled kernel's registers, spilled bytes, shared memory and
+     resident blocks per SM at K 16 and 32 (what the runtime reports);
  11. the non-fused eval render at full width: room_scene(100_000) at
      1365x768 (a 16:9 image at the default -r 768, which the fused path
      cannot take: 1365 is not a multiple of 16), 2 bounces, Config defaults
@@ -66,7 +68,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      tiles, rays in linear order) through dispatch_render_frame ->
      render_frame, culled: ms/frame, M frame rays/s, starved share, device
      idle share, trace_hits on the first launch of the primary and first
-     reflected pass (CUDA events) with its pairs and bound, kernel vs plain
+     reflected pass (CUDA events) with its pairs, bound and no-FMA issue
+     floor (the flops issued one per lane and clock), kernel vs plain
      on its first NF_CHECK_TILES cull tiles, and the tonemapped PSNR
      against the brute frame of the same samples (what culling in row
      strips costs), also over the pixels starved at no bounce;
@@ -75,7 +78,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      256-ray cull tile) is use_culling=False - the brute trace - on
      room_scene(175_000) (seed 1) towards the seed-0 room's G-buffers:
      1 warm-up, 2 timed and 1 profiled step; ms/step, M rays/s, l1_diffuse,
-     peak GB, device idle share, the brute trace's ms, pairs and bound on
+     peak GB, device idle share, the brute trace's ms, pairs, bound and
+     issue floor on
      the first launch of the primary and first reflected pass, and kernel
      vs plain on its first NF_CHECK_TILES ray blocks.
 
@@ -164,6 +168,8 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.scatter import (
     scatter_add_reference,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_hits import (
+    BRUTE_TILE,
+    kernel_info,
     trace_hits,
     trace_hits_reference,
 )
@@ -174,10 +180,8 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
 from editable_gaussian_reflections_tpu_torch.ops.render_grads import (
     new_grad_accumulator,
 )
-from editable_gaussian_reflections_tpu_torch.ops import trace as trace_mod
 from editable_gaussian_reflections_tpu_torch.ops.tonemap import tonemap
 from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
-    CameraParams,
     RayTargets,
     RenderSettings,
     StepOutputs,
@@ -200,23 +204,29 @@ from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
 )
 from editable_gaussian_reflections_tpu_torch.scene.cameras import Camera
-from editable_gaussian_reflections_tpu_torch.scene.gaussian_scene import (
-    from_arrays,
-)
 from editable_gaussian_reflections_tpu_torch.tools import (
     bench_v5,
     bench_vpu_dtype,
 )
-from editable_gaussian_reflections_tpu_torch.utils.synth import (
-    room_camera,
-    room_scene,
+from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
+    FRAME_KW,
+    NF_H,
+    NF_RENDER_N,
+    NF_W,
+    TRAIN_N,
+    ZFAR,
+    ZNEAR,
+    eval_render,
+    first_trace_calls,
+    render_trace_calls,
+    room,
+    step_trace_calls,
+    training_step,
 )
+from editable_gaussian_reflections_tpu_torch.utils.synth import room_camera
 
 ROOT = Path(__file__).resolve().parent
-# Config defaults (config.py): the eval render's k-buffer configuration
-FRAME_KW = dict(max_hits=32, cull_cluster=256, max_clusters=192)
 SETTINGS = RenderSettings()
-ZNEAR, ZFAR = 0.05, 50.0
 KERNEL_SOURCES = ("render_culled", "trace_slots", "scatter_grads",
                   "render_scan", "trace_hits", "render_table", "bench_dtype",
                   "sort_slots")
@@ -224,6 +234,10 @@ KERNEL_SOURCES = ("render_culled", "trace_slots", "scatter_grads",
 # the tensor cores, HBM3
 PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 FLOPS_PER_PAIR = 60    # ray x Gaussian pair math, counted from the source
+# of which the part that does not depend on the ray's direction: rel (3), lo
+# (18) and |lo|^2 (5); where a tile's rays share one origin (a primary
+# pass) it is needed once per Gaussian the tile tests, not once per pair
+FLOPS_ORIGIN = 26
 # the scan kernel's float32 work per ray x Gaussian pair, counted from
 # csrc/trace_tile.cuh (pair_direct: 3 + 36 + 15 + 7) and csrc/render_scan.cu
 # (pair_quadric: 3 + 11 + 17 + 21 + 7); per composited hit only, the
@@ -245,13 +259,9 @@ FAST_SIZE, FAST_N = 800, 100_000
 N_FPS_VIEWS = 8
 # the training step's configuration: the Config defaults train.py uses
 TRAIN_W = TRAIN_H = 768
-TRAIN_N = 175_000      # init_num_pts + init_num_pts_farfield
 N_TIMED_STEPS = 3
-# the non-fused path: a 16:9 image at the default -r 768 loads as 1365x768
-# (dataset/blender.py: out_w = int(resolution * aspect)); the eval render's
-# scene is bench.py's room_scene(100_000), the training step's TRAIN_N
-NF_W, NF_H = 1365, 768
-NF_RENDER_N = 100_000
+# the non-fused path: its frame, scenes and configurations are
+# tools/nonfused_setup.py's
 N_TIMED_NF_STEPS = 2
 # trace_hits vs its plain version runs on this many 256-ray blocks
 NF_CHECK_TILES = 16
@@ -276,16 +286,6 @@ MIX_SHAPE, MIX_REPS, MIX_ITERS = (256, 512), 512, 20
 # the slot sort's large case: the eval render's rays, K 32, the Pallas
 # test's 5 auxiliary blocks
 SORT_RAYS, SORT_K, SORT_AUX = 655_360, 32, 5
-
-
-def room(n: int, device, seed: int = 0) -> tuple:
-    scene = from_arrays(**room_scene(n, seed=seed), pad_multiple=2048,
-                        device=device)
-    eye, c2w = room_camera()
-    camera = CameraParams(origin=torch.tensor(eye, device=device),
-                          c2w=torch.tensor(c2w, device=device), fov_y=0.9,
-                          znear=ZNEAR, zfar=ZFAR)
-    return scene, camera
 
 
 def first_two_passes(scene, camera, width, height, samples,
@@ -430,6 +430,28 @@ def bound(flops: float, peak_flops: float, nbytes: float) -> tuple:
     ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
+
+
+def walk_flops(rays_o, pairs_per_ray, tile: int) -> float:
+    """The float32 flops the k-buffer pair math needs on one pass, per tile
+    of `tile` rays (the kernels' blocks; a last partial tile is counted on
+    its rays alone): where the tile's origins differ, FLOPS_PER_PAIR per
+    pair; where they are one, bit for bit (the test trace_hits' walk makes),
+    FLOPS_PER_PAIR - FLOPS_ORIGIN per pair and FLOPS_ORIGIN per Gaussian
+    the tile tests (its largest per-ray count)."""
+    o = rays_o.to(torch.float32).contiguous().view(torch.int32)
+    pairs = pairs_per_ray.to(torch.float64).reshape(-1)
+    pad = -o.shape[0] % tile
+    if pad:  # copies of the last ray that test nothing
+        o = torch.cat([o, o[-1:].expand(pad, 3)])
+        pairs = torch.cat([pairs, pairs.new_zeros(pad)])
+    o, pairs = o.view(-1, tile, 3), pairs.view(-1, tile)
+    shared = (o == o[:, :1]).all(dim=2).all(dim=1)
+    per_tile = pairs.sum(dim=1)
+    flops = torch.where(
+        shared, (FLOPS_PER_PAIR - FLOPS_ORIGIN) * per_tile
+        + FLOPS_ORIGIN * pairs.max(dim=1).values, FLOPS_PER_PAIR * per_tile)
+    return flops.sum().item()
 
 
 def nbytes(*tensors) -> int:
@@ -723,26 +745,6 @@ def phase_fast_path(dev, record, smi) -> dict:
     return res
 
 
-def recorded_trace_calls(run, limit: int = 2) -> list:
-    """The first `limit` trace_hits calls (args, kwargs) that `run()` makes
-    through the non-fused renderer (ops/trace.py), at the main path's own
-    shapes and inputs."""
-    calls = []
-    real = trace_mod.trace_hits
-
-    def record(*args, **kwargs):
-        if len(calls) < limit:
-            calls.append((args, kwargs))
-        return real(*args, **kwargs)
-
-    trace_mod.trace_hits = record
-    try:
-        run()
-    finally:
-        trace_mod.trace_hits = real
-    return calls
-
-
 def hits_subset(args, kwargs, n_tiles: int):
     """A trace_hits call cut to its first `n_tiles` 256-ray blocks (cull
     tiles when culled): the rays of a block are traced independently of
@@ -796,9 +798,14 @@ def trace_pass_numbers(calls, where: str) -> dict:
         out = trace_hits(*args, **kwargs)
         out = out[:5] + out[6:]
         pairs = out[6].to(torch.float64).sum().item()
-        b_ms, b_by = bound(pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        tile = BRUTE_TILE if args[3] is None else kwargs["tile"]
+        flops = walk_flops(args[0], out[6], tile)
+        b_ms, b_by = bound(flops, PEAK_FP32,
                            nbytes(*args[:5], *out)
                            + 4 * args[0].shape[0])       # the alive mask
+        # built without FMA contraction, each of the pair's flops issues on
+        # its own: the FP32 pipe's floor is twice the flop bound
+        floor_ms = flops / FP32_LANES_S * 1e3
         sub_args, sub_kw, rows = hits_subset(args, kwargs, NF_CHECK_TILES)
         plain_kw = {k: v for k, v in sub_kw.items() if k != "extract_attrs"}
         torch.cuda.synchronize()
@@ -808,8 +815,9 @@ def trace_pass_numbers(calls, where: str) -> dict:
         plain_ms = (time.perf_counter() - t0) * 1e3
         cmp = compare_hits(tuple(x[:rows] for x in out), ref)
         check_lanes(f"{where} trace_hits {name}", cmp)
-        res[name] = dict(cmp, ms=ms, pairs=pairs, bound_ms=b_ms,
-                         bound_by=b_by, rays=args[0].shape[0],
+        res[name] = dict(cmp, ms=ms, pairs=pairs, flops=flops, bound_ms=b_ms,
+                         bound_by=b_by, floor_ms=floor_ms,
+                         rays=args[0].shape[0],
                          plain_ms=plain_ms, plain_rays=rows,
                          mode="brute" if args[3] is None else "culled")
         del out, ref
@@ -826,7 +834,7 @@ def phase_trace_small(dev, record) -> None:
     res = {}
     for culled in (False, True):
         mode = "culled" if culled else "brute"
-        calls = recorded_trace_calls(lambda: render_frame(
+        calls = first_trace_calls(lambda: render_frame(
             scene, camera, SETTINGS, None, W, H, num_bounces=1,
             use_culling=culled, samples=samples, **FRAME_KW))
         for name, (args, kwargs) in zip(("primary", "reflected"), calls):
@@ -854,6 +862,16 @@ def phase_trace_small(dev, record) -> None:
           f"K=32, {len(res)} passes (brute/culled, primary/reflected, a "
           f"ragged brute count): worst max_abs_err {worst:.3g}, ids and "
           f"counters equal on >= {agree:.4%} of rays", flush=True)
+    # what the runtime reports of the kernels the main paths launch (exp
+    # power 3, 256-ray blocks, 256-Gaussian clusters; primary passes, and
+    # reflected ones with the backfacing test)
+    info = {f"K{k} {name}": kernel_info(k, backfacing=name == "reflected")
+            for k in (16, 32) for name in ("primary", "reflected")}
+    record["trace_hits_kernel"] = info
+    print("phase 10: trace_hits kernel at tile 256, cluster 256: " + "; ".join(
+        f"{k}: {v['registers']} registers, {v['local_bytes']} B spilled, "
+        f"{v['smem_bytes']} B shared, {v['blocks_per_sm']} blocks per SM"
+        for k, v in info.items()), flush=True)
 
 
 def profile_device(fn) -> tuple:
@@ -875,16 +893,12 @@ def profile_device(fn) -> tuple:
 def phase_nonfused_render(dev, record, smi) -> dict:
     """Phase 11: the non-fused eval render at full width (culled)."""
     W, H = NF_W, NF_H
-    scene, camera = room(NF_RENDER_N, dev)
-    kw = dict(num_bounces=2, **FRAME_KW)
-    tile = min(8192, W * H)
-    T = -(-(W * H) // tile)
-    n_batches = -(-T // tiles_per_launch_for(T, tile, 3, FRAME_KW["max_hits"],
-                                              dev))
-    gen = torch.Generator(device=dev).manual_seed(6)
-    samples = draw_tile_samples(gen, W, H, tile, 3)
-    calls = recorded_trace_calls(lambda: dispatch_render_frame(
-        scene, camera, SETTINGS, None, W, H, samples=samples, **kw))
+    r = eval_render(dev)
+    scene, camera, gen, samples, kw = r.scene, r.camera, r.gen, r.samples, r.kw
+    T = -(-(W * H) // r.tile)
+    n_batches = -(-T // tiles_per_launch_for(T, r.tile, 3,
+                                              FRAME_KW["max_hits"], dev))
+    calls = render_trace_calls(r)
     passes = trace_pass_numbers(calls, "phase 11")
     if passes["primary"]["mode"] != "culled":
         raise RuntimeError("phase 11: the frame was not traced culled")
@@ -955,8 +969,10 @@ def phase_nonfused_render(dev, record, smi) -> dict:
     print(f"phase 11: trace_hits culled, first launch ({p['rays']} rays) "
           f"per pass: primary {p['ms']:.3f} ms "
           f"({p['pairs']:.4g} pairs, bound {p['bound_ms']:.3f} ms by "
-          f"{p['bound_by']}), reflected {r['ms']:.3f} ms ({r['pairs']:.4g} "
-          f"pairs, bound {r['bound_ms']:.3f} ms); plain on the first "
+          f"{p['bound_by']}, no-FMA issue floor {p['floor_ms']:.3f} ms), "
+          f"reflected {r['ms']:.3f} ms ({r['pairs']:.4g} pairs, bound "
+          f"{r['bound_ms']:.3f} ms, floor {r['floor_ms']:.3f} ms); plain on "
+          f"the first "
           f"{NF_CHECK_TILES} cull tiles {p['plain_ms']:.1f} / "
           f"{r['plain_ms']:.1f} ms, max_abs_err {p['max_abs_err']:.3g} / "
           f"{r['max_abs_err']:.3g}, ids+counters equal on "
@@ -968,46 +984,15 @@ def phase_nonfused_render(dev, record, smi) -> dict:
 def phase_nonfused_step(dev, record, smi) -> dict:
     """Phase 12: the non-fused (brute) training step at full width."""
     W, H = NF_W, NF_H
-    cfg = Config()
-    settings = tr.settings_from_config(cfg)
-    num_bounces, K = 2, cfg.max_hits
-    tile = tr.pick_tile_size(W * H, cfg.ray_tile)
-    scene_t, camera = room(TRAIN_N, dev, seed=0)
-    gen = torch.Generator(device=dev).manual_seed(8)
-    gb, _ = dispatch_render_frame(scene_t, camera, settings, gen, W, H,
-                                  num_bounces=2, **FRAME_KW)
-    targets = RayTargets(diffuse=gb.rgb[0], specular=gb.rgb[1] + gb.rgb[2],
-                         depth=gb.depth[0], normal=gb.normal[0],
-                         roughness=gb.roughness[0], f0=gb.f0[0])
-    del scene_t, gb
-    scene0, _ = room(TRAIN_N, dev, seed=1)
-    state = tr.init_train_state(scene0)
-    cap = scene0.capacity
-    # train.py's rule: cull only when the frame and the ray tile divide into
-    # cull tiles and the capacity into clusters
-    use_culling = (cfg.cull and (W * H) % cfg.cull_tile == 0
-                   and tile % cfg.cull_tile == 0
-                   and cap % cfg.cull_cluster == 0)
-    if use_culling:
+    s = training_step(dev)
+    num_bounces, K, tile, cap = s.num_bounces, s.K, s.tile, s.capacity
+    state, step = s.state, s.step
+    if s.use_culling:
         raise RuntimeError(f"phase 12: tile {tile} culls; expected brute")
-    lrs = tr.lr_tree(cfg, 1, 1.0)
-    hyper = dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
-                 scale_decay=cfg.scale_decay, apply_grads=1.0)
-    step_kw = dict(num_bounces=num_bounces, max_hits=K,
-                   chunk=cfg.trace_chunk, tile=tile, use_pallas=True,
-                   exp_power_static=float(cfg.exp_power),
-                   use_culling=use_culling, cull_tile=cfg.cull_tile,
-                   cull_cluster=cfg.cull_cluster,
-                   max_clusters=cfg.max_clusters)
     n_tiles = W * H // tile
     n_batches = -(-n_tiles // tiles_per_launch_for(n_tiles, tile,
                                                     num_bounces + 1, K, dev))
-
-    def step(st):
-        return tr.train_step(st, camera, targets, settings, lrs, hyper, gen,
-                             W, H, **step_kw)
-
-    calls = recorded_trace_calls(lambda: step(state))
+    calls = step_trace_calls(s)
     passes = trace_pass_numbers(calls, "phase 12")
     if passes["primary"]["mode"] != "brute":
         raise RuntimeError("phase 12: the step was not traced brute")
@@ -1065,7 +1050,9 @@ def phase_nonfused_step(dev, record, smi) -> dict:
     print(f"phase 12: trace_hits brute, first launch ({p['rays']} rays) per "
           f"pass: primary {p['ms']:.3f} ms "
           f"({p['pairs']:.4g} pairs, bound {p['bound_ms']:.3f} ms by "
-          f"{p['bound_by']}), reflected {r['ms']:.3f} ms; plain on the "
+          f"{p['bound_by']}, no-FMA issue floor {p['floor_ms']:.3f} ms), "
+          f"reflected {r['ms']:.3f} ms ({r['pairs']:.4g} pairs, floor "
+          f"{r['floor_ms']:.3f} ms); plain on the "
           f"first {NF_CHECK_TILES} ray blocks {p['plain_ms']:.1f} / "
           f"{r['plain_ms']:.1f} ms, max_abs_err {p['max_abs_err']:.3g} / "
           f"{r['max_abs_err']:.3g}, ids+counters equal on "
@@ -1169,7 +1156,8 @@ def phase_round2(dev, record, smi) -> dict:
         exact(f"phase 13 {name} vs render_culled (no exit)",
               a[:, :OUT_CHUNKS], b[:, :OUT_CHUNKS])
         pairs = out[:, OUT_TRAV].sum().item()
-        b_ms, b_by = bound(pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        b_ms, b_by = bound(walk_flops(tc.args[0], out[:, OUT_TRAV], tile),
+                           PEAK_FP32,
                            nbytes(*tc.args[:6], tc.kwargs["alive"], out))
         res[name] = dict(ms=ms, render_culled_ms=culled_ms, pairs=pairs,
                          bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
@@ -1238,7 +1226,8 @@ def phase_bench_v5(dev, record, smi) -> dict:
         exact(f"phase 14 v5 {which} kernel vs plain", out, ref)
         ms = cuda_ms(lambda: fn(*args, **kw), reps=10)
         pairs = out[:, OUT_TRAV].sum().item()
-        b_ms, b_by = bound(pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        b_ms, b_by = bound(walk_flops(args[0], out[:, OUT_TRAV], kw["tile"]),
+                           PEAK_FP32,
                            nbytes(*args[:5], out) + 4 * args[0].shape[0])
         passes[which] = dict(ms=ms, pairs=pairs, bound_ms=b_ms,
                              bound_by=b_by, plain_ms=plain_ms,
@@ -1480,7 +1469,9 @@ def main() -> None:
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t0) * 1e3
         phase4[name] = dict(compare_lanes(out, ref), plain_ms=plain,
-                            pairs=out[:, OUT_TRAV].sum().item())
+                            pairs=out[:, OUT_TRAV].sum().item(),
+                            flops=walk_flops(call.args[0], out[:, OUT_TRAV],
+                                             call.kwargs["tile"]))
         check_lanes(f"phase 4 {name}", phase4[name])
     plain_ms = phase4["primary"]["plain_ms"]
     # ray x Gaussian pairs the primary pass tests: per ray, the valid
@@ -1518,7 +1509,8 @@ def main() -> None:
     check_lanes("phase 4b", ce4_cmp)
     ce4_pairs = out4[:, OUT_TRAV].sum().item()
     ce4_bound_ms, ce4_bound_by = bound(
-        ce4_pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        walk_flops(call0.args[0], out4[:, OUT_TRAV], call0.kwargs["tile"]),
+        PEAK_FP32,
         nbytes(*call0.args[:5], call0.kwargs["alive"], out4))
     record["phase4b_check_every_4"] = dict(
         ce4_cmp, ms=ce4_ms, plain_ms_first_tiles=ce4_plain_ms,
@@ -1598,7 +1590,7 @@ def main() -> None:
     # the roofline of render_culled's primary pass: its pair math, and its
     # inputs read once and its output written once
     rc_bound_ms, rc_bound_by = bound(
-        pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        phase4["primary"]["flops"], PEAK_FP32,
         nbytes(*call0.args[:5], call0.kwargs["alive"]) + nbytes(
             torch.empty((call0.args[0].shape[0], 16))))
     record.update(render_culled_bound_ms=rc_bound_ms)
@@ -1662,7 +1654,8 @@ def main() -> None:
         cmp = compare_slots(out, acc, ref, ref_acc, K)
         check_lanes(f"phase 5 trace_slots {name}", cmp)
         n_pairs = acc[:, 1].sum().item()
-        b_ms, b_by = bound(n_pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        b_ms, b_by = bound(walk_flops(call.args[0], acc[:, 1],
+                                      call.kwargs["tile"]), PEAK_FP32,
                            nbytes(*call.args[:7], call.kwargs["alive"],
                                   out, acc))
         phase5[name] = dict(cmp, ms=k_ms, plain_ms=plain, pairs=n_pairs,
@@ -1686,7 +1679,7 @@ def main() -> None:
     check_lanes("phase 5b", m1_cmp)
     m1_pairs = acc[:, 1].sum().item()
     m1_bound_ms, m1_bound_by = bound(
-        m1_pairs * FLOPS_PER_PAIR, PEAK_FP32,
+        walk_flops(call.args[0], acc[:, 1], call.kwargs["tile"]), PEAK_FP32,
         nbytes(*call.args[:7], call.kwargs["alive"], out, acc))
     phase5["exit_mode_1"] = dict(
         m1_cmp, ms=m1_ms, plain_ms_first_tiles=m1_plain_ms,
@@ -1948,10 +1941,18 @@ def main() -> None:
         "bound_ms": nf_step["passes"]["primary"]["bound_ms"],
         "bound_by": nf_step["passes"]["primary"]["bound_by"],
         "library_ms": None,
-        # the culled pass of the non-fused eval render (phase 11)
+        "floor_ms": nf_step["passes"]["primary"]["floor_ms"],
+        "reflected_ms": nf_step["passes"]["reflected"]["ms"],
+        # the culled passes of the non-fused eval render (phase 11)
         "culled_ms": nf_frame["passes"]["primary"]["ms"],
         "culled_plain_ms": nf_frame["passes"]["primary"]["plain_ms"],
         "culled_bound_ms": nf_frame["passes"]["primary"]["bound_ms"],
+        "culled_reflected_ms": nf_frame["passes"]["reflected"]["ms"],
+        # registers and blocks per SM of the launched kernel (phase 10)
+        "registers": {k: v["registers"] for k, v in
+                      record["trace_hits_kernel"].items()},
+        "blocks_per_sm": {k: v["blocks_per_sm"] for k, v in
+                          record["trace_hits_kernel"].items()},
     }, {
         "name": "render_table",
         "route": "cuda",

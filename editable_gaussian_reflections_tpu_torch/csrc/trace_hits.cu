@@ -10,75 +10,124 @@
 // PyTorch version of the same contract is trace_hits_reference in
 // ops/cuda/trace_hits.py.
 //
-// Design.  The walk is csrc/trace_tile.cuh, unchanged and shared with the
-// render and slots kernels: one block per ray tile, one thread per ray, a
-// cluster's geometry staged in shared memory, each thread keeping its K
-// nearest hits (t, alpha, id) in registers.  The two Pallas kernels map onto
-// it as follows:
-//   culled  exit mode 0 with check_every 1: before every candidate the tile
-//           stops once each ray is saturated or has its K-th hit before the
-//           candidate's near distance.  pallas_trace_culled_fused skips the
-//           rest instead of stopping; on near-ascending lists (what
-//           select_candidates returns) that is the same.
+// Design.  The walk is csrc/trace_hits_walk.cuh, this kernel's own (it
+// replaced the walk of trace_tile.cuh, which the render and slots kernels
+// keep): one block per ray tile, one thread per ray, clusters streamed
+// through a two-stage cp.async ring and traced four Gaussians a step (one
+// float4 shared-memory load per row for all four), the kept hits (t, id) in
+// a per-thread column of shared memory, so that two 256-ray blocks share an
+// SM at K 32 (one did with trace_tile.cuh's walk, at 158-164 registers),
+// the reciprocal of the pair math without a branch per pair, and on blocks
+// whose rays share an origin the ray-independent terms computed once per
+// Gaussian.  Kernels are instantiated per K (16, 32), exponent (3 spelled
+// out, or general) and pass (backfacing test on reflected passes).  The two
+// Pallas kernels map onto it:
+//   culled  an exit vote before every candidate: the tile stops once each
+//           ray is saturated or has its K-th hit before the candidate's near
+//           distance.  pallas_trace_culled_fused skips the rest instead of
+//           stopping; on near-ascending lists (what select_candidates
+//           returns) that is the same.  The prefetch of the next candidate
+//           is issued after the vote; one lost to an exit costs nothing.
 //   brute   the caller lists every cluster for every tile, with near
 //           distance -INF and log threshold -INF, in one group
-//           (check_every = mc): nothing ever exits.
+//           (check_every = mc): one vote, before the first cluster, which
+//           never passes, then every cluster streamed.
 // The Pallas kernels take no alive mask (the non-fused renderer masks dead
 // rays afterwards), so the caller passes all ones and dead rays are traced
 // like live ones; a tile's exit waits for them exactly as on the TPU.
 // The TPU drain carried each hit's payload through its one-hot insertion;
 // here the epilogue sorts the kept hits by (t, id) (the Pallas kernels sort
 // by (t, slot index): the two differ only on exact depth ties) and recomputes
-// gaussval and the local hit of each kept hit from its gpack column, with
-// the walk's float operations, so they equal what the walk saw.
+// gaussval, alpha (MAX_ALPHA * gaussval * opacity) and the local hit of each
+// kept hit from its gpack column, with the walk's float operations, so they
+// equal what the walk saw.
 //
 // Numerics (ops/precision.py): float32 pair math without FMA contraction,
 // exp and pow in float64 rounded once, sqrt of sf^2 in float64 rounded once,
 // the log1p(-alpha) terms and their sum in float64, rounded to float32 once.
 //
-// What bounds it: the pair math, about 60 flops per ray x Gaussian pair on
-// the FP32 units, as in render_culled.cu; the brute mode tests every pair.
-// Known costs left for later: one block per SM at K=32 (register-bound),
-// strided row writes in the epilogue.
+// What bounds it: the pair math on the FP32 pipe.  About 60 flops per ray x
+// Gaussian pair; where a block's rays share one origin (a primary pass), 34
+// per pair and 26 per Gaussian (rel, lo and |lo|^2 do not depend on the
+// ray).  At 67 TFLOP/s (an FMA counted as two) that is the flop bound.
+// Built without contraction, each FMUL and FADD issues alone, so the issue
+// floor is those flops one per lane and clock, 132 SMs x 128 lanes x 1.98
+// GHz = 33.5e12 a second: twice the flop bound.  The compiled loop issues
+// ~73 per pair (the reciprocal's three, the compares, the four float4 loads
+// per pair), ~47 on a shared origin; the float64 exp/log1p of each valid
+// hit come on top.  The brute mode tests every pair.  The epilogue's row
+// writes stay strided (per thread); they move well under 1 GB per launch.
 
 #include <cuda_runtime.h>
 
-#include "trace_tile.cuh"
+#include "trace_hits_walk.cuh"
 
 namespace {
 
-using namespace egr;
+using namespace egr_hits;
 
-template <int K, bool CUBE>
-__global__ void trace_hits_kernel(TraceParams p, float* t_out, int* id_out,
-                                  float* alpha_out, float* gaussval_out,
-                                  float* local_hit_out, float* log_t_out,
-                                  int* trav_out) {
-  extern __shared__ float sg[];  // [N_GEOM_ROWS, cluster]
+// Sort the kept hits by (t, id): odd-even transposition over registers.
+template <int K>
+__device__ __forceinline__ void sort_hits(float (&st)[K], int (&sid)[K]) {
+#pragma unroll
+  for (int pass = 0; pass < K; ++pass) {
+#pragma unroll
+    for (int i = pass & 1; i + 1 < K; i += 2) {
+      if (st[i] > st[i + 1] || (st[i] == st[i + 1] && sid[i] > sid[i + 1])) {
+        const float t = st[i];
+        const int id = sid[i];
+        st[i] = st[i + 1];
+        sid[i] = sid[i + 1];
+        st[i + 1] = t;
+        sid[i + 1] = id;
+      }
+    }
+  }
+}
+
+template <int K, bool CUBE, bool BACKFACING>
+__global__ void __launch_bounds__(MAX_TILE)
+    trace_hits_kernel(HitsParams p, float* t_out, int* id_out,
+                      float* alpha_out, float* gaussval_out,
+                      float* local_hit_out, float* log_t_out, int* trav_out) {
+  extern __shared__ __align__(16) float smem[];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  float st[K], sa[K];
-  int sid[K];
+  Ray ray;
+  ray.ox = p.rays_o[3 * r];
+  ray.oy = p.rays_o[3 * r + 1];
+  ray.oz = p.rays_o[3 * r + 2];
+  ray.dx = p.rays_d[3 * r];
+  ray.dy = p.rays_d[3 * r + 1];
+  ray.dz = p.rays_d[3 * r + 2];
+  ray.live = p.alive[r] > 0.0f;
+  ray.near = ray.live ? p.near : __int_as_float(0x7f800000);
+  float* col_t;
+  int* col_id;
   double log_t;
-  float trav, chunks;
-  trace_tile<K, CUBE>(p, sg, st, sa, sid, log_t, trav, chunks);
-  sort_slots<K>(st, sa, sid);
+  float trav;
+  walk_hits<K, CUBE, BACKFACING>(p, smem, ray, col_t, col_id, log_t, trav);
 
-  const float ox = p.rays_o[3 * r], oy = p.rays_o[3 * r + 1],
-              oz = p.rays_o[3 * r + 2];
-  const float dx = p.rays_d[3 * r], dy = p.rays_d[3 * r + 1],
-              dz = p.rays_d[3 * r + 2];
+  float st[K];
+  int sid[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    st[s] = col_t[s * blockDim.x];
+    sid[s] = col_id[s * blockDim.x];
+  }
+  sort_hits<K>(st, sid);
+
   const float k2 = 2.0f * p.exp_power;
   const size_t row = (size_t)r * K;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    float gaussval = 0.0f, lh[3] = {0.0f, 0.0f, 0.0f};
+    float gaussval = 0.0f, alpha = 0.0f, lh[3] = {0.0f, 0.0f, 0.0f};
     const bool v = st[s] < INF;
     if (v) {
       const int id = sid[s];
 #define G(row) p.gpack[(size_t)(row) * p.n_gauss + id]
-      const float rx = ox - G(ROW_MEAN);
-      const float ry = oy - G(ROW_MEAN + 1);
-      const float rz = oz - G(ROW_MEAN + 2);
+      const float rx = ray.ox - G(ROW_MEAN);
+      const float ry = ray.oy - G(ROW_MEAN + 1);
+      const float rz = ray.oz - G(ROW_MEAN + 2);
       float lo[3], ld[3];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
@@ -86,7 +135,7 @@ __global__ void trace_hits_kernel(TraceParams p, float* t_out, int* id_out,
                     r2 = G(ROW_ROT + 6 + i);
         const float inv = G(ROW_INV + i);
         lo[i] = inv * (r0 * rx + r1 * ry + r2 * rz);
-        ld[i] = inv * (r0 * dx + r1 * dy + r2 * dz);
+        ld[i] = inv * (r0 * ray.dx + r1 * ray.dy + r2 * ray.dz);
       }
       const float dot_ol = lo[0] * ld[0] + lo[1] * ld[1] + lo[2] * ld[2];
       const float dot_ll = ld[0] * ld[0] + ld[1] * ld[1] + ld[2] * ld[2];
@@ -94,6 +143,7 @@ __global__ void trace_hits_kernel(TraceParams p, float* t_out, int* id_out,
       const float inv_ll = 1.0f / fmaxf(dot_ll, 1e-30f);
       const float sq = dot_oo - dot_ol * dot_ol * inv_ll;
       const float sf2 = G(ROW_SF2);
+      const float opacity = G(ROW_OPACITY);
 #undef G
       const float sqs = fmaxf(sq * sf2, 0.0f);
       float powered;
@@ -106,13 +156,14 @@ __global__ void trace_hits_kernel(TraceParams p, float* t_out, int* id_out,
         powered = (float)pow((double)sqs, (double)p.exp_power);
       }
       gaussval = (float)exp((double)(-powered / k2));
+      alpha = MAX_ALPHA * gaussval * opacity;
       const float sf = (float)sqrt((double)fmaxf(sf2, 0.0f));
 #pragma unroll
       for (int i = 0; i < 3; ++i) lh[i] = sf * (lo[i] + st[s] * ld[i]);
     }
     t_out[row + s] = st[s];
     id_out[row + s] = v ? sid[s] : 0;
-    alpha_out[row + s] = v ? sa[s] : 0.0f;
+    alpha_out[row + s] = alpha;
     gaussval_out[row + s] = gaussval;
 #pragma unroll
     for (int i = 0; i < 3; ++i) local_hit_out[3 * (row + s) + i] = lh[i];
@@ -121,31 +172,94 @@ __global__ void trace_hits_kernel(TraceParams p, float* t_out, int* id_out,
   trav_out[r] = (int)trav;
 }
 
-template <int K>
-cudaError_t launch(const TraceParams& p, float* t_out, int* id_out,
+// Let the kernel take `smem` bytes of dynamic shared memory, and the SM
+// give shared memory all of its carveout: two blocks of 256 rays at K 32
+// take 2 x 108 KB.
+template <class Kernel>
+cudaError_t set_smem(Kernel kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int K, bool CUBE, bool BACKFACING>
+cudaError_t launch(const HitsParams& p, float* t_out, int* id_out,
                    float* alpha_out, float* gaussval_out, float* local_hit_out,
                    float* log_t_out, int* trav_out, int n_tiles, int tile,
                    cudaStream_t s) {
-  const size_t smem = sizeof(float) * N_GEOM_ROWS * p.cluster;
-  if (p.int_power == 3)
-    trace_hits_kernel<K, true><<<n_tiles, tile, smem, s>>>(
-        p, t_out, id_out, alpha_out, gaussval_out, local_hit_out, log_t_out,
-        trav_out);
-  else
-    trace_hits_kernel<K, false><<<n_tiles, tile, smem, s>>>(
-        p, t_out, id_out, alpha_out, gaussval_out, local_hit_out, log_t_out,
-        trav_out);
+  const int smem = (int)walk_smem_bytes(K, tile, p.cluster);
+  const auto kernel = trace_hits_kernel<K, CUBE, BACKFACING>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_tiles, tile, smem, s>>>(p, t_out, id_out, alpha_out,
+                                     gaussval_out, local_hit_out, log_t_out,
+                                     trav_out);
   return cudaGetLastError();
 }
+
+// The instantiation for the launch's exponent and pass: exp_power 3 with
+// the cube spelled out, and the backfacing test on reflected passes.
+template <int K>
+cudaError_t launch_k(const HitsParams& p, float* t_out, int* id_out,
+                     float* alpha_out, float* gaussval_out,
+                     float* local_hit_out, float* log_t_out, int* trav_out,
+                     int n_tiles, int tile, cudaStream_t s) {
+  const bool cube = p.int_power == 3, backfacing = p.secondary > 0.0f;
+  const auto go = cube ? (backfacing ? launch<K, true, true>
+                                     : launch<K, true, false>)
+                       : (backfacing ? launch<K, false, true>
+                                     : launch<K, false, false>);
+  return go(p, t_out, id_out, alpha_out, gaussval_out, local_hit_out,
+            log_t_out, trav_out, n_tiles, tile, s);
+}
+
+template <int K, bool CUBE, bool BACKFACING>
+cudaError_t info(int tile, int cluster, int* out) {
+  const int smem = (int)walk_smem_bytes(K, tile, cluster);
+  const auto kernel = trace_hits_kernel<K, CUBE, BACKFACING>;
+  cudaFuncAttributes a;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tile,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  return cudaSuccess;
+}
+
+template <int K>
+cudaError_t info_k(bool cube, bool backfacing, int tile, int cluster,
+                   int* out) {
+  const auto go = cube ? (backfacing ? info<K, true, true>
+                                     : info<K, true, false>)
+                       : (backfacing ? info<K, false, true>
+                                     : info<K, false, false>);
+  return go(tile, cluster, out);
+}
+
+
+// What the entry points return when they refuse the shapes (a cudaError_t
+// is never negative).
+constexpr int SHAPES_REFUSED = -1;
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  t, alpha, gaussval [n_rays,
 // max_hits] f32, ids [n_rays, max_hits] i32, local_hit [n_rays, max_hits, 3]
 // f32, log_t [n_rays] f32 and traversed [n_rays] i32 are written in full.
-// alive: [n_rays] f32 (the non-fused path passes ones).  Launches on
-// `stream`, allocates nothing, and returns the launch's cudaError_t (0 =
-// success).
+// alive: [n_rays] f32 (the non-fused path passes ones).  The shapes it takes
+// are init_hits_params' (trace_hits_walk.cuh); it returns SHAPES_REFUSED for
+// any other.  Launches on `stream`, allocates nothing, and returns the
+// launch's cudaError_t (0 = success).
 extern "C" int egr_trace_hits(
     const float* rays_o, const float* rays_d, const float* alive,
     const float* gpack, const int* cand, const float* cand_near, float* t_out,
@@ -154,26 +268,34 @@ extern "C" int egr_trace_hits(
     int tile, int cluster, int max_hits, int check_every, float near,
     float far, float secondary, float bf_max_dist, float bf_thr,
     float log_thr, float exp_power, void* stream) {
-  TraceParams p;
-  // no split-far window; the backfacing test is gated on `secondary`, as
-  // the Pallas kernels gate it
-  if (!init_trace_params(p, rays_o, rays_d, alive, /*t_split=*/nullptr,
-                         gpack, cand, cand_near, n_rays, n_gauss, mc, tile,
-                         cluster, check_every, /*exit_mode=*/0,
-                         /*window_mode=*/0, /*secondary_static=*/-1, near,
-                         far, secondary, bf_max_dist, bf_thr, log_thr,
-                         exp_power))
-    return (int)cudaErrorInvalidValue;
+  HitsParams p;
+  // the backfacing test is gated on `secondary`, as the Pallas kernels gate
+  // it
+  if (!init_hits_params(p, rays_o, rays_d, alive, gpack, cand, cand_near,
+                        n_rays, n_gauss, mc, tile, cluster, max_hits,
+                        check_every, near, far, secondary, bf_max_dist,
+                        bf_thr, log_thr, exp_power))
+    return SHAPES_REFUSED;
   if (n_rays == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_rays / tile;
   if (max_hits == 16)
-    return (int)launch<16>(p, t_out, id_out, alpha_out, gaussval_out,
+    return (int)launch_k<16>(p, t_out, id_out, alpha_out, gaussval_out,
+                             local_hit_out, log_t_out, trav_out, n_tiles,
+                             tile, s);
+  return (int)launch_k<32>(p, t_out, id_out, alpha_out, gaussval_out,
                            local_hit_out, log_t_out, trav_out, n_tiles, tile,
                            s);
-  if (max_hits == 32)
-    return (int)launch<32>(p, t_out, id_out, alpha_out, gaussval_out,
-                           local_hit_out, log_t_out, trav_out, n_tiles, tile,
-                           s);
-  return (int)cudaErrorInvalidValue;
+}
+
+// The compiled kernel of (max_hits, cube, backfacing) at (tile, cluster):
+// out[0] registers per thread, out[1] local (spilled) bytes per thread,
+// out[2] dynamic shared memory per block, out[3] resident blocks per SM.
+// Returns a cudaError_t, or SHAPES_REFUSED.
+extern "C" int egr_trace_hits_info(int max_hits, int cube, int backfacing,
+                                   int tile, int cluster, int* out) {
+  if (!hits_shape_ok(max_hits, tile, cluster)) return SHAPES_REFUSED;
+  if (max_hits == 16)
+    return (int)info_k<16>(cube, backfacing, tile, cluster, out);
+  return (int)info_k<32>(cube, backfacing, tile, cluster, out);
 }

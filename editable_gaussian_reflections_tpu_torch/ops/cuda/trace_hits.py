@@ -63,7 +63,6 @@ from .layout import (
     ROW_SF2,
 )
 from .render_kernel import (
-    SUPPORTED_K,
     _check,
     _f32,
     _log_f32,
@@ -74,6 +73,10 @@ from .render_kernel import (
 # the brute mode's blocking: rays per block and Gaussians per staged cluster
 BRUTE_TILE = 256
 BRUTE_CLUSTER = 256
+# what the C entry points return when they refuse the shapes: the limits
+# (K, rays per block, Gaussians per cluster, shared memory) are checked there
+# only, in hits_shape_ok (csrc/trace_hits_walk.cuh)
+SHAPES_REFUSED = -1
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 13         # rays_o, rays_d, alive, gpack, cand,
@@ -94,6 +97,28 @@ def _entry_point():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_info(max_hits: int, cube: bool = True, backfacing: bool = False,
+                tile: int = BRUTE_TILE, cluster: int = BRUTE_CLUSTER) -> dict:
+    """What the card's runtime reports of the compiled kernel for
+    (max_hits, exp_power 3 or not, backfacing test or not: reflected
+    passes) at (tile, cluster): registers and spilled (local) bytes per
+    thread, dynamic shared memory per block and resident blocks per SM.
+    Needs a CUDA device."""
+    fn = build.load("trace_hits").egr_trace_hits_info
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(max_hits, int(cube), int(backfacing), tile, cluster,
+             ctypes.addressof(out))
+    if err == SHAPES_REFUSED:
+        raise ValueError(f"trace_hits: no kernel for max_hits={max_hits}, "
+                         f"tile={tile}, cluster={cluster}")
+    if err != 0:
+        raise RuntimeError(f"trace_hits kernel info failed: cudaError {err}")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3])
 
 
 def _round_up(n: int, m: int) -> int:
@@ -233,15 +258,8 @@ def _launch(rays_o, rays_d, gpack, candidates, cand_near, near, far,
     """The kernel of csrc/trace_hits.cu on the current stream."""
     dev = rays_o.device
     R = rays_o.shape[0]
-    if max_hits not in SUPPORTED_K:
-        raise ValueError(f"max_hits={max_hits}: the kernel is built for "
-                         f"{SUPPORTED_K}")
-    if candidates is not None and (R % tile or not 0 < tile <= 1024):
-        raise ValueError(f"tile={tile} must divide R={R} and be <= 1024")
-    if candidates is not None and (gpack.shape[1] % cluster
-                                   or not 0 < cluster <= 512):
-        raise ValueError(f"cluster={cluster} must divide N="
-                         f"{gpack.shape[1]}, <= 512")
+    if candidates is not None and (tile <= 0 or R % tile):
+        raise ValueError(f"tile={tile} must divide R={R}")
     o, d, gp, cands, cnear, thr, cluster, tile, check_every = walk_inputs(
         rays_o, rays_d, gpack, candidates, cand_near,
         transmittance_threshold, cluster, tile)
@@ -273,6 +291,11 @@ def _launch(rays_o, rays_d, gpack, candidates, cand_near, near, far,
             _f32(near), _f32(far), _f32(secondary), _f32(backfacing_max_dist),
             _f32(backfacing_invalid_normal_threshold), _log_f32(thr),
             float(exp_power), stream)
+    if err == SHAPES_REFUSED:
+        raise ValueError(f"trace_hits: the kernel refused max_hits={K}, "
+                         f"tile={tile}, cluster={cluster} for {Rp} rays and "
+                         f"{N} Gaussians (hits_shape_ok, init_hits_params: "
+                         f"csrc/trace_hits_walk.cuh)")
     if err != 0:
         raise RuntimeError(f"trace_hits kernel launch failed: cudaError "
                            f"{err}")

@@ -46,9 +46,17 @@ def camera_params(camera, znear=0.01, zfar=999.9,
 
 def default_backend_kwargs(cfg) -> dict:
     """dispatch_render_frame's culling and composite options from a Config
-    (render.py:38-60): culling as cfg.cull says.  The JAX package picks its
-    XLA path on a CPU backend or with backend "xla"; the port has one path,
-    its kernels, on every device."""
+    (render.py:38-60).
+
+    cfg.backend "xla" renders as the JAX package's XLA path does: unculled,
+    through the k-buffer composite, without split-far - here the brute
+    trace_hits, which JAX holds equal to its XLA trace.  "auto" and
+    "pallas" cull as cfg.cull says, on every device: the card takes the
+    TPU's part (JAX's "auto" picks XLA on a CPU backend; the port has no
+    such path, its kernels' plain versions run on CPU tensors)."""
+    if cfg.backend == "xla":
+        return dict(use_culling=False, split_far=False,
+                    composite_mode="kbuffer")
     return dict(use_culling=cfg.cull, cull_tile=cfg.cull_tile,
                 cull_cluster=cfg.cull_cluster,
                 max_clusters=cfg.max_clusters,

@@ -1,7 +1,10 @@
-"""Time the k-buffer walks of one source tree: render_culled and trace_slots
-on the primary pass of an 800x800 frame of room_scene(100_000) (the
-chip_smoke.py phase 4/5 shapes: K 32, cluster 256, 192 candidates), CUDA
-events, after one warm-up call.  Needs a CUDA card.
+"""Time the walks of one source tree: render_culled and trace_slots on the
+primary pass of an 800x800 frame of room_scene(100_000) (the chip_smoke.py
+phase 4/5 shapes: K 32, cluster 256, 192 candidates), then trace_hits on
+the first launch of the primary and first reflected pass of the non-fused
+eval render (culled) and training step (brute), as chip_smoke.py's phases
+11 and 12 make them (tools/nonfused_setup.py).  CUDA events, after one
+warm-up call.  Needs a CUDA card.
 
 To compare two trees, unpack the other one (`git archive`) into a
 directory git ignores and run both in one process sequence, alternating:
@@ -9,11 +12,14 @@ directory git ignores and run both in one process sequence, alternating:
     python editable_gaussian_reflections_tpu_torch/tools/walk_ab.py <tree> [<csrc dir>]
 
 <tree> is the root whose package is imported; <csrc dir>, when given,
-replaces its csrc/ (a variant of the kernel sources).
+replaces its csrc/ (a variant of the kernel sources).  The non-fused setup
+is this script's own tree's, run on <tree>'s package, so that both trees
+are timed on the same launches.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import sys
 from pathlib import Path
 
@@ -50,17 +56,12 @@ def main(argv: list[str]) -> None:
     from editable_gaussian_reflections_tpu_torch.renderer import raytracer as rt
     from editable_gaussian_reflections_tpu_torch.scene import (
         gaussian_scene as gs)
-    from editable_gaussian_reflections_tpu_torch.utils.synth import (
-        room_camera, room_scene)
     if not rt.__file__.startswith(root):
         raise RuntimeError(f"imported {rt.__file__}, not the tree {root}")
 
+    nf = _nonfused_setup()
     dev = torch.device("cuda")
-    scene = gs.from_arrays(**room_scene(100_000), pad_multiple=2048,
-                           device=dev)
-    eye, c2w = room_camera()
-    cam = rt.CameraParams(torch.tensor(eye, device=dev),
-                          torch.tensor(c2w, device=dev), 0.9, 0.05, 50.0)
+    scene, cam = nf.room(100_000, dev)
     S = rt.RenderSettings()
     samples = rt.draw_samples(torch.Generator(device=dev).manual_seed(2),
                               800, 800, 3)
@@ -97,6 +98,41 @@ def main(argv: list[str]) -> None:
     print(f"AB {root} {argv[1:]}: render_culled primary ms "
           f"{[round(x, 3) for x in rc]}; trace_slots primary ms "
           f"{[round(x, 3) for x in ts]}", flush=True)
+    del c0, s0, prep, dirs, o, alive, frames, attrs, sc, table, ftable
+    trace_hits_ab(nf, root, argv[1:], dev)
+
+
+def _nonfused_setup():
+    """tools/nonfused_setup.py of this script's tree, importing the package
+    of the tree on sys.path (the tree timed may predate the module)."""
+    spec = importlib.util.spec_from_file_location(
+        "nonfused_setup", Path(__file__).with_name("nonfused_setup.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def trace_hits_ab(nf, root: str, variant: list, dev) -> None:
+    """trace_hits' four passes at the chip_smoke.py phase 11/12 shapes
+    (`nf`: the module tools/nonfused_setup.py)."""
+    from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_hits import (
+        trace_hits)
+
+    calls = {"culled": nf.render_trace_calls(nf.eval_render(dev))}
+    calls["brute"] = nf.step_trace_calls(nf.training_step(dev))
+    res = {}
+    for mode in ("brute", "culled"):
+        for name, (args, kwargs) in zip(("primary", "reflected"),
+                                        calls[mode]):
+            if (args[3] is None) != (mode == "brute"):
+                raise RuntimeError(f"{mode} {name}: traced the other mode")
+            reps = 2 if mode == "brute" else 5
+            res[f"{mode} {name}"] = [
+                round(cuda_ms(lambda: trace_hits(*args, **kwargs), reps), 3)
+                for _ in range(2)]
+    print(f"AB {root} {variant}: trace_hits ms, first launch of "
+          f"{nf.NF_W}x{nf.NF_H} "
+          f"({', '.join(f'{k} {v}' for k, v in res.items())})", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,17 @@
 """The non-fused trace kernel on the card: csrc/trace_hits.cu against its
 plain PyTorch version on the same CUDA tensors, in brute and culled mode,
-primary and reflected, with a ragged brute ray count; and the non-fused
-frame and training step on the card against the CPU.  Needs a CUDA card and
+primary and reflected, with a ragged brute ray count; cases aimed at the
+kernel's walk (csrc/trace_hits_walk.cuh: four Gaussians a step, clusters
+padded to 4, a two-stage copy ring, slots in shared memory, the
+ray-independent terms once per Gaussian on blocks whose rays share an
+origin): K 16 and 32, integer and non-integer exp_power, the backfacing
+gate, ray and Gaussian counts that are not multiples of the block, of 4 or
+of the cluster, blocks of primary rays (one origin) beside padded blocks
+that are not, exact depth ties, Gaussians thin enough that |ld|^2 passes
+2^126 (the walk's division instead of its fast reciprocal), clusters with
+no valid Gaussian and empty list entries, and saturation exits before the first, after the first,
+after a middle and before the last candidate; and the non-fused frame and
+training step on the card against the CPU.  Needs a CUDA card and
 nvcc; every test here skips without a card.  Imports neither jax nor the
 JAX package, so it runs on a machine that has only PyTorch:
 
@@ -27,6 +37,14 @@ from editable_gaussian_reflections_tpu_torch import training as tr
 from editable_gaussian_reflections_tpu_torch.ops import culling
 from editable_gaussian_reflections_tpu_torch.ops.camera_rays import (
     primary_ray_directions,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.layout import (
+    ROW_INV,
+    ROW_MEAN,
+    ROW_OPACITY,
+    ROW_ROT,
+    ROW_SF2,
+    ROW_VALID,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_hits import (
     trace_hits,
@@ -121,6 +139,194 @@ def test_trace_hits_kernel_matches_reference(case, cuda):
         assert a.shape == b.shape, name
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
     assert (out[0] < 1e37).any()
+
+
+def _assert_equal(out, ref):
+    """Kernel outputs (attrs dropped) equal to the plain version's, bit for
+    bit."""
+    out = out[:5] + out[6:]
+    for name, a, b in zip(OUTPUTS[:5] + OUTPUTS[6:], out, ref):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+def _design_inputs(case, device):
+    """(rays_o, rays_d, gpack, candidates, cand_near, call kwargs) of
+    DESIGN[case]."""
+    (mode, kind, K, cluster, n_rays, n_gauss, tile, exp_power,
+     special) = DESIGN[case]
+    gpack, bounds = _gpack(device, 64 if cluster == 64 else 256)
+    gpack = gpack[:, :n_gauss].clone()
+    o, d = _rays(kind, device, n_rays)
+    if special == "ties":
+        # every odd column a copy of its even neighbour (ties inside a group
+        # of 4), and the second half a copy of the first (ties across
+        # clusters, inserted far apart)
+        gpack[:, 1::2] = gpack[:, 0::2]
+        half = n_gauss // 2
+        gpack[:, half:2 * half] = gpack[:, :half]
+    if special == "invalid_cluster":
+        gpack[ROW_VALID, 7 * cluster:8 * cluster] = 0.0
+    if special == "thin":
+        _make_thin(gpack, o, d)
+    gpack = gpack.contiguous()
+    secondary = 0.0 if kind == "primary" else 1.0
+    cands = cnear = None
+    if mode == "culled" and special == "select":
+        cands, cnear, _n, _o, _t = culling.select_candidates(
+            o, d, bounds, 0.0, FAR, tile=tile, max_clusters=24)
+    elif mode == "culled":
+        # hand-made lists: random clusters, the all-invalid cluster 7 in
+        # every list, empty entries (-1) inside the lists, near distances
+        # ascending so that some tiles stop on their K-th hit
+        rng = np.random.default_rng(9)
+        T, mc, nc = n_rays // tile, 20, n_gauss // cluster
+        lists = rng.integers(0, nc, size=(T, mc))
+        lists[:, 3] = 7
+        lists[rng.uniform(size=(T, mc)) < 0.15] = -1
+        near = np.sort(rng.uniform(0.0, 8.0, size=(T, mc)), axis=1)
+        cands = torch.tensor(lists, dtype=torch.int32, device=device)
+        cnear = torch.tensor(near, dtype=torch.float32, device=device)
+    kw = dict(max_hits=K, cluster=cluster, tile=tile,
+              transmittance_threshold=0.01)
+    args = (o, d, gpack, cands, cnear, 0.05 if kind == "primary" else 0.0,
+            FAR, exp_power, secondary, 10.0 if secondary else 0.1, 0.9)
+    return args, kw
+
+
+# Gaussians so thin along the view axis (1 / scale 1e19) that a primary
+# ray's |ld|^2 reaches 2^126, where the walk divides instead of taking its
+# fast reciprocal: placed 0.08-0.3 ahead of the eye on the frame's mean view
+# direction, inside and across groups of 4.  Their products overflow (sq is
+# -inf), so each is hit at t ~ its distance with gaussval 1; a reciprocal
+# flushed to 0 would put t at 0, before the near plane.
+THIN = (1, 2, 5, 6, 7, 8, 300, 301)
+THIN_INV = 1e19
+
+
+def _view_axes(d):
+    """The frame's mean view direction f and two unit axes across it."""
+    f = d.mean(dim=0)
+    f = f / f.norm()
+    u = torch.linalg.cross(f, torch.tensor([0.0, 0.0, 1.0], device=f.device))
+    u = u / u.norm()
+    return f, u, torch.linalg.cross(f, u)
+
+
+def _make_thin(gpack, o, d):
+    f, u, w = _view_axes(d)
+    eye = o[0]
+    for n, k in enumerate(THIN):
+        s = 0.08 + 0.22 * n / (len(THIN) - 1)
+        gpack[ROW_MEAN:ROW_MEAN + 3, k] = eye + s * f
+        for i, axis in enumerate((f, u, w)):        # column i of R: axis i
+            gpack[ROW_ROT + i:ROW_ROT + 9:3, k] = axis
+        gpack[ROW_INV:ROW_INV + 3, k] = torch.tensor([THIN_INV, 2.0, 2.0],
+                                                     device=gpack.device)
+        gpack[ROW_OPACITY, k] = 0.5
+        gpack[ROW_SF2, k] = 1.0
+        gpack[ROW_VALID, k] = 1.0
+
+
+# (mode, rays, K, cluster, ray count, Gaussian count, tile, exp_power,
+# special): brute pads rays to 256 and Gaussians to 256 with invalid columns;
+# culled with a 50-Gaussian cluster stages 52 columns (two invalid) with
+# 4-byte copies; tile 100 leaves a partial warp; backfacing reach 10 on
+# reflected rays
+DESIGN = {
+    "brute_k32_ragged": ("brute", "primary", 32, 256, 1001, 4093, 256, 3.0,
+                         ""),
+    "brute_k16_pow2_5_backfacing": ("brute", "reflected", 16, 256, 777, 4096,
+                                    256, 2.5, ""),
+    "brute_k16_ties": ("brute", "primary", 16, 256, 512, 4096, 256, 2.0,
+                       "ties"),
+    "brute_k32_ties_pow2_5": ("brute", "reflected", 32, 256, 300, 4090, 256,
+                              2.5, "ties"),
+    "culled_k32_c50_tile100": ("culled", "primary", 32, 50, 1000, 4050, 100,
+                               3.0, "invalid_cluster"),
+    "culled_k16_c50_pow2_backfacing": ("culled", "reflected", 16, 50, 1000,
+                                       4050, 200, 2.0, "invalid_cluster"),
+    "culled_k16_c64_select": ("culled", "reflected", 16, 64, 1024, 4096, 128,
+                              2.5, "select"),
+    "brute_k16_thin": ("brute", "primary", 16, 256, 600, 4096, 256, 3.0,
+                       "thin"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DESIGN))
+def test_trace_hits_kernel_design_cases(case, cuda):
+    args, kw = _design_inputs(case, cuda)
+    before = trace_hits.launches
+    out = trace_hits(*args, **kw)
+    torch.cuda.synchronize()
+    assert trace_hits.launches == before + 1
+    ref = trace_hits_reference(*args, **kw)
+    _assert_equal(out, ref)
+    valid = ref[0] < 1e37
+    assert valid.any()
+    if DESIGN[case][8] == "ties":
+        # exact ties among the kept hits
+        t = torch.where(valid, ref[0], torch.nan)
+        assert (t[:, 1:] == t[:, :-1]).any()
+    if DESIGN[case][8] == "thin":
+        # every ray whose |ld|^2 on the thin Gaussians is past 2^126 keeps
+        # them all, which it hits only through the division
+        f, _u, _w = _view_axes(args[1])
+        ll = (THIN_INV * (args[1] @ f)).double() ** 2
+        huge = ll >= 2.0 ** 126
+        assert huge.any()
+        thin = torch.tensor(THIN, device=cuda)
+        kept = (torch.isin(ref[1], thin) & valid).sum(dim=1)
+        assert (kept[huge] == len(THIN)).all()
+
+
+def _one_ray_tiles(o, d, rows, tile):
+    """Rays in tiles of `tile` copies of one ray each: rows[i] for tile i."""
+    idx = torch.tensor(rows, device=o.device).repeat_interleave(tile)
+    return o[idx].contiguous(), d[idx].contiguous()
+
+
+@pytest.mark.parametrize("where", ["before_first", "first_middle_last"])
+def test_trace_hits_saturation_exits(where, cuda):
+    """Culled tiles of one ray each stop on saturation where their lists
+    say: a cluster that saturates the ray alone (heavy) among clusters it
+    misses (light), first, fourth and seventh of 8, and a list of light
+    clusters only; or, at threshold 1, before the first candidate."""
+    gpack, _b = _gpack(cuda, 256)
+    C = 256
+    nc = gpack.shape[1] // C
+    o, d = _rays("primary", cuda, 1280)
+    ray = 16 * 40 + 20                           # near the frame's centre
+    common = (0.05, FAR, 3.0, 0.0, 0.1, 0.9)
+    # this ray's log T over each cluster alone: tile i lists cluster i
+    oo, dd = _one_ray_tiles(o, d, [ray] * nc, C)
+    alone = trace_hits_reference(
+        oo, dd, gpack, torch.arange(nc, dtype=torch.int32,
+                                    device=cuda)[:, None],
+        torch.full((nc, 1), -np.inf, device=cuda), *common,
+        transmittance_threshold=0.0, max_hits=16, cluster=C, tile=C)
+    log_c = alone[5].view(nc, C)[:, 0]
+    heavy = int(torch.argmin(log_c))
+    light = [c for c in range(nc) if log_c[c].item() == 0.0]
+    assert log_c[heavy].item() < -0.5 and light
+    L = light[0]
+    lists = [[heavy] + [L] * 7, [L] * 3 + [heavy] + [L] * 4,
+             [L] * 6 + [heavy, L], [L] * 8]
+    processed = [1, 4, 7, 8]
+    thr = float(np.exp(log_c[heavy].item() / 2))
+    if where == "before_first":
+        thr, processed = 1.0, [0, 0, 0, 0]
+    oo, dd = _one_ray_tiles(o, d, [ray] * len(lists), C)
+    cands = torch.tensor(lists, dtype=torch.int32, device=cuda)
+    cnear = torch.full(cands.shape, -np.inf, device=cuda)
+    kw = dict(transmittance_threshold=thr, max_hits=16, cluster=C, tile=C)
+    out = trace_hits(oo, dd, gpack, cands, cnear, *common, **kw)
+    ref = trace_hits_reference(oo, dd, gpack, cands, cnear, *common, **kw)
+    _assert_equal(out, ref)
+    n_valid = gpack[ROW_VALID].view(nc, C).sum(dim=1)
+    for tile, (lst, n) in enumerate(zip(lists, processed)):
+        want = int(sum(n_valid[c].item() for c in lst[:n]))
+        assert ref[6][tile * C].item() == want, (tile, n)
 
 
 def test_trace_hits_wrapper_checks_inputs(cuda):
