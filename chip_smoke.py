@@ -20,7 +20,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
      render_accumulated_chunked (4 spp in chunks of 2), with the kernel's
      launch count, ms/frame, Mrays/s and the starved fraction.  First the
      kernel and its plain version are compared (tolerances of phase 2) and
-     timed at the shapes of this frame's primary and first reflected pass.
+     timed at the shapes of this frame's primary and first reflected pass,
+     each beside its bound and no-FMA issue floor, with the compiled
+     kernel's registers, spilled bytes, shared memory and resident blocks
+     per SM (K 16 and 32, primary and reflected; what the runtime reports).
      4b: render_culled in groups of 4 (pallas_render_culled_v3's exit, which
      the renderer takes above the resident capacity) on the same primary
      pass: timed, its bound, held against its plain version on the first
@@ -30,7 +33,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
      the Config defaults (K=32, cluster 256, 192 candidates, 8192-ray tiles,
      2 bounces), the step's tiles in the batch the main path launches -
      trace_slots on its primary and first reflected pass, scatter_grads on
-     the hits of all 3 bounces; all timed with CUDA events.  5b: trace_slots
+     the hits of all 3 bounces; all timed with CUDA events, trace_slots
+     beside its bound and no-FMA issue floor, with what the runtime reports
+     of its compiled kernel in both exit modes.  5b: trace_slots
      in exit mode 1 (pallas_trace_slots' pairs, check_every 2) on the same
      primary batch: timed, its bound, held against its plain version on the
      first CHECK_TILES tiles;
@@ -41,7 +46,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
      (seed 0) rendered at 768x768 by render_frame_fused; ms/step, M rays/s,
      l1_diffuse per step, starved fraction, the kernels' launch counts
      against the expected ones, and a profiled step (each kernel's device
-     time and share, device idle share);
+     time and share, device idle share).  Phases 4, 5 and 7 take their
+     frame and step from tools/fused_setup.py, as tools/walk_ab.py and
+     tools/fused_ab.py do;
   8. the scan kernel (render_scan) vs its plain version on the same CUDA
      tensors at 128x128, room_scene(16384): composite_mode scan (direct pair
      math) and scanq (quadric), counters on and off, bf16 attributes; then
@@ -55,7 +62,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      version, the scan (v6) frame, and the k-buffer frame with its
      tonemapped PSNR against scanq; (b) measure_fps() at the Config defaults
      (scanq, cluster 256, 192 candidates, counters off) over 8 views
-     orbiting room_camera, with the kernels' launch counts;
+     orbiting room_camera, with the kernels' launch counts and the scan
+     kernel's ms per pass against its bound, primary and reflected;
  10. the non-fused trace kernel (trace_hits) vs its plain version at 128x128,
      room_scene(16384), on the renderer's own passes: brute and culled,
      primary and reflected, and a brute pass of a ragged ray count (1000);
@@ -186,15 +194,10 @@ from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
     RenderSettings,
     StepOutputs,
     TileSamples,
-    _prepare_fused_frame,
-    bounce_epilogue,
     draw_samples,
     draw_tile_samples,
     full_f32_matmuls,
-    fused_forward,
     hit_grads,
-    kernel_call,
-    padded_ray_count,
     render_accumulated_chunked,
     render_frame,
     render_frame_fused,
@@ -207,6 +210,19 @@ from editable_gaussian_reflections_tpu_torch.scene.cameras import Camera
 from editable_gaussian_reflections_tpu_torch.tools import (
     bench_v5,
     bench_vpu_dtype,
+)
+from editable_gaussian_reflections_tpu_torch.tools.fused_setup import (
+    TRAIN_H,
+    TRAIN_W,
+    device_time_us,
+    eval_frame,
+    first_two_passes,
+    profile_device,
+    time_frames,
+    time_steps,
+)
+from editable_gaussian_reflections_tpu_torch.tools.fused_setup import (
+    training_step as fused_training_step,
 )
 from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
     FRAME_KW,
@@ -257,8 +273,8 @@ BENCH_SETTINGS = SETTINGS._replace(secondary_throughput_threshold=1e-3)
 # the fast path's frame and scene (bench.py's): 800x800, room_scene(100_000)
 FAST_SIZE, FAST_N = 800, 100_000
 N_FPS_VIEWS = 8
-# the training step's configuration: the Config defaults train.py uses
-TRAIN_W = TRAIN_H = 768
+# the training step's configuration (tools/fused_setup.py): the Config
+# defaults train.py uses
 N_TIMED_STEPS = 3
 # the non-fused path: its frame, scenes and configurations are
 # tools/nonfused_setup.py's
@@ -286,45 +302,6 @@ MIX_SHAPE, MIX_REPS, MIX_ITERS = (256, 512), 512, 20
 # the slot sort's large case: the eval render's rays, K 32, the Pallas
 # test's 5 auxiliary blocks
 SORT_RAYS, SORT_K, SORT_AUX = 655_360, 32, 5
-
-
-def first_two_passes(scene, camera, width, height, samples,
-                     frame_kw=FRAME_KW, settings=SETTINGS):
-    """The render kernel calls (KernelCall) of bounces 0 and 1 of a frame
-    rendered with render_frame_fused's keywords `frame_kw`, built by the
-    renderer's own helpers (bounce 1 = reflected rays and alive mask)."""
-    kw = dict(frame_kw)
-    mode = kw.pop("composite_mode", "kbuffer")
-    cluster, mc = kw["cull_cluster"], kw["max_clusters"]
-    mcs = kw.get("max_clusters_secondary")
-    tile_s = kw.get("cull_tile_secondary", 256)
-    prep = _prepare_fused_frame(scene, camera, settings, samples, width,
-                                height, jitter=True, cull_cluster=cluster,
-                                cull_tile_primary=256, num_steps=3,
-                                composite_mode=mode)
-    R = prep["R"]
-    Rp = padded_ray_count(R, mc, mcs, 256, tile_s, composite_mode=mode)
-    dirs = torch.cat([prep["dirs"], prep["dirs"][:Rp - R]])
-    us = torch.cat([prep["us"], prep["us"][:, :Rp - R]], dim=1)
-    rays_o = camera.origin.expand(Rp, 3)
-    alive = torch.ones((Rp,), dtype=torch.bool, device=dirs.device)
-    throughput = torch.ones((Rp, 3), device=dirs.device)
-    common = (prep["gpack"], prep["bounds"], prep["scene_lo"],
-              prep["scene_hi"], settings, ZNEAR, ZFAR)
-    pass_kw = dict(capacity=scene.capacity, max_hits=kw["max_hits"],
-                   exp_power_static=3.0, cull_cluster=cluster,
-                   max_clusters=mc, max_clusters_secondary=mcs,
-                   cull_tile_secondary=tile_s, cull_tile_primary=256,
-                   scan=prep["scan"],
-                   kernel_stats=kw.get("kernel_stats", True),
-                   attr_precision=kw.get("attr_precision", "highest"))
-    call0 = kernel_call(rays_o, dirs, alive, 0, *common, **pass_kw)
-    out0 = call0.kernel(*call0.args, **call0.kwargs)
-    _, (o1, d1, _t1, al1) = bounce_epilogue(out0, call0, rays_o, dirs,
-                                            throughput, alive, us[0], 0,
-                                            settings, ZFAR)
-    call1 = kernel_call(o1, d1, al1, 1, *common, **pass_kw)
-    return call0, call1
 
 
 def first_tiles(call, n_tiles: int, ray_pos=(0, 1), cand_pos=(3, 4)):
@@ -415,13 +392,6 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
-
-
-def device_time_us(event) -> float:
-    # renamed from self_cuda_time_total in recent PyTorch releases
-    if hasattr(event, "self_device_time_total"):
-        return event.self_device_time_total
-    return event.self_cuda_time_total
 
 
 def bound(flops: float, peak_flops: float, nbytes: float) -> tuple:
@@ -733,8 +703,9 @@ def phase_fast_path(dev, record, smi) -> dict:
           f"{n['primary_ms']:.3f} ms (bound {n['primary_bound_ms']:.3f} ms "
           f"by {n['primary_bound_by']}, plain {n['primary_plain_ms']:.1f} "
           f"ms, max_abs_err {n['primary_compare']['max_abs_err']:.3g}), "
-          f"reflected {n['reflected_ms']:.3f} ms (plain "
-          f"{n['reflected_plain_ms']:.1f} ms, max_abs_err "
+          f"reflected {n['reflected_ms']:.3f} ms (bound "
+          f"{n['reflected_bound_ms']:.3f} ms by {n['reflected_bound_by']}, "
+          f"plain {n['reflected_plain_ms']:.1f} ms, max_abs_err "
           f"{n['reflected_compare']['max_abs_err']:.3g}) [{smi}]",
           flush=True)
     res["max_abs_err"] = max(
@@ -865,29 +836,27 @@ def phase_trace_small(dev, record) -> None:
     # what the runtime reports of the kernels the main paths launch (exp
     # power 3, 256-ray blocks, 256-Gaussian clusters; primary passes, and
     # reflected ones with the backfacing test)
-    info = {f"K{k} {name}": kernel_info(k, backfacing=name == "reflected")
-            for k in (16, 32) for name in ("primary", "reflected")}
-    record["trace_hits_kernel"] = info
-    print("phase 10: trace_hits kernel at tile 256, cluster 256: " + "; ".join(
+    record["trace_hits_kernel"] = info = walk_kernel_info("trace_hits")
+    print_kernel_info("phase 10", "trace_hits", info)
+
+
+def walk_kernel_info(kernel: str, exit_modes=(0,)) -> dict:
+    """What the runtime reports of a kernel on the k-buffer walk
+    (kernel_info) as the main paths launch it: exp power 3, 256-ray blocks,
+    256-Gaussian clusters, K 16 and 32, primary passes and reflected ones
+    (the backfacing test), each exit mode."""
+    return {f"K{k} {name}" + (f" exit {m}" if len(exit_modes) > 1 else ""):
+            kernel_info(k, backfacing=name == "reflected", kernel=kernel,
+                        exit_mode=m)
+            for k in (16, 32) for name in ("primary", "reflected")
+            for m in exit_modes}
+
+
+def print_kernel_info(where: str, kernel: str, info: dict) -> None:
+    print(f"{where}: {kernel} kernel at tile 256, cluster 256: " + "; ".join(
         f"{k}: {v['registers']} registers, {v['local_bytes']} B spilled, "
         f"{v['smem_bytes']} B shared, {v['blocks_per_sm']} blocks per SM"
         for k, v in info.items()), flush=True)
-
-
-def profile_device(fn) -> tuple:
-    """(host ms, {kernel: device ms}) of one profiled call of fn."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            by_kernel[e.key] = device_time_us(e) / 1e3
-    return host_ms, by_kernel
 
 
 def phase_nonfused_render(dev, record, smi) -> dict:
@@ -924,7 +893,7 @@ def phase_nonfused_render(dev, record, smi) -> dict:
             and final.mean().item() > 0.0):
         raise RuntimeError("phase 11: bad frame")
     starved = steps.overflow.mean().item()
-    host_ms, by_kernel = profile_device(lambda: dispatch_render_frame(
+    host_ms, by_kernel, _ = profile_device(lambda: dispatch_render_frame(
         scene, camera, SETTINGS, gen, W, H, **kw))
     device_ms = sum(by_kernel.values())
     kernel_ms = sum(v for k, v in by_kernel.items()
@@ -1020,7 +989,7 @@ def phase_nonfused_step(dev, record, smi) -> dict:
     if not (all(map(math.isfinite, l1s)) and state_finite(st)):
         raise RuntimeError(f"phase 12: non-finite step: l1 {l1s}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    host_ms, by_kernel = profile_device(lambda: step(st))
+    host_ms, by_kernel, _ = profile_device(lambda: step(st))
     device_ms = sum(by_kernel.values())
     kernel_ms = sum(v for k, v in by_kernel.items()
                     if "trace_hits_kernel" in k)
@@ -1449,11 +1418,9 @@ def main() -> None:
           flush=True)
 
     # -- phase 4: the eval render at full size ------------------------------
-    W = H = 800
-    scene, camera = room(100_000, dev)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    call0, call1 = first_two_passes(scene, camera, W, H,
-                                    draw_samples(gen, W, H, 3))
+    e = eval_frame(dev)
+    W, H, scene, camera = e.W, e.H, e.scene, e.camera
+    call0, call1 = e.calls
     kernel_ms = cuda_ms(lambda: render_culled(*call0.args, **call0.kwargs),
                         reps=10)
     kernel_ms_reflected = cuda_ms(
@@ -1527,24 +1494,11 @@ def main() -> None:
     del out4, ref4
 
     render_culled.launches = 0
-    frame_kw = dict(num_bounces=2, **FRAME_KW)
-    steps, final = dispatch_render_frame(scene, camera, SETTINGS, gen, W, H,
-                                         **frame_kw)             # warm-up
-    torch.cuda.synchronize()
     n_timed = 3
-    t0 = time.perf_counter()
-    for _ in range(n_timed):
-        steps, final = dispatch_render_frame(scene, camera, SETTINGS, gen, W,
-                                             H, **frame_kw)
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) / n_timed * 1e3
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        dispatch_render_frame(scene, camera, SETTINGS, gen, W, H, **frame_kw)
-        torch.cuda.synchronize()
+    frames = time_frames(e, n_timed)
+    steps, final, frame_ms = frames.steps, frames.final, frames.ms
     acc_steps, acc_final = render_accumulated_chunked(
-        scene, camera, SETTINGS, 0, W, H, spp=4, spp_chunk=2, **frame_kw)
+        scene, camera, SETTINGS, 0, W, H, spp=4, spp_chunk=2, **e.frame_kw)
     launches = render_culled.launches
     expected = 3 * (1 + n_timed + 1 + 4)
     if launches != expected:
@@ -1558,10 +1512,7 @@ def main() -> None:
     if not all(torch.isfinite(a).all() for a in (*steps, *acc_steps)):
         raise RuntimeError("phase 4: non-finite step outputs")
 
-    by_kernel = {}  # device-side events only (kernels and copies)
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            by_kernel[e.key] = device_time_us(e) / 1e3
+    by_kernel = frames.by_kernel  # device-side events (kernels, copies)
     device_ms = sum(by_kernel.values())
     render_ms = sum(v for k, v in by_kernel.items()
                     if "render_culled_kernel" in k)
@@ -1593,54 +1544,33 @@ def main() -> None:
         phase4["primary"]["flops"], PEAK_FP32,
         nbytes(*call0.args[:5], call0.kwargs["alive"]) + nbytes(
             torch.empty((call0.args[0].shape[0], 16))))
-    record.update(render_culled_bound_ms=rc_bound_ms)
-    del scene, steps, final, acc_steps, acc_final, call0, call1, prof
+    # the same for the reflected pass, and the no-FMA issue floor of both:
+    # built without contraction, each flop issues on its own
+    rc_bound_r_ms, rc_bound_r_by = bound(
+        phase4["reflected"]["flops"], PEAK_FP32,
+        nbytes(*call1.args[:5], call1.kwargs["alive"]) + nbytes(
+            torch.empty((call1.args[0].shape[0], 16))))
+    rc_floor = {name: v["flops"] / FP32_LANES_S * 1e3
+                for name, v in phase4.items()}
+    record.update(render_culled_bound_ms=rc_bound_ms,
+                  render_culled_reflected_bound_ms=rc_bound_r_ms,
+                  render_culled_floor_ms=rc_floor)
+    print(f"phase 4: render_culled's bound: primary {rc_bound_ms:.3f} ms by "
+          f"{rc_bound_by}, reflected {rc_bound_r_ms:.3f} ms by "
+          f"{rc_bound_r_by}; no-FMA issue floor {rc_floor['primary']:.3f} / "
+          f"{rc_floor['reflected']:.3f} ms", flush=True)
+    record["render_culled_kernel"] = info = walk_kernel_info("render_culled")
+    print_kernel_info("phase 4", "render_culled", info)
+    del e, scene, steps, final, acc_steps, acc_final, call0, call1, frames
     torch.cuda.empty_cache()
 
     # -- phase 5: the training kernels vs plain, at the step's shapes -------
-    cfg = Config()
-    settings = tr.settings_from_config(cfg)
-    num_bounces, K = 2, cfg.max_hits
-    tile = tr.pick_tile_size(TRAIN_W * TRAIN_H, cfg.ray_tile)
-    step_kw = dict(num_bounces=num_bounces, max_hits=K,
-                   chunk=cfg.trace_chunk, tile=tile, use_pallas=True,
-                   exp_power_static=float(cfg.exp_power), use_culling=True,
-                   cull_tile=cfg.cull_tile, cull_cluster=cfg.cull_cluster,
-                   max_clusters=cfg.max_clusters)
-    # targets: the G-buffers of the seed-0 room, rendered by the port
-    scene_t, camera = room(TRAIN_N, dev, seed=0)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    gb, _ = render_frame_fused(scene_t, camera, settings, gen, TRAIN_W,
-                               TRAIN_H, num_bounces=2, **FRAME_KW)
-    targets = RayTargets(diffuse=gb.rgb[0], specular=gb.rgb[1] + gb.rgb[2],
-                         depth=gb.depth[0], normal=gb.normal[0],
-                         roughness=gb.roughness[0], f0=gb.f0[0])
-    del scene_t, gb
-    scene0, _ = room(TRAIN_N, dev, seed=1)
-    state = tr.init_train_state(scene0)
-    cap = scene0.capacity
-    lrs = tr.lr_tree(cfg, 1, 1.0)
-    hyper = dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
-                 scale_decay=cfg.scale_decay, apply_grads=1.0)
-    prep = tr.prepare_step(
-        state, camera, targets, settings, gen, TRAIN_W, TRAIN_H,
-        num_bounces, tile, True, True, True, cfg.cull_tile, cfg.cull_cluster,
-        cfg.max_clusters)
-    n_tiles = prep["dirs_t"].shape[0]
-    tiles_per_launch = tr.tiles_per_launch_for(n_tiles, tile,
-                                               num_bounces + 1, K, dev)
-    # the first batch of tiles the main path launches
-    rays_o, rays_d, targets_b, us = tr.tile_batch(
-        camera.origin, prep["dirs_t"], prep["targets_t"], prep["us_t"], 0,
-        tiles_per_launch)
-    cull = prep["culling"]
-    steps5, _final, residuals, calls = fused_forward(
-        rays_o, rays_d, settings, camera.znear, camera.zfar, us, num_bounces,
-        K, gpack=prep["gpack"], table=cull["table"], ftable=cull["ftable"],
-        bounds=cull["bounds"], cull_tile=cfg.cull_tile,
-        cull_cluster=cfg.cull_cluster, max_clusters=cfg.max_clusters,
-        n_capacity=cap, exp_power_static=float(cfg.exp_power),
-        tile_rays=tile)
+    t = fused_training_step(dev)
+    cfg, settings, num_bounces, K = t.cfg, t.settings, t.num_bounces, t.K
+    tile, step_kw, cap = t.tile, t.step_kw, t.capacity
+    lrs, hyper = t.lrs, t.hyper
+    n_tiles, tiles_per_launch = t.n_tiles, t.tiles_per_launch
+    calls = t.calls
     phase5 = {}
     for name, call in (("primary", calls[0]), ("reflected", calls[1])):
         k_ms = cuda_ms(lambda: trace_slots(*call.args, **call.kwargs),
@@ -1654,12 +1584,13 @@ def main() -> None:
         cmp = compare_slots(out, acc, ref, ref_acc, K)
         check_lanes(f"phase 5 trace_slots {name}", cmp)
         n_pairs = acc[:, 1].sum().item()
-        b_ms, b_by = bound(walk_flops(call.args[0], acc[:, 1],
-                                      call.kwargs["tile"]), PEAK_FP32,
+        flops = walk_flops(call.args[0], acc[:, 1], call.kwargs["tile"])
+        b_ms, b_by = bound(flops, PEAK_FP32,
                            nbytes(*call.args[:7], call.kwargs["alive"],
                                   out, acc))
         phase5[name] = dict(cmp, ms=k_ms, plain_ms=plain, pairs=n_pairs,
                             bound_ms=b_ms, bound_by=b_by,
+                            floor_ms=flops / FP32_LANES_S * 1e3,
                             rays=call.args[0].shape[0])
         del out, acc, ref, ref_acc
 
@@ -1695,9 +1626,10 @@ def main() -> None:
           flush=True)
     del out, acc, ref, ref_acc, call
     del calls
-    payload, ids = hit_grads(steps5, residuals, targets_b, settings,
+    t.calls = None
+    payload, ids = hit_grads(t.steps, t.residuals, t.targets_b, settings,
                              num_bounces, cap)
-    del steps5, residuals
+    t.steps = t.residuals = t.targets_b = None
     acc_k = scatter_add(new_grad_accumulator(cap, dev), payload, ids)
     acc_r = scatter_add_reference(new_grad_accumulator(cap, dev), payload,
                                   ids)
@@ -1733,11 +1665,15 @@ def main() -> None:
           f"{n_tiles} {tile}-ray tiles, capacity {cap}, K={K}, mc "
           f"{cfg.max_clusters}): " + "; ".join(
               f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.1f} ms, bound "
-              f"{v['bound_ms']:.3f} ms by {v['bound_by']}, max_abs_err "
+              f"{v['bound_ms']:.3f} ms by {v['bound_by']}, no-FMA issue "
+              f"floor {v['floor_ms']:.3f} ms, max_abs_err "
               f"{v['max_abs_err']:.3g}, ids+counters equal on "
               f"{v['counters_equal']:.4%} of rays)"
               for k, v in phase5.items() if k in ("primary", "reflected"))
           + f" [{smi}]", flush=True)
+    record["trace_slots_kernel"] = info = walk_kernel_info("trace_slots",
+                                                           (0, 1))
+    print_kernel_info("phase 5", "trace_slots", info)
     print(f"phase 5: scatter_grads on all 3 bounces' hits "
           f"({phase5['scatter']['rows']} slots, "
           f"{phase5['scatter']['hits']} hits): {sc_ms:.3f} ms (plain "
@@ -1774,23 +1710,13 @@ def main() -> None:
     del small
 
     # -- phase 7: the full-width training step -----------------------------
-    def step(st):
-        return tr.train_step(st, camera, targets, settings, lrs, hyper, gen,
-                             TRAIN_W, TRAIN_H, **step_kw)
+    def reset():
+        trace_slots.launches = scatter_add.launches = 0
 
-    torch.cuda.reset_peak_memory_stats()
-    st, _m = step(state)                                         # warm-up
-    torch.cuda.synchronize()
-    trace_slots.launches = scatter_add.launches = 0
-    l1s, starved_fr = [], []
-    t0 = time.perf_counter()
-    for _ in range(N_TIMED_STEPS):
-        st, m = step(st)
-        l1s.append(m["l1_diffuse"])
-        starved_fr.append(m["starved"])
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / N_TIMED_STEPS * 1e3
-    launches_ts, launches_sc = trace_slots.launches, scatter_add.launches
+    run = time_steps(t, N_TIMED_STEPS, reset=reset, count=lambda: (
+        trace_slots.launches, scatter_add.launches))
+    step_ms, l1s, starved_fr = run.ms, run.l1s, run.starved
+    launches_ts, launches_sc = run.launches
     n_batches = -(-n_tiles // tiles_per_launch)
     expected_ts = N_TIMED_STEPS * n_batches * (num_bounces + 1)
     expected_sc = N_TIMED_STEPS * n_batches
@@ -1798,22 +1724,12 @@ def main() -> None:
         raise RuntimeError(f"phase 7: trace_slots/scatter_grads launched "
                            f"{launches_ts}/{launches_sc} times, expected "
                            f"{expected_ts}/{expected_sc}")
-    if not state_finite(st):
+    if not state_finite(run.timed_state):
         raise RuntimeError("phase 7: non-finite training state")
-    l1s = [x.item() for x in l1s]
-    starved_fr = [x.item() for x in starved_fr]
     if not all(map(math.isfinite, l1s)):
         raise RuntimeError(f"phase 7: non-finite l1_diffuse {l1s}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        st, _m = step(st)
-        torch.cuda.synchronize()
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            by_kernel[e.key] = device_time_us(e) / 1e3
+    peak_gb = run.peak_gb
+    by_kernel = run.by_kernel
     dev_ms = sum(by_kernel.values())
     ts_ms = sum(v for k, v in by_kernel.items() if "trace_slots_kernel" in k)
     sa_ms = sum(v for k, v in by_kernel.items() if "scatter_add_kernel" in k)
@@ -1842,7 +1758,7 @@ def main() -> None:
           f"{expected_ts}, {expected_sc}) [{smi}]", flush=True)
     for k, v in top[:8]:
         print(f"phase 7:   {v:9.2f} ms  {k[:90]}", flush=True)
-    del st, state, targets, prep, cull, prof
+    del t, run
     torch.cuda.empty_cache()
 
     phase_scan_small(dev, record)
@@ -1872,6 +1788,16 @@ def main() -> None:
         "bound_ms": rc_bound_ms,
         "bound_by": rc_bound_by,
         "library_ms": None,
+        "floor_ms": rc_floor["primary"],
+        "reflected_ms": kernel_ms_reflected,
+        "reflected_plain_ms": phase4["reflected"]["plain_ms"],
+        "reflected_bound_ms": rc_bound_r_ms,
+        "reflected_floor_ms": rc_floor["reflected"],
+        # registers and blocks per SM of the launched kernel (phase 4)
+        "registers": {k: v["registers"] for k, v in
+                      record["render_culled_kernel"].items()},
+        "blocks_per_sm": {k: v["blocks_per_sm"] for k, v in
+                          record["render_culled_kernel"].items()},
         # the same kernel as pallas_render_culled_v5's port, on the bench_v5
         # twin's run (phase 14; v4 and v5 rows), times at V5_CFG's primary
         "bench_v5_launches": v5["launches"]["render_culled"],
@@ -1893,6 +1819,19 @@ def main() -> None:
         "bound_ms": phase5["primary"]["bound_ms"],
         "bound_by": phase5["primary"]["bound_by"],
         "library_ms": None,
+        "floor_ms": phase5["primary"]["floor_ms"],
+        "reflected_ms": phase5["reflected"]["ms"],
+        "reflected_plain_ms": phase5["reflected"]["plain_ms"],
+        "reflected_bound_ms": phase5["reflected"]["bound_ms"],
+        "reflected_floor_ms": phase5["reflected"]["floor_ms"],
+        # exit mode 1 on the primary batch (phase 5b)
+        "exit_mode_1_ms": phase5["exit_mode_1"]["ms"],
+        "exit_mode_1_bound_ms": phase5["exit_mode_1"]["bound_ms"],
+        # registers and blocks per SM of the launched kernel (phase 5)
+        "registers": {k: v["registers"] for k, v in
+                      record["trace_slots_kernel"].items()},
+        "blocks_per_sm": {k: v["blocks_per_sm"] for k, v in
+                          record["trace_slots_kernel"].items()},
     }, {
         "name": "scatter_grads",
         "route": "cuda",
@@ -1919,6 +1858,8 @@ def main() -> None:
         "bound_ms": fast["fps"]["scanq"]["primary_bound_ms"],
         "bound_by": fast["fps"]["scanq"]["primary_bound_by"],
         "library_ms": None,
+        "reflected_ms": fast["fps"]["scanq"]["reflected_ms"],
+        "reflected_bound_ms": fast["fps"]["scanq"]["reflected_bound_ms"],
         # the same kernel at bench.py's configuration (phase 9a)
         "bench_ms": fast["bench"]["scanq"]["primary_ms"],
         "direct_ms": fast["bench"]["scan"]["primary_ms"],

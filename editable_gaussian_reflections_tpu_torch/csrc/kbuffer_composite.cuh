@@ -1,13 +1,10 @@
-// kbuffer_composite.cuh - the epilogue of a k-buffer render: sort the K
-// kept hits, composite them front to back with the truncated-tail
+// kbuffer_composite.cuh - the epilogue of a k-buffer render: composite the
+// K kept hits, in (t, id) order, front to back with the truncated-tail
 // correction, and write the [OUT_LANES] row of the ray.  Used by
-// render_table.cu (attributes from an [N, TABLE_A] table) and by the
-// measurement kernel tools/grouped_walk.cu (attributes from the gpack
-// rows).
-//
-// render_culled.cu holds the same code inline; it keeps its own copy so
-// that its compiled walk stays as measured (moving it here is an edit of
-// that kernel and owes a tools/walk_ab.py A/B).  Keep the two in step.
+// render_culled.cu (kept hits in the walk's shared-memory slot columns,
+// alpha recomputed per hit, attributes from the gpack rows), render_table.cu
+// (kept hits in registers, attributes from an [N, TABLE_A] table) and the
+// measurement kernel tools/grouped_walk.cu (registers, gpack rows).
 //
 // Numerics (ops/precision.py): log1p and exp in float64, the transmittance
 // prefix, the weights and every sum in float64, each lane rounded once.
@@ -32,14 +29,18 @@ constexpr int OUT_TRAV = 14;
 constexpr int OUT_CHUNKS = 15;
 constexpr int OUT_LANES = 16;
 
-// attr(a, id): attribute a (0-9) of Gaussian id, as a float.
-template <int K, class Attr>
-__device__ __forceinline__ void composite_slots(float (&st)[K], float (&sa)[K],
-                                                int (&sid)[K], double log_t,
-                                                float trav, float chunks,
-                                                float thr, float eps_norm,
+// The kept hits through accessors, so that they may live in registers or in
+// shared memory: hit(i, t, id) sets the i-th kept hit in (t, id) order (the
+// caller sorts; t = INF where the slot is empty), alpha(i, id) gives its
+// opacity (asked for kept hits only), attr(a, id) attribute a (0-9) of
+// Gaussian id, as a float.
+template <int K, class Hit, class Alpha, class Attr>
+__device__ __forceinline__ void composite_slots(const Hit& hit,
+                                                const Alpha& alpha,
+                                                double log_t, float trav,
+                                                float chunks, float thr,
+                                                float eps_norm,
                                                 const Attr& attr, float* o) {
-  sort_slots<K>(st, sa, sid);
   double front = 0.0, sum_la = 0.0, depth = 0.0;
   double acc[NUM_ATTR];
 #pragma unroll
@@ -47,17 +48,20 @@ __device__ __forceinline__ void composite_slots(float (&st)[K], float (&sa)[K],
   float num_acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    if (st[i] < INF) {
-      const double la = log1p((double)(-sa[i]));
+    float t;
+    int id;
+    hit(i, t, id);
+    if (t < INF) {
+      const float a_i = alpha(i, id);
+      const double la = log1p((double)(-a_i));
       const float t_before = (float)exp(front);
       if (t_before >= thr) {  // prefix-closed: T only falls
-        const double w = (double)t_before * (double)sa[i];
+        const double w = (double)t_before * (double)a_i;
         sum_la += la;
-        depth += w * (double)st[i];
+        depth += w * (double)t;
         num_acc += 1.0f;
 #pragma unroll
-        for (int a = 0; a < NUM_ATTR; ++a)
-          acc[a] += w * (double)attr(a, sid[i]);
+        for (int a = 0; a < NUM_ATTR; ++a) acc[a] += w * (double)attr(a, id);
       }
       front += la;
     }

@@ -49,9 +49,14 @@ __global__ void render_table_kernel(TraceParams p, const float* table,
   double log_t;
   float trav, chunks;
   trace_tile<K, CUBE>(p, sg, st, sa, sid, log_t, trav, chunks);
+  sort_slots<K>(st, sa, sid);
   // table columns 0-9 are rgb, normal, f0, roughness: the lane order
   composite_slots<K>(
-      st, sa, sid, log_t, trav, chunks, thr, eps_norm,
+      [&](int i, float& t, int& id) {
+        t = st[i];
+        id = sid[i];
+      },
+      [&](int i, int) { return sa[i]; }, log_t, trav, chunks, thr, eps_norm,
       [&](int a, int id) { return table[(size_t)id * TABLE_A + a]; },
       out + (size_t)r * OUT_LANES);
 }

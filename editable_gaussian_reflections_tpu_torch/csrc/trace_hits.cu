@@ -10,18 +10,18 @@
 // PyTorch version of the same contract is trace_hits_reference in
 // ops/cuda/trace_hits.py.
 //
-// Design.  The walk is csrc/trace_hits_walk.cuh, this kernel's own (it
-// replaced the walk of trace_tile.cuh, which the render and slots kernels
-// keep): one block per ray tile, one thread per ray, clusters streamed
-// through a two-stage cp.async ring and traced four Gaussians a step (one
-// float4 shared-memory load per row for all four), the kept hits (t, id) in
-// a per-thread column of shared memory, so that two 256-ray blocks share an
-// SM at K 32 (one did with trace_tile.cuh's walk, at 158-164 registers),
-// the reciprocal of the pair math without a branch per pair, and on blocks
-// whose rays share an origin the ray-independent terms computed once per
-// Gaussian.  Kernels are instantiated per K (16, 32), exponent (3 spelled
-// out, or general) and pass (backfacing test on reflected passes).  The two
-// Pallas kernels map onto it:
+// Design.  The walk is csrc/trace_hits_walk.cuh, written for this kernel
+// and shared since with the render and slots kernels: one block per ray
+// tile, one thread per ray, clusters streamed through a two-stage cp.async
+// ring and traced four Gaussians a step (one float4 shared-memory load per
+// row for all four), the kept hits (t, id) in a per-thread column of shared
+// memory, so that two 256-ray blocks share an SM at K 32 (one did with
+// trace_tile.cuh's walk, at 158-164 registers), the reciprocal of the pair
+// math without a branch per pair, and on blocks whose rays share an origin
+// the ray-independent terms computed once per Gaussian.  Kernels are
+// instantiated per K (16, 32), exponent (3 spelled out, or general) and pass
+// (backfacing test on reflected passes).  The two Pallas kernels map onto
+// it:
 //   culled  an exit vote before every candidate: the tile stops once each
 //           ray is saturated or has its K-th hit before the candidate's near
 //           distance.  pallas_trace_culled_fused skips the rest instead of
@@ -66,25 +66,6 @@ namespace {
 
 using namespace egr_hits;
 
-// Sort the kept hits by (t, id): odd-even transposition over registers.
-template <int K>
-__device__ __forceinline__ void sort_hits(float (&st)[K], int (&sid)[K]) {
-#pragma unroll
-  for (int pass = 0; pass < K; ++pass) {
-#pragma unroll
-    for (int i = pass & 1; i + 1 < K; i += 2) {
-      if (st[i] > st[i + 1] || (st[i] == st[i + 1] && sid[i] > sid[i + 1])) {
-        const float t = st[i];
-        const int id = sid[i];
-        st[i] = st[i + 1];
-        sid[i] = sid[i + 1];
-        st[i + 1] = t;
-        sid[i + 1] = id;
-      }
-    }
-  }
-}
-
 template <int K, bool CUBE, bool BACKFACING>
 __global__ void __launch_bounds__(MAX_TILE)
     trace_hits_kernel(HitsParams p, float* t_out, int* id_out,
@@ -92,20 +73,13 @@ __global__ void __launch_bounds__(MAX_TILE)
                       float* local_hit_out, float* log_t_out, int* trav_out) {
   extern __shared__ __align__(16) float smem[];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  Ray ray;
-  ray.ox = p.rays_o[3 * r];
-  ray.oy = p.rays_o[3 * r + 1];
-  ray.oz = p.rays_o[3 * r + 2];
-  ray.dx = p.rays_d[3 * r];
-  ray.dy = p.rays_d[3 * r + 1];
-  ray.dz = p.rays_d[3 * r + 2];
-  ray.live = p.alive[r] > 0.0f;
-  ray.near = ray.live ? p.near : __int_as_float(0x7f800000);
+  const Ray ray = load_ray<false>(p, r);
   float* col_t;
   int* col_id;
   double log_t;
-  float trav;
-  walk_hits<K, CUBE, BACKFACING>(p, smem, ray, col_t, col_id, log_t, trav);
+  float trav, chunks;
+  walk_hits<K, CUBE, BACKFACING, /*EXIT=*/0, /*CHUNKS=*/false>(
+      p, smem, ray, col_t, col_id, log_t, trav, chunks);
 
   float st[K];
   int sid[K];
@@ -116,50 +90,18 @@ __global__ void __launch_bounds__(MAX_TILE)
   }
   sort_hits<K>(st, sid);
 
-  const float k2 = 2.0f * p.exp_power;
   const size_t row = (size_t)r * K;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     float gaussval = 0.0f, alpha = 0.0f, lh[3] = {0.0f, 0.0f, 0.0f};
     const bool v = st[s] < INF;
     if (v) {
-      const int id = sid[s];
-#define G(row) p.gpack[(size_t)(row) * p.n_gauss + id]
-      const float rx = ray.ox - G(ROW_MEAN);
-      const float ry = ray.oy - G(ROW_MEAN + 1);
-      const float rz = ray.oz - G(ROW_MEAN + 2);
-      float lo[3], ld[3];
+      const KeptHit h = kept_hit<CUBE>(p, ray, sid[s]);
+      gaussval = h.gaussval;
+      alpha = h.alpha;
+      const float sf = (float)sqrt((double)fmaxf(h.sf2, 0.0f));
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float r0 = G(ROW_ROT + i), r1 = G(ROW_ROT + 3 + i),
-                    r2 = G(ROW_ROT + 6 + i);
-        const float inv = G(ROW_INV + i);
-        lo[i] = inv * (r0 * rx + r1 * ry + r2 * rz);
-        ld[i] = inv * (r0 * ray.dx + r1 * ray.dy + r2 * ray.dz);
-      }
-      const float dot_ol = lo[0] * ld[0] + lo[1] * ld[1] + lo[2] * ld[2];
-      const float dot_ll = ld[0] * ld[0] + ld[1] * ld[1] + ld[2] * ld[2];
-      const float dot_oo = lo[0] * lo[0] + lo[1] * lo[1] + lo[2] * lo[2];
-      const float inv_ll = 1.0f / fmaxf(dot_ll, 1e-30f);
-      const float sq = dot_oo - dot_ol * dot_ol * inv_ll;
-      const float sf2 = G(ROW_SF2);
-      const float opacity = G(ROW_OPACITY);
-#undef G
-      const float sqs = fmaxf(sq * sf2, 0.0f);
-      float powered;
-      if (CUBE) {
-        powered = sqs * sqs * sqs;
-      } else if (p.int_power > 0) {
-        powered = sqs;
-        for (int e = 1; e < p.int_power; ++e) powered = powered * sqs;
-      } else {
-        powered = (float)pow((double)sqs, (double)p.exp_power);
-      }
-      gaussval = (float)exp((double)(-powered / k2));
-      alpha = MAX_ALPHA * gaussval * opacity;
-      const float sf = (float)sqrt((double)fmaxf(sf2, 0.0f));
-#pragma unroll
-      for (int i = 0; i < 3; ++i) lh[i] = sf * (lo[i] + st[s] * ld[i]);
+      for (int i = 0; i < 3; ++i) lh[i] = sf * (h.lo[i] + st[s] * h.ld[i]);
     }
     t_out[row + s] = st[s];
     id_out[row + s] = v ? sid[s] : 0;
@@ -170,20 +112,6 @@ __global__ void __launch_bounds__(MAX_TILE)
   }
   log_t_out[r] = (float)log_t;
   trav_out[r] = (int)trav;
-}
-
-// Let the kernel take `smem` bytes of dynamic shared memory, and the SM
-// give shared memory all of its carveout: two blocks of 256 rays at K 32
-// take 2 x 108 KB.
-template <class Kernel>
-cudaError_t set_smem(Kernel kernel, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  return err;
 }
 
 template <int K, bool CUBE, bool BACKFACING>
@@ -208,7 +136,9 @@ cudaError_t launch_k(const HitsParams& p, float* t_out, int* id_out,
                      float* alpha_out, float* gaussval_out,
                      float* local_hit_out, float* log_t_out, int* trav_out,
                      int n_tiles, int tile, cudaStream_t s) {
-  const bool cube = p.int_power == 3, backfacing = p.secondary > 0.0f;
+  // the backfacing test gated on `secondary`, as the Pallas kernels gate it
+  const bool cube = p.int_power == 3,
+             backfacing = backfacing_for(-1, p.secondary);
   const auto go = cube ? (backfacing ? launch<K, true, true>
                                      : launch<K, true, false>)
                        : (backfacing ? launch<K, false, true>
@@ -219,21 +149,8 @@ cudaError_t launch_k(const HitsParams& p, float* t_out, int* id_out,
 
 template <int K, bool CUBE, bool BACKFACING>
 cudaError_t info(int tile, int cluster, int* out) {
-  const int smem = (int)walk_smem_bytes(K, tile, cluster);
-  const auto kernel = trace_hits_kernel<K, CUBE, BACKFACING>;
-  cudaFuncAttributes a;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tile,
-                                                        smem);
-  if (err != cudaSuccess) return err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = smem;
-  out[3] = blocks;
-  return cudaSuccess;
+  return kernel_info(trace_hits_kernel<K, CUBE, BACKFACING>, tile,
+                     (int)walk_smem_bytes(K, tile, cluster), out);
 }
 
 template <int K>
@@ -246,10 +163,6 @@ cudaError_t info_k(bool cube, bool backfacing, int tile, int cluster,
   return go(tile, cluster, out);
 }
 
-
-// What the entry points return when they refuse the shapes (a cudaError_t
-// is never negative).
-constexpr int SHAPES_REFUSED = -1;
 
 }  // namespace
 
@@ -269,8 +182,6 @@ extern "C" int egr_trace_hits(
     float far, float secondary, float bf_max_dist, float bf_thr,
     float log_thr, float exp_power, void* stream) {
   HitsParams p;
-  // the backfacing test is gated on `secondary`, as the Pallas kernels gate
-  // it
   if (!init_hits_params(p, rays_o, rays_d, alive, gpack, cand, cand_near,
                         n_rays, n_gauss, mc, tile, cluster, max_hits,
                         check_every, near, far, secondary, bf_max_dist,
@@ -289,12 +200,14 @@ extern "C" int egr_trace_hits(
 }
 
 // The compiled kernel of (max_hits, cube, backfacing) at (tile, cluster):
-// out[0] registers per thread, out[1] local (spilled) bytes per thread,
-// out[2] dynamic shared memory per block, out[3] resident blocks per SM.
-// Returns a cudaError_t, or SHAPES_REFUSED.
+// what kernel_info (trace_hits_walk.cuh) reports in out[0..3].  exit_mode
+// must be 0, the only one this kernel has.  Returns a cudaError_t, or
+// SHAPES_REFUSED.
 extern "C" int egr_trace_hits_info(int max_hits, int cube, int backfacing,
-                                   int tile, int cluster, int* out) {
-  if (!hits_shape_ok(max_hits, tile, cluster)) return SHAPES_REFUSED;
+                                   int exit_mode, int tile, int cluster,
+                                   int* out) {
+  if (!hits_shape_ok(max_hits, tile, cluster) || exit_mode != 0)
+    return SHAPES_REFUSED;
   if (max_hits == 16)
     return (int)info_k<16>(cube, backfacing, tile, cluster, out);
   return (int)info_k<32>(cube, backfacing, tile, cluster, out);

@@ -12,36 +12,52 @@
 // kernel (slots_resident_fits).  The plain PyTorch version of the same
 // contract is trace_slots_reference in ops/cuda/trace_slots.py.
 //
-// Design.  The walk is csrc/trace_tile.cuh, shared with the render kernel:
-// each thread keeps only (t, alpha, id) of its K nearest hits in registers.
-// The Pallas kernels carried the whole 37-column payload through their
-// drain (one-hot MXU extraction, striped spread matrices), because a TPU
-// core cannot gather a row by id; here the epilogue sorts the K hits by
-// (t, id) and gathers each kept hit's attributes and frame fields by id from
-// the row-major attribute and frame tables (pack_attr_table,
-// pack_frame_table), the inputs of pallas_trace_slots.  Output rows follow
-// unpack_slots' block order; empty slots are t = INF with every other
-// column 0.
+// Design.  The walk is csrc/trace_hits_walk.cuh, the walk of all three
+// k-buffer kernels (exit mode 0 or 1, a compile-time option, with the
+// processed-cluster counter): one block per ray tile of at most 512 rays,
+// one thread per ray, clusters streamed through a two-stage cp.async ring
+// and traced four Gaussians a step, the kept hits (t, id) in a per-thread
+// column of shared memory (two 256-ray blocks per SM at K 32, where the
+// registers of the first version's walk allowed one), the pair math's
+// reciprocal without a branch per pair, and the ray-independent terms once
+// per Gaussian where a block's rays share an origin (a primary pass).
+// Kernels are instantiated per K (16, 32), exponent (3 spelled out, or
+// general), the backfacing test and the exit mode.  The Pallas kernels
+// carried the whole 37-column payload through their drain (one-hot MXU
+// extraction, striped spread matrices), because a TPU core cannot gather a
+// row by id; here the epilogue sorts the K hits by (t, id), recomputes each
+// kept hit's alpha from its gpack column with the walk's float operations
+// (so it equals what the walk saw), and gathers its attributes and frame
+// fields by id from the row-major attribute and frame tables
+// (pack_attr_table, pack_frame_table), the inputs of pallas_trace_slots.
+// Output rows follow unpack_slots' block order; empty slots are t = INF
+// with every other column 0.
 //
 // What bounds it: the pair math, about 60 flops per ray x Gaussian pair on
-// the FP32 units, as in render_culled.cu; the output is 37*K floats per ray
-// (4.7 KB at K=32), written once.  Known costs left for later: one block per
-// SM at K=32 (register-bound), and strided row writes in the epilogue (each
-// thread writes its own row).
+// the FP32 pipe, 34 per pair and 26 per Gaussian on a shared origin, as in
+// render_culled.cu; the output is 37*K floats per ray (4.7 KB at K=32,
+// 2.8 GB a launch at the training step's 589,824 rays), written once.  A
+// thread writing its own row stored one word per ray and instruction, 4.7
+// KB apart, which cost more than the walk itself (PERF.md), so the
+// epilogue stages each slot block in shared memory and writes whole
+// segments.  Known costs left for later: the float64 exp/log1p per valid
+// hit in the walk, and the epilogue's scattered table gathers (34 words a
+// kept hit) and its two barriers per slot block.
 
 #include <cuda_runtime.h>
 
-#include "trace_tile.cuh"
+#include "trace_hits_walk.cuh"
 
 namespace {
 
-using namespace egr;
+using namespace egr_hits;
 
 // slot blocks (ops/cuda/layout.py)
 constexpr int SLOT_T = 0;
 constexpr int SLOT_ALPHA = 1;
 constexpr int SLOT_ID = 2;
 constexpr int SLOT_ATTR = 3;
+constexpr int NUM_ATTR = egr::NUM_ATTR;
 constexpr int NUM_FRAME = 24;
 constexpr int SLOT_FRAME = SLOT_ATTR + NUM_ATTR;
 constexpr int SLOT_BLOCKS = SLOT_FRAME + NUM_FRAME;
@@ -49,35 +65,79 @@ constexpr int TABLE_A = 16;
 constexpr int FTABLE_A = 32;
 constexpr int ACC_LANES = 16;
 
-template <int K, bool CUBE>
-__global__ void trace_slots_kernel(TraceParams p, const float* table,
-                                   const float* ftable, float* slots,
-                                   float* acc) {
-  extern __shared__ float sg[];  // [N_GEOM_ROWS, cluster]
+// The epilogue stages each slot block of the block's rows in a [tile][K + 1]
+// float buffer of shared memory: in the stage ring, which the walk is done
+// with, where it fits (tile 256, cluster 256, K 32: 33 of 47 KB), else after
+// the slot columns.  Floats of dynamic shared memory before the buffer, and
+// the bytes of a block's dynamic shared memory.
+inline int buffer_offset(int max_hits, int tile, int cluster) {
+  const int ring = NSTAGE * N_STAGE_ROWS * padded_cluster(cluster);
+  return tile * (max_hits + 1) <= ring ? 0 : ring + 2 * max_hits * tile;
+}
+
+inline size_t slots_smem_bytes(int max_hits, int tile, int cluster) {
+  const size_t walk = walk_smem_bytes(max_hits, tile, cluster);
+  return buffer_offset(max_hits, tile, cluster) == 0
+             ? walk
+             : walk + sizeof(float) * tile * (max_hits + 1);
+}
+
+template <int K, bool CUBE, bool BACKFACING, int EXIT>
+__global__ void __launch_bounds__(MAX_TILE)
+    trace_slots_kernel(HitsParams p, int buffer, const float* table,
+                       const float* ftable, float* slots, float* acc) {
+  extern __shared__ __align__(16) float smem[];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  float st[K], sa[K];
-  int sid[K];
+  const Ray ray = load_ray<false>(p, r);
+  float* col_t;
+  int* col_id;
   double log_t;
   float trav, chunks;
-  trace_tile<K, CUBE>(p, sg, st, sa, sid, log_t, trav, chunks);
-  sort_slots<K>(st, sa, sid);
+  walk_hits<K, CUBE, BACKFACING, EXIT, /*CHUNKS=*/true>(
+      p, smem, ray, col_t, col_id, log_t, trav, chunks);
+  sort_column<K>(col_t, col_id, blockDim.x);
 
-  float* o = slots + (size_t)r * (SLOT_BLOCKS * K);
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    const bool v = st[s] < INF;
-    const int id = sid[s];
-    o[SLOT_T * K + s] = st[s];
-    o[SLOT_ALPHA * K + s] = v ? sa[s] : 0.0f;
-    o[SLOT_ID * K + s] = v ? (float)id : 0.0f;
-    const float* at = table + (size_t)id * TABLE_A;
-#pragma unroll
-    for (int a = 0; a < NUM_ATTR; ++a)
-      o[(SLOT_ATTR + a) * K + s] = v ? at[a] : 0.0f;
-    const float* f = ftable + (size_t)id * FTABLE_A;
-#pragma unroll
-    for (int c = 0; c < NUM_FRAME; ++c)
-      o[(SLOT_FRAME + c) * K + s] = v ? f[c] : 0.0f;
+  // The rows, one slot block at a time: each thread puts its ray's K values
+  // of block b in its row of the buffer, then the block writes every ray's
+  // K values, which are contiguous in its output row, a warp to a ray (or
+  // two at K 16): whole 64- or 128-byte segments instead of one word per
+  // ray and store.
+  const int tile = blockDim.x;
+  float* const buf = smem + buffer;
+  float* const mine = buf + threadIdx.x * (K + 1);
+  float* const rows = slots + (size_t)blockIdx.x * tile * (SLOT_BLOCKS * K);
+  __syncthreads();  // the walk is done with the stage ring
+  for (int b = 0; b < SLOT_BLOCKS; ++b) {
+    if (b == SLOT_ALPHA) {
+#pragma unroll 1
+      for (int s = 0; s < K; ++s) {
+        const float t = col_t[s * tile];
+        mine[s] = t < INF ? kept_hit<CUBE>(p, ray, col_id[s * tile]).alpha
+                          : 0.0f;
+      }
+    } else {
+      // an attribute or frame field: column b of the table row of the id
+      const bool frame = b >= SLOT_FRAME;
+      const float* src = frame ? ftable + (b - SLOT_FRAME)
+                               : table + (b >= SLOT_ATTR ? b - SLOT_ATTR : 0);
+      const int width = frame ? FTABLE_A : TABLE_A;
+#pragma unroll 8
+      for (int s = 0; s < K; ++s) {
+        const float t = col_t[s * tile];
+        const int id = col_id[s * tile];  // 0 where the slot is empty
+        mine[s] = b == SLOT_T       ? t
+                  : !(t < INF)      ? 0.0f
+                  : b == SLOT_ID    ? (float)id
+                                    : src[(size_t)id * width];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < tile * K; i += tile) {
+      const int ray_i = i / K, s = i - ray_i * K;
+      rows[(size_t)ray_i * (SLOT_BLOCKS * K) + b * K + s] =
+          buf[ray_i * (K + 1) + s];
+    }
+    __syncthreads();  // the buffer is free for the next block
   }
   float* a = acc + (size_t)r * ACC_LANES;
   a[0] = (float)log_t;
@@ -86,24 +146,72 @@ __global__ void trace_slots_kernel(TraceParams p, const float* table,
   for (int i = 3; i < ACC_LANES; ++i) a[i] = 0.0f;
 }
 
-template <int K>
-cudaError_t launch(const TraceParams& p, const float* table,
+template <int K, bool CUBE, bool BACKFACING, int EXIT>
+cudaError_t launch(const HitsParams& p, const float* table,
                    const float* ftable, float* slots, float* acc, int n_tiles,
                    int tile, cudaStream_t s) {
-  const size_t smem = sizeof(float) * N_GEOM_ROWS * p.cluster;
-  if (p.int_power == 3)
-    trace_slots_kernel<K, true><<<n_tiles, tile, smem, s>>>(p, table, ftable,
-                                                            slots, acc);
-  else
-    trace_slots_kernel<K, false><<<n_tiles, tile, smem, s>>>(p, table, ftable,
-                                                             slots, acc);
+  const int smem = (int)slots_smem_bytes(K, tile, p.cluster);
+  const auto kernel = trace_slots_kernel<K, CUBE, BACKFACING, EXIT>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_tiles, tile, smem, s>>>(p, buffer_offset(K, tile, p.cluster),
+                                     table, ftable, slots, acc);
   return cudaGetLastError();
+}
+
+// The instantiation for the launch's exponent, backfacing test and exit
+// mode.
+template <int K, int EXIT>
+cudaError_t launch_e(const HitsParams& p, bool backfacing, const float* table,
+                     const float* ftable, float* slots, float* acc,
+                     int n_tiles, int tile, cudaStream_t s) {
+  const bool cube = p.int_power == 3;
+  const auto go = cube ? (backfacing ? launch<K, true, true, EXIT>
+                                     : launch<K, true, false, EXIT>)
+                       : (backfacing ? launch<K, false, true, EXIT>
+                                     : launch<K, false, false, EXIT>);
+  return go(p, table, ftable, slots, acc, n_tiles, tile, s);
+}
+
+template <int K>
+cudaError_t launch_k(const HitsParams& p, bool backfacing, int exit_mode,
+                     const float* table, const float* ftable, float* slots,
+                     float* acc, int n_tiles, int tile, cudaStream_t s) {
+  const auto go = exit_mode == 1 ? launch_e<K, 1> : launch_e<K, 0>;
+  return go(p, backfacing, table, ftable, slots, acc, n_tiles, tile, s);
+}
+
+template <int K, bool CUBE, bool BACKFACING, int EXIT>
+cudaError_t info(int tile, int cluster, int* out) {
+  return kernel_info(trace_slots_kernel<K, CUBE, BACKFACING, EXIT>, tile,
+                     (int)slots_smem_bytes(K, tile, cluster), out);
+}
+
+template <int K, int EXIT>
+cudaError_t info_e(bool cube, bool backfacing, int tile, int cluster,
+                   int* out) {
+  const auto go = cube ? (backfacing ? info<K, true, true, EXIT>
+                                     : info<K, true, false, EXIT>)
+                       : (backfacing ? info<K, false, true, EXIT>
+                                     : info<K, false, false, EXIT>);
+  return go(tile, cluster, out);
+}
+
+template <int K>
+cudaError_t info_k(bool cube, bool backfacing, int exit_mode, int tile,
+                   int cluster, int* out) {
+  return exit_mode == 1 ? info_e<K, 1>(cube, backfacing, tile, cluster, out)
+                        : info_e<K, 0>(cube, backfacing, tile, cluster, out);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  slots [n_rays, 37*max_hits] and
-// acc [n_rays, 16] f32 are written in full.  Launches on `stream`, allocates
+// acc [n_rays, 16] f32 are written in full.  exit_mode 0 or 1 (the header);
+// secondary_static 1 (the backfacing test), 0 (none) or -1 (where
+// `secondary` > 0).  The shapes it takes are init_hits_params'
+// (trace_hits_walk.cuh) whose staging buffer fits too (slots_smem_bytes);
+// it returns SHAPES_REFUSED for any other.  Launches on `stream`, allocates
 // nothing, and returns the launch's cudaError_t (0 = success).
 extern "C" int egr_trace_slots(
     const float* rays_o, const float* rays_d, const float* alive,
@@ -114,20 +222,38 @@ extern "C" int egr_trace_slots(
     int exit_mode, int secondary_static, float near, float far,
     float secondary, float bf_max_dist, float bf_thr, float log_thr,
     float exp_power, void* stream) {
-  TraceParams p;
+  HitsParams p;
   // no split-far window (window_mode 0), so no t_split
-  if (!init_trace_params(p, rays_o, rays_d, alive, /*t_split=*/nullptr, gpack,
-                         cand, cand_near, n_rays, n_gauss, mc, tile, cluster,
-                         check_every, exit_mode, /*window_mode=*/0,
-                         secondary_static, near, far, secondary, bf_max_dist,
-                         bf_thr, log_thr, exp_power))
-    return (int)cudaErrorInvalidValue;
+  if (!init_hits_params(p, rays_o, rays_d, alive, gpack, cand, cand_near,
+                        n_rays, n_gauss, mc, tile, cluster, max_hits,
+                        check_every, near, far, secondary, bf_max_dist,
+                        bf_thr, log_thr, exp_power) ||
+      slots_smem_bytes(max_hits, tile, cluster) > MAX_SMEM ||
+      (exit_mode != 0 && exit_mode != 1) || secondary_static < -1 ||
+      secondary_static > 1)
+    return SHAPES_REFUSED;
   if (n_rays == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_rays / tile;
+  const bool backfacing = backfacing_for(secondary_static, secondary);
   if (max_hits == 16)
-    return (int)launch<16>(p, table, ftable, slots, acc, n_tiles, tile, s);
-  if (max_hits == 32)
-    return (int)launch<32>(p, table, ftable, slots, acc, n_tiles, tile, s);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch_k<16>(p, backfacing, exit_mode, table, ftable, slots,
+                             acc, n_tiles, tile, s);
+  return (int)launch_k<32>(p, backfacing, exit_mode, table, ftable, slots,
+                           acc, n_tiles, tile, s);
+}
+
+// The compiled kernel of (max_hits, cube, backfacing, exit_mode) at (tile,
+// cluster): what kernel_info (trace_hits_walk.cuh) reports in out[0..3].
+// Returns a cudaError_t, or SHAPES_REFUSED.
+extern "C" int egr_trace_slots_info(int max_hits, int cube, int backfacing,
+                                    int exit_mode, int tile, int cluster,
+                                    int* out) {
+  if (!hits_shape_ok(max_hits, tile, cluster) ||
+      slots_smem_bytes(max_hits, tile, cluster) > MAX_SMEM ||
+      (exit_mode != 0 && exit_mode != 1))
+    return SHAPES_REFUSED;
+  if (max_hits == 16)
+    return (int)info_k<16>(cube, backfacing, exit_mode, tile, cluster, out);
+  return (int)info_k<32>(cube, backfacing, exit_mode, tile, cluster, out);
 }

@@ -1,6 +1,12 @@
-// trace_tile.cuh - the culled ray x Gaussian walk shared by the render
-// kernel (render_culled.cu) and the training slots kernel (trace_slots.cu),
-// and the pair math the streaming scan kernel (render_scan.cu) reuses.
+// trace_tile.cuh - the first version's culled ray x Gaussian walk, and what
+// the other kernels take from it.  Its walk (trace_tile) is the round-2
+// render's (render_table.cu) and the measurement kernel's
+// (tools/grouped_walk.cu); its pair-math functions are the streaming scan
+// kernel's (render_scan.cu); its sort_slots is the slot-sort kernel's
+// (sort_slots.cu); its gpack row constants and INF / MAX_ALPHA are the
+// k-buffer walk's (trace_hits_walk.cuh), which the eval render
+// (render_culled.cu), the training slots trace (trace_slots.cu) and the
+// non-fused trace (trace_hits.cu) run instead of trace_tile.
 //
 // One block per ray tile, one thread per ray.  The block walks the tile's
 // candidate clusters (nearest first); for each cluster it stages the 22
@@ -15,12 +21,12 @@
 // only the processed clusters), so it follows the Pallas kernel being
 // reproduced, selected by `exit_mode`:
 //
-//   0  pallas_render_culled_v4/_v3 and pallas_trace_slots_v4: a ray is done
+//   0  pallas_render_culled_v4/_v3 (tools/grouped_walk.cu): a ray is done
 //      when saturated (log T <= log thr) or when its K-th hit lies before
 //      the group's first candidate; the walk also stops at once when every
 //      ray of the tile is dead.  chunks counts processed clusters holding
 //      any valid Gaussian.
-//   1  pallas_trace_slots (the streaming form, check_every 2): a dead ray
+//   1  pallas_render_culled (render_table.cu, check_every 2): a dead ray
 //      also counts as done; chunks counts every processed cluster.
 //
 // Numerics (ops/precision.py): float32 pair math built without FMA
@@ -118,11 +124,11 @@ inline bool init_trace_params(TraceParams& p, const float* rays_o,
 
 // The pair math as functions, for the streaming scan kernel
 // (render_scan.cu): the same float operations as trace_tile's inline copy
-// below.  trace_tile keeps that copy because routing it through these
-// functions made nvcc schedule the k-buffer walks ~9% slower on an H100
-// (render_culled primary pass 60.3 -> 65.6 ms, trace_slots 68.9 -> 75.0 ms
-// at the 800x800 / 100k-room shapes; tools/walk_ab.py).  Keep the two in
-// step.
+// below and trace_hits_walk.cuh's.  trace_tile keeps that copy because
+// routing it through these functions made nvcc schedule the k-buffer walks
+// ~9% slower on an H100 (render_culled primary pass 60.3 -> 65.6 ms,
+// trace_slots 68.9 -> 75.0 ms at the 800x800 / 100k-room shapes, when both
+// walked trace_tile; tools/walk_ab.py).  Keep the three in step.
 
 // One ray, as every thread of a walk holds it.
 struct RayState {

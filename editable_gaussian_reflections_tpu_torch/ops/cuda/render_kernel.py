@@ -60,6 +60,11 @@ REFERENCE_TILES_PER_BATCH = 64
 # bytes (render_kernel_v3.py RESIDENT_GPACK_LIMIT); which Pallas kernel it
 # runs, and so which early exit the port reproduces, follows from it
 RESIDENT_LIMIT = 96 * 1024 * 1024
+# what the C entry points of the k-buffer kernels return when they refuse
+# the shapes: the limits (K, rays per block, Gaussians per cluster, shared
+# memory) are checked there only, in hits_shape_ok
+# (csrc/trace_hits_walk.cuh)
+SHAPES_REFUSED = -1
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 8          # rays_o, rays_d, alive, t_split, gpack,
@@ -240,9 +245,11 @@ def walk_tiles(
     transmittance_threshold=0.01, max_hits: int = 16, cluster: int = 128,
     tile: int = 256, alive=None, check_every: int = 8, t_split=None,
     window_mode: int = 0, secondary_static: int = -1, exit_mode: int = 0):
-    """Plain version of csrc/trace_tile.cuh: the culled walk over each ray
-    tile's candidates with the early exit of `exit_mode` (0: the v4 group
-    exit, 1: pallas_trace_slots' pairs with per-ray dead; see the header).
+    """Plain version of the k-buffer kernels' walk (csrc/trace_hits_walk.cuh,
+    and csrc/trace_tile.cuh of render_table.cu): the culled walk over each
+    ray tile's candidates with the early exit of `exit_mode` (0: the v4
+    group exit, 1: pallas_trace_slots' pairs with per-ray dead; see the
+    headers).
 
     Vectorised over ray tiles, looping over candidate groups with a per-tile
     `done` mask.  Yields, per batch of up to REFERENCE_TILES_PER_BATCH
@@ -410,10 +417,10 @@ def render_culled(
     if max_hits not in SUPPORTED_K:
         raise ValueError(f"max_hits={max_hits}: the kernel is built for "
                          f"{SUPPORTED_K}")
-    if R % tile or not 0 < tile <= 1024:
-        raise ValueError(f"tile={tile} must divide R={R} and be <= 1024")
-    if N % cluster or not 0 < cluster <= 512:
-        raise ValueError(f"cluster={cluster} must divide N={N}, <= 512")
+    if tile <= 0 or R % tile:
+        raise ValueError(f"tile={tile} must divide R={R}")
+    if cluster <= 0 or N % cluster:
+        raise ValueError(f"cluster={cluster} must divide N={N}")
     if window_mode not in (0, 1, 2) or secondary_static not in (-1, 0, 1):
         raise ValueError(f"window_mode={window_mode}, "
                          f"secondary_static={secondary_static}")
@@ -442,6 +449,10 @@ def render_culled(
             _f32(backfacing_invalid_normal_threshold),
             _f32(transmittance_threshold), _f32(eps_forward_normalization),
             _log_f32(transmittance_threshold), float(exp_power), stream)
+    if err == SHAPES_REFUSED:
+        raise ValueError(f"render_culled: the kernel refused max_hits="
+                         f"{max_hits}, tile={tile}, cluster={cluster} "
+                         f"(hits_shape_ok: csrc/trace_hits_walk.cuh)")
     if err != 0:
         raise RuntimeError(f"render_culled kernel launch failed: cudaError "
                            f"{err}")

@@ -63,6 +63,7 @@ from .layout import (
     ROW_SF2,
 )
 from .render_kernel import (
+    SHAPES_REFUSED,
     _check,
     _f32,
     _log_f32,
@@ -73,10 +74,9 @@ from .render_kernel import (
 # the brute mode's blocking: rays per block and Gaussians per staged cluster
 BRUTE_TILE = 256
 BRUTE_CLUSTER = 256
-# what the C entry points return when they refuse the shapes: the limits
-# (K, rays per block, Gaussians per cluster, shared memory) are checked there
-# only, in hits_shape_ok (csrc/trace_hits_walk.cuh)
-SHAPES_REFUSED = -1
+# the kernels that walk csrc/trace_hits_walk.cuh, each with an
+# egr_<name>_info entry point
+WALK_KERNELS = ("trace_hits", "render_culled", "trace_slots")
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 13         # rays_o, rays_d, alive, gpack, cand,
@@ -100,23 +100,28 @@ def _entry_point():
 
 
 def kernel_info(max_hits: int, cube: bool = True, backfacing: bool = False,
-                tile: int = BRUTE_TILE, cluster: int = BRUTE_CLUSTER) -> dict:
-    """What the card's runtime reports of the compiled kernel for
-    (max_hits, exp_power 3 or not, backfacing test or not: reflected
-    passes) at (tile, cluster): registers and spilled (local) bytes per
-    thread, dynamic shared memory per block and resident blocks per SM.
-    Needs a CUDA device."""
-    fn = build.load("trace_hits").egr_trace_hits_info
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                tile: int = BRUTE_TILE, cluster: int = BRUTE_CLUSTER,
+                kernel: str = "trace_hits", exit_mode: int = 0) -> dict:
+    """What the card's runtime reports of the compiled kernel of one of
+    WALK_KERNELS (csrc/<kernel>.cu) for (max_hits, exp_power 3 or not,
+    backfacing test or not: reflected passes, exit mode) at (tile,
+    cluster): registers and spilled (local) bytes per thread, dynamic
+    shared memory per block and resident blocks per SM.  Needs a CUDA
+    device."""
+    if kernel not in WALK_KERNELS:
+        raise ValueError(f"kernel={kernel!r}: one of {WALK_KERNELS}")
+    fn = getattr(build.load(kernel), f"egr_{kernel}_info")
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    err = fn(max_hits, int(cube), int(backfacing), tile, cluster,
+    err = fn(max_hits, int(cube), int(backfacing), exit_mode, tile, cluster,
              ctypes.addressof(out))
     if err == SHAPES_REFUSED:
-        raise ValueError(f"trace_hits: no kernel for max_hits={max_hits}, "
-                         f"tile={tile}, cluster={cluster}")
+        raise ValueError(f"{kernel}: no kernel for max_hits={max_hits}, "
+                         f"exit_mode={exit_mode}, tile={tile}, "
+                         f"cluster={cluster}")
     if err != 0:
-        raise RuntimeError(f"trace_hits kernel info failed: cudaError {err}")
+        raise RuntimeError(f"{kernel} kernel info failed: cudaError {err}")
     return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
                 blocks_per_sm=out[3])
 

@@ -14,7 +14,7 @@ processed clusters plus the traversed count, and return
   acc   [R, 16] f32: log-T, traversed Gaussians, processed-cluster count.
 
 The two Pallas kernels stop differently, and the stop is part of the result
-(csrc/trace_tile.cuh): `exit_mode_for(capacity)` picks the one the JAX
+(csrc/trace_hits_walk.cuh): `exit_mode_for(capacity)` picks the one the JAX
 dispatch would run.  The kernel reads the geometry from gpack, and gathers
 each kept hit's attributes from pack_attr_table's [N, TABLE_A] table and its
 frame fields from pack_frame_table's [N, FTABLE_A] table, by id (the inputs
@@ -43,6 +43,7 @@ from .layout import (
 )
 from .render_kernel import (
     RESIDENT_LIMIT,
+    SHAPES_REFUSED,
     SUPPORTED_K,
     _check,
     _f32,
@@ -160,10 +161,10 @@ def trace_slots(
     if max_hits not in SUPPORTED_K:
         raise ValueError(f"max_hits={max_hits}: the kernel is built for "
                          f"{SUPPORTED_K}")
-    if R % tile or not 0 < tile <= 1024:
-        raise ValueError(f"tile={tile} must divide R={R} and be <= 1024")
-    if N % cluster or not 0 < cluster <= 512:
-        raise ValueError(f"cluster={cluster} must divide N={N}, <= 512")
+    if tile <= 0 or R % tile:
+        raise ValueError(f"tile={tile} must divide R={R}")
+    if cluster <= 0 or N % cluster:
+        raise ValueError(f"cluster={cluster} must divide N={N}")
     if exit_mode not in (0, 1) or secondary_static not in (-1, 0, 1):
         raise ValueError(f"exit_mode={exit_mode}, "
                          f"secondary_static={secondary_static}")
@@ -194,6 +195,10 @@ def trace_slots(
             _f32(near), _f32(far), _f32(secondary), _f32(backfacing_max_dist),
             _f32(backfacing_invalid_normal_threshold),
             _log_f32(transmittance_threshold), float(exp_power), stream)
+    if err == SHAPES_REFUSED:
+        raise ValueError(f"trace_slots: the kernel refused max_hits="
+                         f"{max_hits}, tile={tile}, cluster={cluster} "
+                         f"(hits_shape_ok: csrc/trace_hits_walk.cuh)")
     if err != 0:
         raise RuntimeError(f"trace_slots kernel launch failed: cudaError "
                            f"{err}")

@@ -1,11 +1,12 @@
 // grouped_walk.cu - a measurement kernel, not a path of the port: the
-// k-buffer render of csrc/render_culled.cu with its walk rewritten to stage
-// a whole early-exit group of candidate clusters in shared memory at once.
+// k-buffer render of csrc/render_culled.cu, as it was on the walk of
+// csrc/trace_tile.cuh, with that walk rewritten to stage a whole early-exit
+// group of candidate clusters in shared memory at once.
 // tools/refill_ladder.py builds and times it; nothing else loads it.
 //
-// The question it answers: what the shared walk's (csrc/trace_tile.cuh)
-// per-cluster fixed cost - one shared-memory refill and its two barriers
-// per cluster - costs on this card.  This walk pays them once per group
+// The question it answered: what trace_tile.cuh's walk's per-cluster fixed
+// cost - one shared-memory refill and its two barriers per cluster - costs
+// on this card (render_culled now walks csrc/trace_hits_walk.cuh).  This walk pays them once per group
 // instead: the group's `check_every` candidate clusters ([check_every, 22,
 // cluster] f32, 45 KB at 8 x 64, 180 KB at 8 x 256) are staged in one
 // refill between one pair of barriers (the group's exit vote and the end of
@@ -128,8 +129,13 @@ __global__ void grouped_walk_kernel(TraceParams p, float thr, float eps_norm,
     }
   }
 
+  sort_slots<K>(st, sa, sid);
   composite_slots<K>(
-      st, sa, sid, log_t, trav, chunks, thr, eps_norm,
+      [&](int i, float& t, int& id) {
+        t = st[i];
+        id = sid[i];
+      },
+      [&](int i, int) { return sa[i]; }, log_t, trav, chunks, thr, eps_norm,
       [&](int a, int id) {
         const int rows[NUM_ATTR] = {ROW_RGB,     ROW_RGB + 1, ROW_RGB + 2,
                                     ROW_NRM,     ROW_NRM + 1, ROW_NRM + 2,

@@ -1,10 +1,13 @@
 """The refill/barrier ladder: what the k-buffer walk's per-cluster
 shared-memory refill and barriers cost on the card.
 
-grouped_walk.cu (beside this file) is render_culled's kernel with the walk
-rewritten to stage a whole early-exit group of `check_every` clusters per
-refill, with one barrier pair per group; it equals render_culled bit for
-bit on the same inputs.  With no exit anywhere (threshold 0, every near 0)
+grouped_walk.cu (beside this file) is render_culled's kernel as it was on
+the walk of csrc/trace_tile.cuh, rewritten to stage a whole early-exit
+group of `check_every` clusters per refill, with one barrier pair per
+group; it equals render_culled bit for bit on the same inputs.
+render_culled now walks csrc/trace_hits_walk.cuh (a cp.async ring, four
+Gaussians a step), so the grouped/culled gap is no longer the refills and
+barriers alone: it also holds what that walk changed.  With no exit anywhere (threshold 0, every near 0)
 every variant does the same work, so on the bench_v5 room's primary rays
 the ladder times
 

@@ -1,10 +1,13 @@
-"""Time the walks of one source tree: render_culled and trace_slots on the
-primary pass of an 800x800 frame of room_scene(100_000) (the chip_smoke.py
-phase 4/5 shapes: K 32, cluster 256, 192 candidates), then trace_hits on
-the first launch of the primary and first reflected pass of the non-fused
-eval render (culled) and training step (brute), as chip_smoke.py's phases
-11 and 12 make them (tools/nonfused_setup.py).  CUDA events, after one
-warm-up call.  Needs a CUDA card.
+"""Time the k-buffer walks of one source tree: render_culled on the primary
+and first reflected pass of the eval render (chip_smoke.py phase 4: an
+800x800 frame of room_scene(100_000), K 32, cluster 256, 192 candidates),
+trace_slots on the primary and first reflected pass of the training step's
+first batch (phase 5: 768x768, room_scene(175_000), all 72 tiles in one
+launch), both as tools/fused_setup.py makes them, then trace_hits on the
+first launch of the primary and first reflected pass of the non-fused eval
+render (culled) and training step (brute), as chip_smoke.py's phases 11
+and 12 make them (tools/nonfused_setup.py).  CUDA events, after one warm-up
+call.  Needs a CUDA card.
 
 To compare two trees, unpack the other one (`git archive`) into a
 directory git ignores and run both in one process sequence, alternating:
@@ -12,16 +15,42 @@ directory git ignores and run both in one process sequence, alternating:
     python editable_gaussian_reflections_tpu_torch/tools/walk_ab.py <tree> [<csrc dir>]
 
 <tree> is the root whose package is imported; <csrc dir>, when given,
-replaces its csrc/ (a variant of the kernel sources).  The non-fused setup
-is this script's own tree's, run on <tree>'s package, so that both trees
-are timed on the same launches.
+replaces its csrc/ (a variant of the kernel sources).  The setups are this
+script's own tree's, run on <tree>'s package, so that both trees are timed
+on the same launches.
+
+    python editable_gaussian_reflections_tpu_torch/tools/walk_ab.py <tree> --cut-walk
+
+times trace_slots' two passes with its walk cut out: a copy of <tree>'s
+csrc/ (under <tree>/build/walk_cut/) whose trace_slots kernel fills each
+ray's slot columns with K hits on its tile's first listed clusters instead
+of walking, so that what is left is the epilogue (the sort, alpha
+recomputed, the gathers and the 37 x K row written) at the launch's shapes.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import shutil
 import sys
 from pathlib import Path
+
+# the walk call of csrc/trace_slots.cu, and what --cut-walk puts in its
+# place: K hits at depths K..1 on Gaussians of the tile's listed clusters,
+# in the slot columns where the walk leaves them (after the stage ring)
+WALK_CALL = """  walk_hits<K, CUBE, BACKFACING, EXIT, /*CHUNKS=*/true>(
+      p, smem, ray, col_t, col_id, log_t, trav, chunks);"""
+NO_WALK = """  col_t = smem + NSTAGE * N_STAGE_ROWS * p.cpad + threadIdx.x;
+  col_id = reinterpret_cast<int*>(col_t - threadIdx.x + K * blockDim.x) +
+           threadIdx.x;
+  log_t = 0.0;
+  trav = chunks = 0.0f;
+  for (int s = 0; s < K; ++s) {
+    const int c = p.cand[(size_t)blockIdx.x * p.mc + s % p.mc];
+    col_t[s * blockDim.x] = c < 0 ? INF : (float)(K - s);
+    col_id[s * blockDim.x] =
+        c < 0 ? 0 : c * p.cluster + (threadIdx.x + 7 * s) % p.cluster;
+  }"""
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -39,80 +68,81 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main(argv: list[str]) -> None:
-    root = str(Path(argv[0]).resolve())
-    sys.path.insert(0, root)
-    import torch
-
-    from editable_gaussian_reflections_tpu_torch.ops.cuda import build
-    if len(argv) > 1:  # the library's name hashes the sources it is built from
-        build.CSRC = Path(argv[1]).resolve()
-    from editable_gaussian_reflections_tpu_torch.ops import culling
-    from editable_gaussian_reflections_tpu_torch.ops.cuda import layout
-    from editable_gaussian_reflections_tpu_torch.ops.cuda.render_kernel import (
-        render_culled)
-    from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
-        trace_slots)
-    from editable_gaussian_reflections_tpu_torch.renderer import raytracer as rt
-    from editable_gaussian_reflections_tpu_torch.scene import (
-        gaussian_scene as gs)
-    if not rt.__file__.startswith(root):
-        raise RuntimeError(f"imported {rt.__file__}, not the tree {root}")
-
-    nf = _nonfused_setup()
-    dev = torch.device("cuda")
-    scene, cam = nf.room(100_000, dev)
-    S = rt.RenderSettings()
-    samples = rt.draw_samples(torch.Generator(device=dev).manual_seed(2),
-                              800, 800, 3)
-    prep = rt._prepare_fused_frame(scene, cam, S, samples, 800, 800,
-                                   jitter=True, cull_cluster=256,
-                                   cull_tile_primary=256, num_steps=3)
-    R = prep["R"]
-    Rp = rt.padded_ray_count(R, 192, None, 256, 256)
-    dirs = torch.cat([prep["dirs"], prep["dirs"][:Rp - R]])
-    o = cam.origin.expand(Rp, 3)
-    alive = torch.ones((Rp,), dtype=torch.bool, device=dev)
-    c0 = rt.kernel_call(
-        o, dirs, alive, 0, prep["gpack"], prep["bounds"], prep["scene_lo"],
-        prep["scene_hi"], S, 0.05, 50.0, capacity=scene.capacity,
-        max_hits=32, exp_power_static=3.0, cull_cluster=256, max_clusters=192,
-        max_clusters_secondary=None, cull_tile_secondary=256,
-        cull_tile_primary=256)
-    frames, attrs = gs.build_frames(scene, 0.005, 3.0, 1.0)
-    perm = culling.morton_order(frames)
-    frames, attrs = frames.take(perm), attrs.take(perm)
-    sc = gs.GaussianScene(*(a[perm] for a in scene))
-    table = layout.pack_attr_table(attrs)
-    ftable = layout.pack_frame_table(frames, sc)
-    s0 = rt.slots_call(
-        o, dirs, alive, 0, prep["gpack"], table, ftable, prep["bounds"],
-        prep["scene_lo"], prep["scene_hi"], S, 0.05, 50.0, max_hits=32,
-        cull_tile=256, cull_cluster=256, max_clusters=192,
-        n_capacity=scene.capacity, exp_power_static=3.0, tile_rays=None)
-
-    rc = [cuda_ms(lambda: render_culled(*c0.args, **c0.kwargs), 10)
-          for _ in range(3)]
-    ts = [cuda_ms(lambda: trace_slots(*s0.args, **s0.kwargs), 3)
-          for _ in range(2)]
-    print(f"AB {root} {argv[1:]}: render_culled primary ms "
-          f"{[round(x, 3) for x in rc]}; trace_slots primary ms "
-          f"{[round(x, 3) for x in ts]}", flush=True)
-    del c0, s0, prep, dirs, o, alive, frames, attrs, sc, table, ftable
-    trace_hits_ab(nf, root, argv[1:], dev)
-
-
-def _nonfused_setup():
-    """tools/nonfused_setup.py of this script's tree, importing the package
-    of the tree on sys.path (the tree timed may predate the module)."""
+def _setup(name: str):
+    """tools/<name>.py of this script's tree, importing the package of the
+    tree on sys.path (the tree timed may predate the module)."""
     spec = importlib.util.spec_from_file_location(
-        "nonfused_setup", Path(__file__).with_name("nonfused_setup.py"))
+        name, Path(__file__).with_name(f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-def trace_hits_ab(nf, root: str, variant: list, dev) -> None:
+def cut_walk_csrc(tree: Path) -> Path:
+    """A copy of `tree`'s csrc/ with trace_slots' walk cut out (module
+    docstring), under tree/build/walk_cut/csrc."""
+    src = tree / "editable_gaussian_reflections_tpu_torch" / "csrc"
+    dst = tree / "build" / "walk_cut" / "csrc"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    ts = dst / "trace_slots.cu"
+    text = ts.read_text()
+    if text.count(WALK_CALL) != 1:
+        raise RuntimeError(f"{ts}: the walk call to cut is not there once")
+    ts.write_text(text.replace(WALK_CALL, NO_WALK))
+    return dst
+
+
+def main(argv: list[str]) -> None:
+    tree = Path(argv[0]).resolve()
+    root = str(tree)
+    sys.path.insert(0, root)
+    import torch
+
+    from editable_gaussian_reflections_tpu_torch.ops.cuda import build
+    cut = "--cut-walk" in argv[1:]
+    variant = [a for a in argv[1:] if a != "--cut-walk"]
+    if cut:
+        build.CSRC = cut_walk_csrc(tree)
+    elif variant:  # the library's name hashes the sources it is built from
+        build.CSRC = Path(variant[0]).resolve()
+    from editable_gaussian_reflections_tpu_torch.ops.cuda.render_kernel import (
+        render_culled)
+    from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
+        trace_slots)
+    from editable_gaussian_reflections_tpu_torch.renderer import raytracer as rt
+    if not rt.__file__.startswith(root):
+        raise RuntimeError(f"imported {rt.__file__}, not the tree {root}")
+
+    dev = torch.device("cuda")
+    fs = _setup("fused_setup")
+    tag = f"AB {root} {argv[1:]}"
+    print(f"{tag}: card [{fs.card()}]", flush=True)
+    if not cut:
+        e = fs.eval_frame(dev)
+        rc = {name: [round(cuda_ms(lambda: render_culled(
+            *c.args, **c.kwargs), 10), 3) for _ in range(3)]
+            for name, c in zip(("primary", "reflected"), e.calls)}
+        print(f"{tag}: render_culled ms, 800x800 eval frame (primary "
+              f"{rc['primary']}, reflected {rc['reflected']})", flush=True)
+        del e
+    t = fs.training_step(dev)
+    t.steps = t.residuals = t.targets_b = None
+    torch.cuda.empty_cache()
+    ts = {name: [round(cuda_ms(lambda: trace_slots(*c.args, **c.kwargs), 3),
+                       3) for _ in range(2)]
+          for name, c in zip(("primary", "reflected"), t.calls)}
+    what = "with the walk cut out" if cut else "768x768 step, first batch"
+    print(f"{tag}: trace_slots ms, {what} (primary {ts['primary']}, "
+          f"reflected {ts['reflected']})", flush=True)
+    del t
+    torch.cuda.empty_cache()
+    print(f"{tag}: card after [{fs.card()}]", flush=True)
+    if not cut:
+        trace_hits_ab(_setup("nonfused_setup"), tag, dev)
+
+
+def trace_hits_ab(nf, tag: str, dev) -> None:
     """trace_hits' four passes at the chip_smoke.py phase 11/12 shapes
     (`nf`: the module tools/nonfused_setup.py)."""
     from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_hits import (
@@ -130,8 +160,7 @@ def trace_hits_ab(nf, root: str, variant: list, dev) -> None:
             res[f"{mode} {name}"] = [
                 round(cuda_ms(lambda: trace_hits(*args, **kwargs), reps), 3)
                 for _ in range(2)]
-    print(f"AB {root} {variant}: trace_hits ms, first launch of "
-          f"{nf.NF_W}x{nf.NF_H} "
+    print(f"{tag}: trace_hits ms, first launch of {nf.NF_W}x{nf.NF_H} "
           f"({', '.join(f'{k} {v}' for k, v in res.items())})", flush=True)
 
 

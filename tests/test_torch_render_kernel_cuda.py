@@ -8,10 +8,19 @@ runs on a machine that has only PyTorch:
 (--noconftest: the suite's conftest imports jax.)  The tests carry the
 `cuda` marker.
 
-Float lanes to rtol 1e-4 / atol 5e-5, counter lanes exactly.  The kernel
-keeps the same K hits as the plain version (it inserts them in lane order,
-the plain version in depth order: the kept set differs only on exact depth
-ties, which this scene does not have).
+Every lane equal, bit for bit: the kernel and the plain version share
+float32 pair math without FMA, float64 exp/pow/log1p and sums, and sort
+the kept hits by (t, id).  Beside the cases of the render's own passes,
+design cases aimed at the walk the kernel shares with trace_hits and
+trace_slots (csrc/trace_hits_walk.cuh: four Gaussians a step, clusters
+padded to 4, a two-stage copy ring, slots in shared memory, the
+ray-independent terms once per Gaussian on blocks whose rays share an
+origin): clusters of 50 (padded to 52, staged with 4-byte copies), empty
+list entries and an all-invalid cluster, exact depth ties, blocks of one
+origin beside blocks of several, Gaussians thin enough that |ld|^2 passes
+2^126 (the walk's division), the split-far windows with the backfacing
+test gated on `secondary` (on and off), and saturation exits before
+every position of a list, with dead rays.
 """
 
 import functools
@@ -34,6 +43,12 @@ from editable_gaussian_reflections_tpu_torch.scene import gaussian_scene as gs
 from editable_gaussian_reflections_tpu_torch.utils.synth import (
     room_camera,
     room_scene,
+)
+from test_torch_trace_hits_cuda import (
+    exit_tile_chunks,
+    exit_tile_inputs,
+    mixed_alive,
+    walk_design_inputs,
 )
 
 # every test here needs the card; each decides in the `cuda` fixture
@@ -116,18 +131,72 @@ def _call(case, device, fn):
               secondary_static=ss)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+# (rays, K, cluster, tile, ray count, Gaussian count, exp_power, lists,
+# special, secondary_static, secondary, window_mode, alive, check_every):
+# walk_design_inputs' rays, lists and special; lists "exits" are
+# exit_tile_inputs' tiles of 64 rays (the other shape fields unused)
+DESIGN = {
+    "walk_k32_c50_tile100_hand": ("primary", 32, 50, 100, 1000, 4050, 3.0,
+                                  "hand", "invalid_cluster", 0, 0.0, 0,
+                                  False, 8),
+    "walk_k16_c50_reflected_pow2_hand": ("reflected", 16, 50, 200, 1000,
+                                         4050, 2.0, "hand",
+                                         "invalid_cluster", 1, 1.0, 0, True,
+                                         4),
+    "walk_k16_ties_all": ("primary", 16, 256, 256, 512, 4096, 2.0, "all",
+                          "ties", 0, 0.0, 0, False, 8),
+    "walk_k32_mixed_origin_pow2_5": ("mixed", 32, 128, 128, 1024, 4096, 2.5,
+                                     "select", "", 0, 0.0, 0, False, 8),
+    "walk_k16_thin_all": ("primary", 16, 256, 256, 768, 4096, 3.0, "all",
+                          "thin", 0, 0.0, 0, False, 8),
+    "walk_k32_near_window_gate_on": ("reflected", 32, 128, 128, 1024, 4096,
+                                     3.0, "select", "", -1, 1.0, 1, True, 4),
+    "walk_k16_far_window_gate_off": ("reflected", 16, 128, 64, 1024, 4096,
+                                     3.0, "select", "", -1, 0.0, 2, True, 8),
+    "walk_k16_exits_ce1": ("primary", 16, 256, 64, 0, 0, 3.0, "exits", "",
+                           0, 0.0, 0, True, 1),
+    "walk_k32_exits_ce4": ("primary", 32, 256, 64, 0, 0, 3.0, "exits", "",
+                           0, 0.0, 0, True, 4),
+}
+
+
+def _design_call(case, device, fn):
+    (kind, K, cluster, tile, n_rays, n_gauss, exp_power, lists, special, ss,
+     secondary, wmode, with_alive, ce) = DESIGN[case]
+    thr = 0.01
+    if lists == "exits":
+        o, d, gpack, _t, _f, cands, cnear, alive, thr = exit_tile_inputs(
+            device, tile)
+        near = 0.05
+    else:
+        o, d, gpack, _t, _f, cands, cnear, near = walk_design_inputs(
+            device, kind, cluster, tile, n_rays, n_gauss, lists, special)
+        alive = mixed_alive(n_rays, tile, device) if with_alive else None
+    t_split = None
+    if wmode:
+        t_split = torch.tensor(np.random.default_rng(7).uniform(
+            1.0, 4.0, o.shape[0]).astype(np.float32), device=device)
+    return fn(o, d, gpack, cands, cnear, near, FAR, exp_power, secondary,
+              10.0 if ss else 0.1, 0.9, transmittance_threshold=thr,
+              max_hits=K, cluster=cluster, tile=tile, alive=alive,
+              check_every=ce, t_split=t_split, window_mode=wmode,
+              secondary_static=ss)
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(DESIGN))
 def test_kernel_matches_reference(case, cuda):
+    call = _design_call if case in DESIGN else (
+        lambda c, dev, fn: _call(CASES[c], dev, fn))
     before = render_culled.launches
-    out = _call(CASES[case], cuda, render_culled)
+    out = call(case, cuda, render_culled)
     torch.cuda.synchronize()
     assert render_culled.launches == before + 1
-    ref = _call(CASES[case], cuda, render_culled_reference)
-    out, ref = out.cpu().numpy(), ref.cpu().numpy()
-    f = slice(0, layout.OUT_NUMACC)
-    np.testing.assert_allclose(out[:, f], ref[:, f], rtol=1e-4, atol=5e-5)
-    np.testing.assert_array_equal(out[:, layout.OUT_NUMACC:],
-                                  ref[:, layout.OUT_NUMACC:])
+    ref = call(case, cuda, render_culled_reference)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert (ref[:, layout.OUT_NUMACC] > 0).any()
+    if case in DESIGN and DESIGN[case][7] == "exits":
+        chunks = ref[::64, layout.OUT_CHUNKS].tolist()
+        assert chunks == exit_tile_chunks(0, DESIGN[case][13])
 
 
 def test_wrapper_checks_inputs(cuda):

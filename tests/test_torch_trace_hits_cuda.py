@@ -329,6 +329,136 @@ def test_trace_hits_saturation_exits(where, cuda):
         assert ref[6][tile * C].item() == want, (tile, n)
 
 
+
+# The walk's design cases for the render and slots kernels, which share it
+# (tests/test_torch_render_kernel_cuda.py, tests/test_torch_train_cuda.py).
+
+
+@functools.cache
+def _tables(device, cluster):
+    """gpack, cluster bounds, and the slots kernel's attribute and frame
+    tables of _scene's room in the culled layout."""
+    _f, _a, gpack, cull, _s, _p = tr.prepare_render_inputs(
+        _scene(device), rt.RenderSettings(), True, True, 256, cluster, 16)
+    return gpack, cull["bounds"], cull["table"], cull["ftable"]
+
+
+def walk_design_inputs(device, rays, cluster, tile, n_rays, n_gauss, lists,
+                       special):
+    """(rays_o, rays_d, gpack, table, ftable, candidates, cand_near, near)
+    of a walk design case.  rays: "primary" (one origin), "reflected", or
+    "mixed" (primary, with one ray of every other block moved off the eye:
+    blocks that share an origin beside blocks that do not).  lists:
+    "select" (select_candidates, 24 a tile), "hand" (random lists of 20
+    holding the all-invalid cluster 7 and empty entries, near distances
+    ascending, so that tiles stop on their K-th hit) or "all" (every
+    cluster for every tile at near -INF: every pair tested).  special: ""
+    or "ties", "invalid_cluster", "thin" as in DESIGN.  n_gauss not a
+    multiple of 4 stages with 4-byte copies."""
+    gpack, bounds, table, ftable = _tables(
+        device, cluster if lists == "select" else 256)
+    gpack = gpack[:, :n_gauss].clone()
+    table, ftable = table[:n_gauss].contiguous(), ftable[:n_gauss].contiguous()
+    o, d = _rays("reflected" if rays == "reflected" else "primary", device,
+                 n_rays)
+    if rays == "mixed":
+        o = o.clone()
+        o[tile::2 * tile] += torch.tensor([0.0, 1e-3, 0.0], device=device)
+    if special == "ties":
+        gpack[:, 1::2] = gpack[:, 0::2]
+        half = n_gauss // 2
+        gpack[:, half:2 * half] = gpack[:, :half]
+    if special == "invalid_cluster":
+        gpack[ROW_VALID, 7 * cluster:8 * cluster] = 0.0
+    if special == "thin":
+        _make_thin(gpack, o, d)
+    gpack = gpack.contiguous()
+    near = 0.0 if rays == "reflected" else 0.05
+    T, nc = n_rays // tile, n_gauss // cluster
+    if lists == "select":
+        cands, cnear, _n, _o, _t = culling.select_candidates(
+            o, d, bounds, near, FAR, tile=tile, max_clusters=24)
+    elif lists == "hand":
+        rng = np.random.default_rng(9)
+        lst = rng.integers(0, nc, size=(T, 20))
+        lst[:, 3] = 7
+        lst[rng.uniform(size=(T, 20)) < 0.15] = -1
+        cands = torch.tensor(lst, dtype=torch.int32, device=device)
+        cnear = torch.tensor(np.sort(rng.uniform(0.0, 8.0, size=(T, 20)),
+                                     axis=1), dtype=torch.float32,
+                             device=device)
+    else:
+        cands = torch.arange(nc, dtype=torch.int32, device=device).expand(
+            T, nc).contiguous()
+        cnear = torch.full((T, nc), -np.inf, device=device)
+    return o, d, gpack, table, ftable, cands, cnear, near
+
+
+def mixed_alive(n_rays, tile, device):
+    """Every third ray dead, and the last block wholly dead."""
+    alive = (torch.arange(n_rays, device=device) % 3) != 0
+    alive[-tile:] = False
+    return alive
+
+
+# the exit tiles: where the heavy cluster stands in each tile's list of 8
+# (None: light clusters only), and whether every fourth ray of the tile is
+# dead; then a tile of dead rays
+EXIT_TILES = ([(p, False) for p in range(8)] + [(None, False), (2, True)])
+
+
+def exit_tile_inputs(device, tile=64):
+    """Tiles of `tile` copies of one primary ray over lists of 8 clusters of
+    256 (EXIT_TILES): clusters the ray misses (light) and, at one position,
+    a cluster that saturates it alone (heavy); near distances -INF, and a
+    threshold of half the heavy cluster's log T, so that every tile can stop
+    only on saturation, at each position in turn.  Returns (rays_o, rays_d,
+    gpack, table, ftable, candidates, cand_near, alive, threshold)."""
+    gpack, _b, table, ftable = _tables(device, 256)
+    C = 256
+    nc = gpack.shape[1] // C
+    o, d = _rays("primary", device, 1280)
+    ray = 16 * 40 + 20                           # near the frame's centre
+    oo, dd = _one_ray_tiles(o, d, [ray] * nc, C)
+    alone = trace_hits_reference(
+        oo, dd, gpack, torch.arange(nc, dtype=torch.int32,
+                                    device=device)[:, None],
+        torch.full((nc, 1), -np.inf, device=device), 0.05, FAR, 3.0, 0.0,
+        0.1, 0.9, transmittance_threshold=0.0, max_hits=16, cluster=C,
+        tile=C)
+    log_c = alone[5].view(nc, C)[:, 0]
+    n_valid = gpack[ROW_VALID].view(nc, C).sum(dim=1)
+    heavy = int(torch.argmin(log_c))
+    light = [c for c in range(nc)
+             if log_c[c].item() == 0.0 and n_valid[c].item() > 0]
+    assert log_c[heavy].item() < -0.5 and light
+    lists = [[heavy if i == pos else light[0] for i in range(8)]
+             for pos, _dead in EXIT_TILES] + [[heavy] * 8]
+    n_tiles = len(lists)
+    oo, dd = _one_ray_tiles(o, d, [ray] * n_tiles, tile)
+    alive = torch.ones(n_tiles * tile, dtype=torch.bool, device=device)
+    for i, (_pos, dead) in enumerate(EXIT_TILES):
+        if dead:
+            alive[i * tile:(i + 1) * tile:4] = False
+    alive[-tile:] = False
+    cands = torch.tensor(lists, dtype=torch.int32, device=device)
+    cnear = torch.full(cands.shape, -np.inf, device=device)
+    thr = float(np.exp(log_c[heavy].item() / 2))
+    return oo, dd, gpack, table, ftable, cands, cnear, alive, thr
+
+
+def exit_tile_chunks(exit_mode, check_every):
+    """The processed clusters each exit tile counts (all hold valid
+    Gaussians): a tile stops at the first vote after its heavy cluster, and
+    in exit mode 0 a dead ray never counts as done."""
+    out = []
+    for pos, dead in EXIT_TILES:
+        if pos is None or (dead and exit_mode == 0):
+            out.append(8)
+        else:
+            out.append(min(8, -(-(pos + 1) // check_every) * check_every))
+    return out + [0]
+
 def test_trace_hits_wrapper_checks_inputs(cuda):
     gpack, bounds = _gpack(cuda, 256)
     o, d = _rays("primary", cuda, 1280)

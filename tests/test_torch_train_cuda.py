@@ -11,6 +11,15 @@ only PyTorch:
 (--noconftest: the suite's conftest imports jax.)  The tests carry the
 `cuda` marker.
 
+The slots trace is held to its plain version on cases of the step's own
+passes (both exit modes) and on design cases aimed at the walk it shares
+with trace_hits and render_culled (csrc/trace_hits_walk.cuh): clusters of
+50 (padded to 52, staged with 4-byte copies), empty list entries and an
+all-invalid cluster, exact depth ties, blocks of one origin beside blocks
+of several, Gaussians thin enough that |ld|^2 passes 2^126 (the walk's
+division), the backfacing test gated on `secondary`, and saturation exits
+before every position of a list in exit modes 0 and 1, with dead rays.
+
 Tolerances: slots and counters equal (the kernel and the plain version
 share float32 pair math without FMA, float64 exp/log1p and float64 sums,
 and sort the kept hits by (t, id)); the scatter's float64 sums rounded once
@@ -44,6 +53,12 @@ from editable_gaussian_reflections_tpu_torch.scene import gaussian_scene as gs
 from editable_gaussian_reflections_tpu_torch.utils.synth import (
     room_camera,
     room_scene,
+)
+from test_torch_trace_hits_cuda import (
+    exit_tile_chunks,
+    exit_tile_inputs,
+    mixed_alive,
+    walk_design_inputs,
 )
 
 # every test here needs the card; each decides in the `cuda` fixture
@@ -109,18 +124,72 @@ def _slots(case, device, fn):
               check_every=ce)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+# (rays, K, cluster, tile, ray count, Gaussian count, exp_power, lists,
+# special, secondary_static, secondary, exit_mode, alive, check_every):
+# walk_design_inputs' rays, lists and special; lists "exits" are
+# exit_tile_inputs' tiles of 64 rays (the other shape fields unused)
+DESIGN = {
+    "walk_k32_c50_tile100_hand_v4": ("primary", 32, 50, 100, 1000, 4050, 3.0,
+                                     "hand", "invalid_cluster", 0, 0.0, 0,
+                                     False, 8),
+    "walk_k16_c50_reflected_pow2_hand_v1": ("reflected", 16, 50, 200, 1000,
+                                            4050, 2.0, "hand",
+                                            "invalid_cluster", -1, 1.0, 1,
+                                            True, 2),
+    "walk_k16_ties_all_v1": ("primary", 16, 256, 256, 512, 4096, 2.0, "all",
+                             "ties", 0, 0.0, 1, False, 2),
+    "walk_k32_mixed_origin_pow2_5_v4": ("mixed", 32, 128, 128, 1024, 4096,
+                                        2.5, "select", "", 0, 0.0, 0, False,
+                                        8),
+    "walk_k16_thin_all_v4": ("primary", 16, 256, 256, 768, 4096, 3.0, "all",
+                             "thin", 0, 0.0, 0, False, 8),
+    "walk_k32_reflected_gate_off_v4": ("reflected", 32, 128, 128, 1024, 4096,
+                                       3.0, "select", "", -1, 0.0, 0, True,
+                                       8),
+    "walk_k16_exits_v4": ("primary", 16, 256, 64, 0, 0, 3.0, "exits", "", 0,
+                          0.0, 0, True, 1),
+    "walk_k32_exits_v1": ("primary", 32, 256, 64, 0, 0, 3.0, "exits", "", 0,
+                          0.0, 1, True, 2),
+}
+
+
+def _design_slots(case, device, fn):
+    (kind, K, cluster, tile, n_rays, n_gauss, exp_power, lists, special, ss,
+     secondary, exit_mode, with_alive, ce) = DESIGN[case]
+    thr = 0.01
+    if lists == "exits":
+        o, d, gpack, table, ftable, cands, cnear, alive, thr = (
+            exit_tile_inputs(device, tile))
+        near = 0.05
+    else:
+        o, d, gpack, table, ftable, cands, cnear, near = walk_design_inputs(
+            device, kind, cluster, tile, n_rays, n_gauss, lists, special)
+        alive = mixed_alive(n_rays, tile, device) if with_alive else None
+    return fn(o, d, gpack, table, ftable, cands, cnear, near, FAR, exp_power,
+              secondary, 10.0 if ss else 0.1, 0.9,
+              transmittance_threshold=thr, max_hits=K, cluster=cluster,
+              tile=tile, alive=alive, secondary_static=ss,
+              exit_mode=exit_mode, check_every=ce)
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(DESIGN))
 def test_trace_slots_kernel_matches_reference(case, cuda):
+    call = _design_slots if case in DESIGN else (
+        lambda c, dev, fn: _slots(CASES[c], dev, fn))
     before = trace_slots.launches
-    slots, acc = _slots(CASES[case], cuda, trace_slots)
+    slots, acc = call(case, cuda, trace_slots)
     torch.cuda.synchronize()
     assert trace_slots.launches == before + 1
-    ref_slots, ref_acc = _slots(CASES[case], cuda, trace_slots_reference)
+    ref_slots, ref_acc = call(case, cuda, trace_slots_reference)
     torch.testing.assert_close(acc, ref_acc, rtol=0, atol=0)
     torch.testing.assert_close(slots, ref_slots, rtol=0, atol=0)
-    K = CASES[case][0]
+    K = DESIGN[case][1] if case in DESIGN else CASES[case][0]
     t = slots.reshape(-1, layout.SLOT_BLOCKS, K)[:, layout.SLOT_T]
     assert (t < 1e37).any()
+    if case in DESIGN and DESIGN[case][7] == "exits":
+        chunks = ref_acc[::64, 2].tolist()
+        assert chunks == exit_tile_chunks(DESIGN[case][11],
+                                          DESIGN[case][13])
 
 
 def test_trace_slots_wrapper_checks_inputs(cuda):
