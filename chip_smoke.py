@@ -38,7 +38,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
      of its compiled kernel in both exit modes.  5b: trace_slots
      in exit mode 1 (pallas_trace_slots' pairs, check_every 2) on the same
      primary batch: timed, its bound, held against its plain version on the
-     first CHECK_TILES tiles;
+     first CHECK_TILES tiles.  Phase 5 requires equal ids and counters on
+     every ray (exact depth ties included); phases 4, 11 and 12 print the
+     share of rays equal, and every phase lists the rays that differ;
   6. one small training step (64x64, room_scene(4096)) on cuda and on cpu
      with the same samples: new params, moments and metrics equal;
   7. the full-width training step: 1 warm-up and 3 timed train_steps from
@@ -53,6 +55,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      tensors at 128x128, room_scene(16384): composite_mode scan (direct pair
      math) and scanq (quadric), counters on and off, bf16 attributes; then
      one 64x64 2-bounce frame in each scan mode on cuda and on cpu, equal;
+     the compiled kernel's registers, spilled bytes, shared memory and
+     resident blocks per SM (what the runtime reports);
   9. the inference fast path at full width, room_scene(100_000), 800x800,
      2 bounces: (a) bench.py's configuration (artifacts/bench_best.json,
      written out below: scanq, counters off, bf16 attributes, cluster 128,
@@ -63,7 +67,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
      tonemapped PSNR against scanq; (b) measure_fps() at the Config defaults
      (scanq, cluster 256, 192 candidates, counters off) over 8 views
      orbiting room_camera, with the kernels' launch counts and the scan
-     kernel's ms per pass against its bound, primary and reflected;
+     kernel's ms per pass against its bound and no-FMA issue floor (the
+     ray-independent terms counted once per Gaussian on blocks of one
+     origin), primary and reflected, and what the runtime reports of the
+     kernels of (a) and (b);
  10. the non-fused trace kernel (trace_hits) vs its plain version at 128x128,
      room_scene(16384), on the renderer's own passes: brute and culled,
      primary and reflected, and a brute pass of a ragged ray count (1000);
@@ -132,7 +139,6 @@ import numpy as np
 import torch
 
 from editable_gaussian_reflections_tpu_torch import training as tr
-from editable_gaussian_reflections_tpu_torch.config import Config
 from editable_gaussian_reflections_tpu_torch.measure_fps import measure_fps
 from editable_gaussian_reflections_tpu_torch.ops.cuda import build
 from editable_gaussian_reflections_tpu_torch.ops.cuda.layout import (
@@ -168,6 +174,7 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.sort_slots import (
     sort_slots_aux_reference,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.scan_kernel import (
+    kernel_info as scan_kernel_info,
     render_scan,
     render_scan_reference,
 )
@@ -206,16 +213,19 @@ from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
 from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
 )
-from editable_gaussian_reflections_tpu_torch.scene.cameras import Camera
 from editable_gaussian_reflections_tpu_torch.tools import (
     bench_v5,
     bench_vpu_dtype,
 )
 from editable_gaussian_reflections_tpu_torch.tools.fused_setup import (
+    BENCH_KW,
+    BENCH_SETTINGS,
+    N_FPS_VIEWS,
     TRAIN_H,
     TRAIN_W,
     device_time_us,
     eval_frame,
+    fast_path,
     first_two_passes,
     profile_device,
     time_frames,
@@ -230,8 +240,6 @@ from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
     NF_RENDER_N,
     NF_W,
     TRAIN_N,
-    ZFAR,
-    ZNEAR,
     eval_render,
     first_trace_calls,
     render_trace_calls,
@@ -239,7 +247,6 @@ from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
     step_trace_calls,
     training_step,
 )
-from editable_gaussian_reflections_tpu_torch.utils.synth import room_camera
 
 ROOT = Path(__file__).resolve().parent
 SETTINGS = RenderSettings()
@@ -254,25 +261,18 @@ FLOPS_PER_PAIR = 60    # ray x Gaussian pair math, counted from the source
 # (18) and |lo|^2 (5); where a tile's rays share one origin (a primary
 # pass) it is needed once per Gaussian the tile tests, not once per pair
 FLOPS_ORIGIN = 26
-# the scan kernel's float32 work per ray x Gaussian pair, counted from
-# csrc/trace_tile.cuh (pair_direct: 3 + 36 + 15 + 7) and csrc/render_scan.cu
-# (pair_quadric: 3 + 11 + 17 + 21 + 7); per composited hit only, the
-# opacity and the float64 sums come on top
-FLOPS_PER_PAIR_SCAN = {"scan": 61, "scanq": 59}
+# the scan kernel's float32 work per ray x Gaussian pair and, of it, the
+# part a shared origin needs once per Gaussian (scan_flops), counted from
+# csrc/render_scan.cu: direct, the k-buffer walks' group_pairs (as above);
+# quadric, quadric_group - the doubled weights 3, dot_ll 11, dot_ol 17,
+# dot_oo 21 and the rest 6 - of which dot_oo's 21 (prepare_cluster).  Per
+# composited hit only, the opacity and the float64 sums come on top
+FLOPS_SCAN = {"scan": (FLOPS_PER_PAIR, FLOPS_ORIGIN), "scanq": (58, 21)}
 # the kernel-vs-plain checks of the repaired rows run on this many tiles
 CHECK_TILES = 256
-# bench.py's render configuration, artifacts/bench_best.json written out:
-# "mc": "128:768:256:256:tc3" (primary:secondary candidates, primary:
-# secondary cull tiles, throughput cutoff 1e-3), K 16, cluster 128, scanq,
-# counters off, bf16 attributes
-BENCH_KW = dict(max_hits=16, cull_cluster=128, max_clusters=128,
-                max_clusters_secondary=768, cull_tile_secondary=256,
-                composite_mode="scanq", kernel_stats=False,
-                attr_precision="bf16")
-BENCH_SETTINGS = SETTINGS._replace(secondary_throughput_threshold=1e-3)
-# the fast path's frame and scene (bench.py's): 800x800, room_scene(100_000)
+# the fast path's frame and scene (bench.py's): 800x800, room_scene(100_000);
+# its configurations are tools/fused_setup.py's (BENCH_KW, fast_path)
 FAST_SIZE, FAST_N = 800, 100_000
-N_FPS_VIEWS = 8
 # the training step's configuration (tools/fused_setup.py): the Config
 # defaults train.py uses
 N_TIMED_STEPS = 3
@@ -331,30 +331,6 @@ def psnr_tonemapped(a, b, mask=None) -> float:
     return math.inf if mse == 0.0 else 10.0 * math.log10(1.0 / mse)
 
 
-def orbit_views(n: int, width: int, height: int) -> list:
-    """`n` scene cameras (scene/cameras.py) circling the room's vertical
-    axis around room_camera's pose, +-0.25 rad, the z-planes of the smoke's
-    frames: the views measure_fps renders."""
-    eye, c2w = room_camera()
-    views = []
-    blank = np.zeros((height, width, 3), np.float32)
-    for i in range(n):
-        a = -0.25 + 0.5 * i / max(1, n - 1)
-        rz = np.array([[math.cos(a), -math.sin(a), 0.0],
-                       [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]])
-        c2w_i, eye_i = rz @ c2w, rz @ eye
-        # Camera.render_pose negates R and then its first column again
-        R = -c2w_i
-        R[:, 0] = c2w_i[:, 0]
-        T = -R.T @ eye_i
-        fov_x = 2.0 * math.atan(math.tan(0.45) * width / height)
-        view = Camera(colmap_id=i, R=R, T=T, FoVx=fov_x, FoVy=0.9,
-                      image=blank, image_name=f"orbit_{i}", uid=i)
-        view.znear, view.zfar = ZNEAR, ZFAR
-        views.append(view)
-    return views
-
-
 def compare_lanes(out, ref) -> dict:
     """Float lanes against rtol 1e-4 / atol 1e-4*scale; counter lanes
     (accumulated, traversed, chunks) per ray."""
@@ -365,7 +341,16 @@ def compare_lanes(out, ref) -> dict:
     same = (out[:, OUT_NUMACC:] == ref[:, OUT_NUMACC:]).all(dim=1)
     return dict(max_abs_err=err.max().item(), float_ok=bool(ok.all()),
                 counters_equal=same.float().mean().item(),
+                bit_equal=(out == ref).all(dim=1).float().mean().item(),
                 finite=bool(torch.isfinite(out).all()))
+
+
+def differing_lanes(out, ref) -> list:
+    """The first rays (at most 10) whose output lanes are not the plain
+    version's bit for bit, each with its lanes on both sides."""
+    rows = torch.nonzero((out != ref).any(dim=1)).flatten()[:10].tolist()
+    return [f"ray {i}: kernel {out[i].tolist()}, plain {ref[i].tolist()}"
+            for i in rows]
 
 
 def check_lanes(where: str, cmp: dict) -> None:
@@ -402,13 +387,14 @@ def bound(flops: float, peak_flops: float, nbytes: float) -> tuple:
                                                               "bytes")
 
 
-def walk_flops(rays_o, pairs_per_ray, tile: int) -> float:
+def walk_flops(rays_o, pairs_per_ray, tile: int, per_pair=FLOPS_PER_PAIR,
+               origin=FLOPS_ORIGIN) -> float:
     """The float32 flops the k-buffer pair math needs on one pass, per tile
     of `tile` rays (the kernels' blocks; a last partial tile is counted on
-    its rays alone): where the tile's origins differ, FLOPS_PER_PAIR per
-    pair; where they are one, bit for bit (the test trace_hits' walk makes),
-    FLOPS_PER_PAIR - FLOPS_ORIGIN per pair and FLOPS_ORIGIN per Gaussian
-    the tile tests (its largest per-ray count)."""
+    its rays alone): where the tile's origins differ, `per_pair` per pair;
+    where they are one, bit for bit (the test the walks make), per_pair -
+    origin per pair and `origin` per Gaussian the tile tests (its largest
+    per-ray count)."""
     o = rays_o.to(torch.float32).contiguous().view(torch.int32)
     pairs = pairs_per_ray.to(torch.float64).reshape(-1)
     pad = -o.shape[0] % tile
@@ -419,9 +405,16 @@ def walk_flops(rays_o, pairs_per_ray, tile: int) -> float:
     shared = (o == o[:, :1]).all(dim=2).all(dim=1)
     per_tile = pairs.sum(dim=1)
     flops = torch.where(
-        shared, (FLOPS_PER_PAIR - FLOPS_ORIGIN) * per_tile
-        + FLOPS_ORIGIN * pairs.max(dim=1).values, FLOPS_PER_PAIR * per_tile)
+        shared, (per_pair - origin) * per_tile
+        + origin * pairs.max(dim=1).values, per_pair * per_tile)
     return flops.sum().item()
+
+
+def scan_flops(rays_o, pairs_per_ray, tile: int, mode: str) -> float:
+    """walk_flops for the scan kernel's pair math in `mode` (FLOPS_SCAN):
+    its blocks make the same shared-origin test."""
+    per_pair, origin = FLOPS_SCAN[mode]
+    return walk_flops(rays_o, pairs_per_ray, tile, per_pair, origin)
 
 
 def nbytes(*tensors) -> int:
@@ -430,8 +423,9 @@ def nbytes(*tensors) -> int:
 
 
 def compare_slots(slots, acc, ref_slots, ref_acc, K) -> dict:
-    """Slots against the plain version's: ids and counters per ray (>=
-    99.9% equal, phase 2's rule), and on the rays where they are equal each
+    """Slots against the plain version's: ids and counters per ray (the
+    share of rays where they are equal; phase 5 requires all, and lists
+    the others, `differ`), and on the rays where they are equal each
     float block (t, alpha, each attribute and frame field) to rtol 1e-4 /
     atol 1e-4*scale with the scale of that block alone, as the CPU test
     takes it, and log-T likewise; empty slots are INF on both sides."""
@@ -439,9 +433,12 @@ def compare_slots(slots, acc, ref_slots, ref_acc, K) -> dict:
     r = ref_slots.reshape(-1, SLOT_BLOCKS, K)
     same = ((s[:, SLOT_ID] == r[:, SLOT_ID]).all(dim=1)
             & (acc[:, 1:3] == ref_acc[:, 1:3]).all(dim=1))
+    differ = [show_ray(i, s[i, SLOT_T], r[i, SLOT_T], s[i, SLOT_ID],
+                       r[i, SLOT_ID])
+              for i in torch.nonzero(~same).flatten()[:10].tolist()]
     if not bool(same.any()):
         return dict(max_abs_err=math.inf, float_ok=False, counters_equal=0.0,
-                    finite=bool(torch.isfinite(acc).all()))
+                    finite=bool(torch.isfinite(acc).all()), differ=differ)
     a, b, acc, ref_acc = s[same], r[same], acc[same], ref_acc[same]
     valid = b[:, SLOT_T] < 1e37
     a[:, SLOT_T] = torch.where(valid, a[:, SLOT_T], 0.0)
@@ -454,7 +451,23 @@ def compare_slots(slots, acc, ref_slots, ref_acc, K) -> dict:
     return dict(max_abs_err=max(err.max().item(),
                                 (acc - ref_acc).abs().max().item()),
                 float_ok=ok, counters_equal=same.float().mean().item(),
-                finite=bool(torch.isfinite(acc).all()))
+                finite=bool(torch.isfinite(acc).all()), differ=differ)
+
+
+def show_ray(i: int, t, ref_t, ids, ref_ids) -> str:
+    """Where a ray's kept ids differ from the plain version's (as
+    tools/slot_ties.py shows them): the slots, their depths and both ids,
+    and whether both keep the same depths bit for bit (an exact tie)."""
+    other = ids != ref_ids
+    tie = bool(torch.equal(t, ref_t))
+    return (f"ray {i}: slots {torch.nonzero(other).flatten().tolist()} at t "
+            f"{t[other].tolist()}: kernel ids {ids[other].int().tolist()}, "
+            f"plain ids {ref_ids[other].int().tolist()}; same depths: {tie}")
+
+
+def print_differing(where: str, cmp: dict) -> None:
+    for line in cmp.get("differ", []):
+        print(f"{where}: {line}", flush=True)
 
 
 def states_equal(a, b) -> list:
@@ -480,19 +493,24 @@ def state_finite(state) -> bool:
 def scan_pass_numbers(calls, mode: str, compare: bool) -> dict:
     """The scan kernel on a frame's primary and first reflected pass: ms
     per pass (CUDA events), the pairs it tests (a counters-on run: lane 14),
-    its bound, and - with `compare` - its plain version on the whole pass,
-    held to the kernel."""
+    its bound and no-FMA issue floor (scan_flops: the ray-independent terms
+    once per Gaussian on blocks of one origin), and - with `compare` - its
+    plain version on the whole pass, held to the kernel."""
     res = {}
     for name, call in zip(("primary", "reflected"), calls):
         ms = cuda_ms(lambda: render_scan(*call.args, **call.kwargs), reps=5)
         counted = render_scan(*call.args, **dict(call.kwargs, stats=True))
         pairs = counted[:, OUT_TRAV].sum().item()
+        flops = scan_flops(call.args[0], counted[:, OUT_TRAV],
+                           call.kwargs["tile"], mode)
         b_ms, b_by = bound(
-            pairs * FLOPS_PER_PAIR_SCAN[mode], PEAK_FP32,
+            flops, PEAK_FP32,
             nbytes(call.args[0], call.args[1], call.args[2].table,
                    call.args[3], call.kwargs["alive"], counted))
         res.update({f"{name}_ms": ms, f"{name}_pairs": pairs,
+                    f"{name}_flops": flops,
                     f"{name}_bound_ms": b_ms, f"{name}_bound_by": b_by,
+                    f"{name}_floor_ms": flops / FP32_LANES_S * 1e3,
                     f"{name}_rays": call.args[0].shape[0]})
         if compare:
             out = render_scan(*call.args, **call.kwargs)
@@ -562,27 +580,25 @@ def phase_scan_small(dev, record) -> None:
     record.update(phase8_kernel_vs_plain=res, phase8_frames=frames)
     print("phase 8: 64x64 2-bounce scan and scanq frames, cuda vs cpu: "
           "every output equal", flush=True)
+    info = scan_info((("scan c128 counters", "scan", True, "highest", 128),
+                      ("scanq c64 bf16", "scanq", False, "bf16", 64)))
+    record["phase8_scan_kernel"] = info
+    print_kernel_info("phase 8", "render_scan", info, "tile 256")
 
 
 def phase_fast_path(dev, record, smi) -> dict:
     """Phase 9: the inference fast path at full width.  Returns the
     numbers the kernels line takes."""
-    W = H = FAST_SIZE
-    scene, camera = room(FAST_N, dev)
+    fp = fast_path(dev, str(ROOT / "chiprun_out" / "fps_model"))
+    W, H, scene, camera, gen = fp.W, fp.H, fp.scene, fp.camera, fp.gen
+    samples = fp.samples
     res = {"bench": {}, "fps": {}}
-    gen = torch.Generator(device=dev).manual_seed(5)
-    samples = draw_samples(gen, W, H, 3)
 
     # (a) bench.py's configuration: per-pass kernel numbers for both pair
     # maths, then the frames
     for mode in ("scanq", "scan"):
-        kw = dict(BENCH_KW, composite_mode=mode)
-        if mode == "scan":
-            kw["attr_precision"] = "highest"   # bf16 comes with scanq only
-        calls = first_two_passes(scene, camera, W, H, samples, kw,
-                                 BENCH_SETTINGS)
-        res["bench"][mode] = scan_pass_numbers(calls, mode, compare=True)
-        del calls
+        res["bench"][mode] = scan_pass_numbers(fp.calls[f"bench {mode}"],
+                                               mode, compare=True)
     frame_kw = dict(num_bounces=2, **BENCH_KW)
     frames = {}
     for mode in ("scanq", "scan", "kbuffer"):
@@ -657,9 +673,11 @@ def phase_fast_path(dev, record, smi) -> dict:
         print(f"phase 9a: render_scan {mode} per pass: primary "
               f"{n['primary_ms']:.3f} ms ({n['primary_pairs']:.4g} pairs, "
               f"bound {n['primary_bound_ms']:.3f} ms by "
-              f"{n['primary_bound_by']}), reflected {n['reflected_ms']:.3f} "
-              f"ms ({n['reflected_pairs']:.4g} pairs, bound "
-              f"{n['reflected_bound_ms']:.3f} ms)"
+              f"{n['primary_bound_by']}, no-FMA floor "
+              f"{n['primary_floor_ms']:.3f} ms), reflected "
+              f"{n['reflected_ms']:.3f} ms ({n['reflected_pairs']:.4g} "
+              f"pairs, bound {n['reflected_bound_ms']:.3f} ms, floor "
+              f"{n['reflected_floor_ms']:.3f} ms)"
               + (f"; plain {n['primary_plain_ms']:.1f} / "
                  f"{n['reflected_plain_ms']:.1f} ms, max_abs_err "
                  f"{n['primary_compare']['max_abs_err']:.3g} / "
@@ -671,22 +689,19 @@ def phase_fast_path(dev, record, smi) -> dict:
           f"k-buffer frame: scanq {q['psnr_vs_kbuffer_db']:.2f} dB, scan "
           f"{frames['scan']['psnr_vs_kbuffer_db']:.2f} dB [{smi}]",
           flush=True)
+    res["bench_kernel"] = info = scan_info((
+        ("scanq c128 bf16", "scanq", False, "bf16", 128),
+        ("scan c128", "scan", False, "highest", 128)))
+    print_kernel_info("phase 9a", "render_scan", info, "tile 256")
 
     # (b) measure_fps at the Config defaults
-    cfg = Config()
-    cfg.composite_mode = "scanq"        # measure_fps.main's default
-    cfg.model_path = str(ROOT / "chiprun_out" / "fps_model")
+    cfg = fp.cfg
     Path(cfg.model_path).mkdir(parents=True, exist_ok=True)
-    fps_kw = dict(max_hits=cfg.max_hits, cull_cluster=cfg.cull_cluster,
-                  max_clusters=cfg.max_clusters, composite_mode="scanq",
-                  kernel_stats=False)
-    calls = first_two_passes(scene, camera, W, H, samples, fps_kw,
-                             tr.settings_from_config(cfg))
-    res["fps"]["scanq"] = scan_pass_numbers(calls, "scanq", compare=True)
-    del calls
-    views = orbit_views(N_FPS_VIEWS, W, H)
+    res["fps"]["scanq"] = scan_pass_numbers(fp.calls["fps scanq"], "scanq",
+                                            compare=True)
+    fp.calls = None
     render_scan.launches = render_culled.launches = 0
-    fps = measure_fps(cfg, views, scene, tr.settings_from_config(cfg))
+    fps = measure_fps(cfg, fp.views, scene, fp.settings)
     launches = (render_scan.launches, render_culled.launches)
     expected = (2 * N_FPS_VIEWS * 3, 0)
     if launches != expected:
@@ -701,13 +716,19 @@ def phase_fast_path(dev, record, smi) -> dict:
           f"at {W}x{H}: {fps:.2f} FPS ({1e3 / fps:.1f} ms/frame); "
           f"render_scan launches {launches[0]}; per pass: primary "
           f"{n['primary_ms']:.3f} ms (bound {n['primary_bound_ms']:.3f} ms "
-          f"by {n['primary_bound_by']}, plain {n['primary_plain_ms']:.1f} "
-          f"ms, max_abs_err {n['primary_compare']['max_abs_err']:.3g}), "
-          f"reflected {n['reflected_ms']:.3f} ms (bound "
+          f"by {n['primary_bound_by']}, no-FMA floor "
+          f"{n['primary_floor_ms']:.3f} ms, plain "
+          f"{n['primary_plain_ms']:.1f} ms, max_abs_err "
+          f"{n['primary_compare']['max_abs_err']:.3g}), reflected "
+          f"{n['reflected_ms']:.3f} ms (bound "
           f"{n['reflected_bound_ms']:.3f} ms by {n['reflected_bound_by']}, "
-          f"plain {n['reflected_plain_ms']:.1f} ms, max_abs_err "
+          f"floor {n['reflected_floor_ms']:.3f} ms, plain "
+          f"{n['reflected_plain_ms']:.1f} ms, max_abs_err "
           f"{n['reflected_compare']['max_abs_err']:.3g}) [{smi}]",
           flush=True)
+    res["fps_kernel"] = info = scan_info((
+        ("scanq c256", "scanq", False, "highest", 256),))
+    print_kernel_info("phase 9b", "render_scan", info, "tile 256")
     res["max_abs_err"] = max(
         r[f"{p}_compare"]["max_abs_err"]
         for r in (res["fps"]["scanq"], res["bench"]["scanq"])
@@ -731,18 +752,21 @@ def hits_subset(args, kwargs, n_tiles: int):
 
 def compare_hits(out, ref) -> dict:
     """trace_hits' outputs against its plain version's (both without the
-    attributes): ids and traversed counts per ray (>= 99.9% of rays equal,
-    phase 2's rule); on the rays where they are, t (empty slots as 0),
+    attributes): ids and traversed counts per ray (the share of rays equal;
+    the others listed, `differ`); on the rays where they are, t (empty
+    slots as 0),
     alpha, gaussval, local hit and log T to rtol 1e-4 / atol 1e-4*scale,
     each with its own scale."""
     t, ids, alpha, gv, lh, log_t, trav = out
     rt_, rids, ralpha, rgv, rlh, rlog_t, rtrav = ref
     same = (ids == rids).all(dim=1) & (trav == rtrav)
+    differ = [show_ray(i, t[i], rt_[i], ids[i], rids[i])
+              for i in torch.nonzero(~same).flatten()[:10].tolist()]
     finite = all(bool(torch.isfinite(x).all()) for x in (alpha, gv, lh,
                                                          log_t))
     if not bool(same.any()):
         return dict(max_abs_err=math.inf, float_ok=False, counters_equal=0.0,
-                    finite=finite)
+                    finite=finite, differ=differ)
     pairs = ((torch.where(t < 1e37, t, 0.0), torch.where(rt_ < 1e37, rt_,
                                                          0.0)),
              (alpha, ralpha), (gv, rgv), (lh, rlh), (log_t, rlog_t))
@@ -754,7 +778,8 @@ def compare_hits(out, ref) -> dict:
         worst = max(worst, err.max().item())
         ok = ok and bool((err <= 1e-4 * b.abs() + 1e-4 * scale).all())
     return dict(max_abs_err=worst, float_ok=ok,
-                counters_equal=same.float().mean().item(), finite=finite)
+                counters_equal=same.float().mean().item(), finite=finite,
+                differ=differ)
 
 
 def trace_pass_numbers(calls, where: str) -> dict:
@@ -785,6 +810,7 @@ def trace_pass_numbers(calls, where: str) -> dict:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         cmp = compare_hits(tuple(x[:rows] for x in out), ref)
+        print_differing(f"{where} trace_hits {name}", cmp)
         check_lanes(f"{where} trace_hits {name}", cmp)
         res[name] = dict(cmp, ms=ms, pairs=pairs, flops=flops, bound_ms=b_ms,
                          bound_by=b_by, floor_ms=floor_ms,
@@ -852,8 +878,21 @@ def walk_kernel_info(kernel: str, exit_modes=(0,)) -> dict:
             for m in exit_modes}
 
 
-def print_kernel_info(where: str, kernel: str, info: dict) -> None:
-    print(f"{where}: {kernel} kernel at tile 256, cluster 256: " + "; ".join(
+def scan_info(configs) -> dict:
+    """What the runtime reports of the scan kernel (render_scan's
+    kernel_info) for each (name, pair math, counters, attribute precision,
+    cluster) of `configs`, on primary passes and on reflected ones (the
+    backfacing test), at exp power 3 and 256-ray blocks."""
+    return {f"{name} {p}": scan_kernel_info(
+        "direct" if mode == "scan" else "quadric", stats, ap, True,
+        p == "reflected", 256, cluster)
+        for name, mode, stats, ap, cluster in configs
+        for p in ("primary", "reflected")}
+
+
+def print_kernel_info(where: str, kernel: str, info: dict,
+                      at: str = "tile 256, cluster 256") -> None:
+    print(f"{where}: {kernel} kernel at {at}: " + "; ".join(
         f"{k}: {v['registers']} registers, {v['local_bytes']} B spilled, "
         f"{v['smem_bytes']} B shared, {v['blocks_per_sm']} blocks per SM"
         for k, v in info.items()), flush=True)
@@ -1438,7 +1477,9 @@ def main() -> None:
         phase4[name] = dict(compare_lanes(out, ref), plain_ms=plain,
                             pairs=out[:, OUT_TRAV].sum().item(),
                             flops=walk_flops(call.args[0], out[:, OUT_TRAV],
-                                             call.kwargs["tile"]))
+                                             call.kwargs["tile"]),
+                            differ=differing_lanes(out, ref))
+        print_differing(f"phase 4 {name}", phase4[name])
         check_lanes(f"phase 4 {name}", phase4[name])
     plain_ms = phase4["primary"]["plain_ms"]
     # ray x Gaussian pairs the primary pass tests: per ray, the valid
@@ -1459,8 +1500,8 @@ def main() -> None:
           f"{phase4['reflected']['plain_ms']:.1f} ms) [{smi}]", flush=True)
     print("phase 4: kernel vs plain at these shapes: " + "; ".join(
         f"{k} max_abs_err {v['max_abs_err']:.3g}, counters equal on "
-        f"{v['counters_equal']:.4%} of rays" for k, v in phase4.items()),
-        flush=True)
+        f"{v['counters_equal']:.4%} of rays, every lane on "
+        f"{v['bit_equal']:.4%}" for k, v in phase4.items()), flush=True)
 
     # -- phase 4b: render_culled in groups of 4 on the same primary pass ----
     ce4_kw = dict(call0.kwargs, check_every=4)
@@ -1582,7 +1623,13 @@ def main() -> None:
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t0) * 1e3
         cmp = compare_slots(out, acc, ref, ref_acc, K)
+        print_differing(f"phase 5 trace_slots {name}", cmp)
         check_lanes(f"phase 5 trace_slots {name}", cmp)
+        if cmp["counters_equal"] < 1.0:
+            raise RuntimeError(f"phase 5 trace_slots {name}: ids or "
+                               f"counters differ from the plain version's "
+                               f"on {1.0 - cmp['counters_equal']:.6%} of "
+                               f"rays")
         n_pairs = acc[:, 1].sum().item()
         flops = walk_flops(call.args[0], acc[:, 1], call.kwargs["tile"])
         b_ms, b_by = bound(flops, PEAK_FP32,
@@ -1858,11 +1905,20 @@ def main() -> None:
         "bound_ms": fast["fps"]["scanq"]["primary_bound_ms"],
         "bound_by": fast["fps"]["scanq"]["primary_bound_by"],
         "library_ms": None,
+        "floor_ms": fast["fps"]["scanq"]["primary_floor_ms"],
         "reflected_ms": fast["fps"]["scanq"]["reflected_ms"],
         "reflected_bound_ms": fast["fps"]["scanq"]["reflected_bound_ms"],
+        "reflected_floor_ms": fast["fps"]["scanq"]["reflected_floor_ms"],
         # the same kernel at bench.py's configuration (phase 9a)
         "bench_ms": fast["bench"]["scanq"]["primary_ms"],
+        "bench_reflected_ms": fast["bench"]["scanq"]["reflected_ms"],
         "direct_ms": fast["bench"]["scan"]["primary_ms"],
+        "direct_reflected_ms": fast["bench"]["scan"]["reflected_ms"],
+        # registers and blocks per SM of the launched kernel (phase 9b)
+        "registers": {k: v["registers"]
+                      for k, v in fast["fps_kernel"].items()},
+        "blocks_per_sm": {k: v["blocks_per_sm"]
+                          for k, v in fast["fps_kernel"].items()},
     }, {
         "name": "trace_hits",
         "route": "cuda",

@@ -1,10 +1,10 @@
 // kbuffer_composite.cuh - the epilogue of a k-buffer render: composite the
 // K kept hits, in (t, id) order, front to back with the truncated-tail
 // correction, and write the [OUT_LANES] row of the ray.  Used by
-// render_culled.cu (kept hits in the walk's shared-memory slot columns,
-// alpha recomputed per hit, attributes from the gpack rows), render_table.cu
-// (kept hits in registers, attributes from an [N, TABLE_A] table) and the
-// measurement kernel tools/grouped_walk.cu (registers, gpack rows).
+// render_culled.cu and render_table.cu (kept hits in the walk's
+// shared-memory slot columns, alpha recomputed per hit, attributes from the
+// gpack rows or an [N, TABLE_A] table) and the measurement kernel
+// tools/grouped_walk.cu (kept hits in registers, gpack rows).
 //
 // Numerics (ops/precision.py): log1p and exp in float64, the transmittance
 // prefix, the weights and every sum in float64, each lane rounded once.

@@ -1,33 +1,16 @@
-// trace_tile.cuh - the first version's culled ray x Gaussian walk, and what
-// the other kernels take from it.  Its walk (trace_tile) is the round-2
-// render's (render_table.cu) and the measurement kernel's
-// (tools/grouped_walk.cu); its pair-math functions are the streaming scan
-// kernel's (render_scan.cu); its sort_slots is the slot-sort kernel's
-// (sort_slots.cu); its gpack row constants and INF / MAX_ALPHA are the
-// k-buffer walk's (trace_hits_walk.cuh), which the eval render
-// (render_culled.cu), the training slots trace (trace_slots.cu) and the
-// non-fused trace (trace_hits.cu) run instead of trace_tile.
+// trace_tile.cuh - what the kernels share beside the k-buffer walk: the
+// gpack row constants and INF / MAX_ALPHA (every walk, trace_hits_walk.cuh
+// included), the slot sort (sort_slots.cu), and the first version's walk
+// pieces that the measurement kernel tools/grouped_walk.cu runs: its params
+// (TraceParams), its pair math as functions, its insertion into register
+// slots and the drain-order walk that decides exact depth ties for it.
 //
-// One block per ray tile, one thread per ray.  The block walks the tile's
-// candidate clusters (nearest first); for each cluster it stages the 22
-// geometry rows of the gpack block ([22, cluster] f32, at most 22.5 KB) in
-// shared memory, and every thread tests its ray against each Gaussian of the
-// cluster (the pair math of the JAX render_kernel.py:_pair_math).  Each
-// thread keeps its K nearest hits (t, alpha, id) in registers with a
-// replace-max insertion, and accumulates the log-transmittance of every
-// valid hit in the processed clusters.  Every `check_every` clusters the
-// block decides, with __syncthreads_and, whether every ray is done and stops
-// if so.  That exit is part of the result (full_T and the counters count
-// only the processed clusters), so it follows the Pallas kernel being
-// reproduced, selected by `exit_mode`:
-//
-//   0  pallas_render_culled_v4/_v3 (tools/grouped_walk.cu): a ray is done
-//      when saturated (log T <= log thr) or when its K-th hit lies before
-//      the group's first candidate; the walk also stops at once when every
-//      ray of the tile is dead.  chunks counts processed clusters holding
-//      any valid Gaussian.
-//   1  pallas_render_culled (render_table.cu, check_every 2): a dead ray
-//      also counts as done; chunks counts every processed cluster.
+// The walk they served (one block per ray tile, a cluster's 22 geometry
+// rows staged in shared memory, the K nearest hits (t, alpha, id) per thread
+// in registers with a replace-max insertion, a vote every `check_every`
+// clusters, exit_mode 0 for pallas_render_culled_v4/_v3 and 1 for
+// pallas_render_culled) is grouped_walk.cu's own copy now: the round-2
+// render (render_table.cu) runs the k-buffer walk.
 //
 // Numerics (ops/precision.py): float32 pair math built without FMA
 // contraction (-fmad=false), exp and pow in float64 rounded once, the
@@ -122,13 +105,11 @@ inline bool init_trace_params(TraceParams& p, const float* rays_o,
   return true;
 }
 
-// The pair math as functions, for the streaming scan kernel
-// (render_scan.cu): the same float operations as trace_tile's inline copy
-// below and trace_hits_walk.cuh's.  trace_tile keeps that copy because
-// routing it through these functions made nvcc schedule the k-buffer walks
-// ~9% slower on an H100 (render_culled primary pass 60.3 -> 65.6 ms,
-// trace_slots 68.9 -> 75.0 ms at the 800x800 / 100k-room shapes, when both
-// walked trace_tile; tools/walk_ab.py).  Keep the three in step.
+// The pair math as functions, for tools/grouped_walk.cu and its
+// drain-order pass (drain_walk): the same float operations as
+// trace_hits_walk.cuh's group_pairs.  The walks do not call them: routing a
+// walk through these functions made nvcc schedule it ~9% slower on an H100
+// (tools/walk_ab.py).  Keep the two in step.
 
 // One ray, as every thread of a walk holds it.
 struct RayState {
@@ -232,27 +213,48 @@ __device__ __forceinline__ bool pair_direct(const TraceParams& p,
   return valid;
 }
 
-// The walk of this thread's ray (blockIdx.x = tile, threadIdx.x = ray in
-// the tile) over the tile's candidates.  sg: dynamic shared memory of
-// N_GEOM_ROWS * cluster floats.  Every thread of the block must call it.
+// Insert a hit at depth t < kth into the register slots: it replaces the
+// first slot holding the K-th depth, and kth becomes the new largest kept
+// depth.  Returns whether another slot held the same finite K-th depth: an
+// exact tie, which the insertion order decides.
+template <int K>
+__device__ __forceinline__ bool insert_slot(float (&st)[K], float (&sa)[K],
+                                            int (&sid)[K], float t,
+                                            float alpha, int id, float& kth) {
+  int win = -1;
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+    if (win < 0 && st[s] >= kth) win = s;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (s == win) {
+      st[s] = t;
+      sa[s] = alpha;
+      sid[s] = id;
+    }
+  }
+  float m = st[0];
+#pragma unroll
+  for (int s = 1; s < K; ++s) m = fmaxf(m, st[s]);
+  const bool tie = m == kth && kth < INF;
+  kth = m;
+  return tie;
+}
+
+// This thread's ray walks the first n_done clusters of its tile's list
+// (`cand`) again, reading gpack itself, into emptied slots, inserting each
+// cluster's hits as the plain version's drain (and the Pallas kernels') do:
+// in ascending (t, lane) order, each replacing the first slot that holds the
+// K-th depth.  A pass over the cluster finds each next hit, so it costs a
+// pass per insertion; a walk takes it only for a ray whose Gaussian-order
+// insertion met an exact tie (insert_slot).
 template <int K, bool CUBE>
-__device__ __forceinline__ void trace_tile(const TraceParams& p, float* sg,
+__device__ __forceinline__ void drain_walk(const TraceParams& p,
+                                           const RayState& ray,
+                                           const int* cand, int n_done,
                                            float (&st)[K], float (&sa)[K],
-                                           int (&sid)[K], double& log_t,
-                                           float& trav, float& chunks) {
-  const int tile = blockDim.x;
-  const int ti = blockIdx.x;
-  const int r = ti * tile + threadIdx.x;
+                                           int (&sid)[K]) {
   const int C = p.cluster;
-
-  const float ox = p.rays_o[3 * r], oy = p.rays_o[3 * r + 1],
-              oz = p.rays_o[3 * r + 2];
-  const float dx = p.rays_d[3 * r], dy = p.rays_d[3 * r + 1],
-              dz = p.rays_d[3 * r + 2];
-  const bool live = p.alive[r] > 0.0f;
-  const float t_split = p.window_mode != 0 ? p.t_split[r] : 0.0f;
-  const float k2 = 2.0f * p.exp_power;
-
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     st[s] = INF;
@@ -260,112 +262,30 @@ __device__ __forceinline__ void trace_tile(const TraceParams& p, float* sg,
     sid[s] = 0;
   }
   float kth = INF;
-  log_t = 0.0;  // log-transmittance over every processed hit
-  trav = 0.0f;
-  chunks = 0.0f;
-
-  const int* cand = p.cand + (size_t)ti * p.mc;
-  const float* cand_near = p.cand_near + (size_t)ti * p.mc;
-  const bool dead_all = __syncthreads_and(!live);
-  const int n_groups = (p.mc + p.check_every - 1) / p.check_every;
-
-  for (int g = 0; g < n_groups && !dead_all; ++g) {
-    const int base = g * p.check_every;
-    const bool finished = (log_t <= (double)p.log_thr) ||
-                          (kth < cand_near[base]) ||
-                          (p.exit_mode == 1 && !live);
-    if (__syncthreads_and(finished)) break;
-
-    for (int j = 0; j < p.check_every; ++j) {
-      const int ci = base + j;
-      const int c = ci < p.mc ? cand[ci] : -1;
-      if (c < 0) continue;  // the same for the whole block
-
-      __syncthreads();  // the previous cluster's readers are done
-      const float* src = p.gpack + (size_t)c * C;
-      for (int i = threadIdx.x; i < N_GEOM_ROWS * C; i += tile) {
-        const int row = i / C;
-        sg[i] = src[(size_t)row * p.n_gauss + (i - row * C)];
-      }
-      __syncthreads();
-
-      double chunk_log_t = 0.0;
-      float chunk_trav = 0.0f, chunk_any = 0.0f;
+  for (int ci = 0; ci < n_done; ++ci) {
+    const int c = cand[ci];
+    if (c < 0) continue;
+    float last_t = -INF;  // the last inserted hit, (t, lane)
+    int last = -1;
+    for (;;) {
+      float next_t = kth, next_alpha = 0.0f;
+      int next = -1;
       for (int k = 0; k < C; ++k) {
-#define G(row) sg[(row) * C + k]
-        const float gvalid = G(ROW_VALID);
-        chunk_trav += gvalid;
-        chunk_any = fmaxf(chunk_any, gvalid);
-
-        const float rx = ox - G(ROW_MEAN);
-        const float ry = oy - G(ROW_MEAN + 1);
-        const float rz = oz - G(ROW_MEAN + 2);
-        float lo[3], ld[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          const float r0 = G(ROW_ROT + i), r1 = G(ROW_ROT + 3 + i),
-                      r2 = G(ROW_ROT + 6 + i);
-          const float inv = G(ROW_INV + i);
-          lo[i] = inv * (r0 * rx + r1 * ry + r2 * rz);
-          ld[i] = inv * (r0 * dx + r1 * dy + r2 * dz);
-        }
-        const float dot_ol = lo[0] * ld[0] + lo[1] * ld[1] + lo[2] * ld[2];
-        const float dot_ll = ld[0] * ld[0] + ld[1] * ld[1] + ld[2] * ld[2];
-        const float dot_oo = lo[0] * lo[0] + lo[1] * lo[1] + lo[2] * lo[2];
-        const float inv_ll = 1.0f / fmaxf(dot_ll, 1e-30f);
-        const float t = -dot_ol * inv_ll;
-        const float sq = dot_oo - dot_ol * dot_ol * inv_ll;
-
-        bool valid = (gvalid > 0.0f) && (dot_ol <= 0.0f) && (sq <= 1.0f) &&
-                     (t > p.near) && (t < p.far) && live;
-        if (p.window_mode == 1) valid = valid && (t < t_split);
-        if (p.window_mode == 2) valid = valid && (t > t_split);
-        if (valid && p.secondary_static != 0) {
-          const float ndotd = G(ROW_NRM) * ld[0] + G(ROW_NRM + 1) * ld[1] +
-                              G(ROW_NRM + 2) * ld[2];
-          const bool reject = (t < p.bf_max_dist) &&
-                              (G(ROW_NLEN) > p.bf_thr) && (ndotd > 0.0f);
-          valid = p.secondary_static == 1 ? !reject
-                                          : (p.secondary <= 0.0f || !reject);
-        }
-        if (!valid) continue;
-
-        const float sqs = fmaxf(sq * G(ROW_SF2), 0.0f);
-        float powered;
-        if (CUBE) {
-          powered = sqs * sqs * sqs;
-        } else if (p.int_power > 0) {
-          powered = sqs;
-          for (int e = 1; e < p.int_power; ++e) powered = powered * sqs;
-        } else {
-          powered = (float)pow((double)sqs, (double)p.exp_power);
-        }
-        const float gaussval = (float)exp((double)(-powered / k2));
-        const float alpha = MAX_ALPHA * gaussval * G(ROW_OPACITY);
-#undef G
-        chunk_log_t += log1p((double)(-alpha));
-
-        if (t < kth) {  // replace the first slot holding the K-th depth
-          int win = -1;
-#pragma unroll
-          for (int s = 0; s < K; ++s)
-            if (win < 0 && st[s] >= kth) win = s;
-#pragma unroll
-          for (int s = 0; s < K; ++s) {
-            if (s == win) {
-              st[s] = t;
-              sa[s] = alpha;
-              sid[s] = c * C + k;
-            }
-          }
-          kth = st[0];
-#pragma unroll
-          for (int s = 1; s < K; ++s) kth = fmaxf(kth, st[s]);
+        const auto G = [&](int row) {
+          return p.gpack[(size_t)row * p.n_gauss + (size_t)c * C + k];
+        };
+        float t, alpha;
+        if (!pair_direct<CUBE>(p, ray, G, G(ROW_VALID), t, alpha)) continue;
+        if (t < next_t && (t > last_t || (t == last_t && k > last))) {
+          next_t = t;
+          next_alpha = alpha;
+          next = k;
         }
       }
-      log_t += chunk_log_t;
-      trav += chunk_trav;
-      chunks += p.exit_mode == 1 ? 1.0f : chunk_any;
+      if (next < 0) break;
+      insert_slot<K>(st, sa, sid, next_t, next_alpha, c * C + next, kth);
+      last_t = next_t;
+      last = next;
     }
   }
 }

@@ -245,11 +245,10 @@ def walk_tiles(
     transmittance_threshold=0.01, max_hits: int = 16, cluster: int = 128,
     tile: int = 256, alive=None, check_every: int = 8, t_split=None,
     window_mode: int = 0, secondary_static: int = -1, exit_mode: int = 0):
-    """Plain version of the k-buffer kernels' walk (csrc/trace_hits_walk.cuh,
-    and csrc/trace_tile.cuh of render_table.cu): the culled walk over each
-    ray tile's candidates with the early exit of `exit_mode` (0: the v4
-    group exit, 1: pallas_trace_slots' pairs with per-ray dead; see the
-    headers).
+    """Plain version of the k-buffer kernels' walk (csrc/trace_hits_walk.cuh):
+    the culled walk over each ray tile's candidates with the early exit of
+    `exit_mode` (0: the v4 group exit, 1: pallas_trace_slots' pairs with
+    per-ray dead; see the header).
 
     Vectorised over ray tiles, looping over candidate groups with a per-tile
     `done` mask.  Yields, per batch of up to REFERENCE_TILES_PER_BATCH

@@ -29,6 +29,7 @@ import torch
 from . import build
 from .layout import N_ROWS, NUM_ATTR, OUT_LANES, TABLE_A
 from .render_kernel import (
+    SHAPES_REFUSED,
     SUPPORTED_K,
     _check,
     _composite,
@@ -124,8 +125,8 @@ def render_culled_table(
     if max_hits not in SUPPORTED_K:
         raise ValueError(f"max_hits={max_hits}: the kernel is built for "
                          f"{SUPPORTED_K}")
-    if R % tile or not 0 < tile <= 1024:
-        raise ValueError(f"tile={tile} must divide R={R} and be <= 1024")
+    if R % tile or not 0 < tile <= 512:
+        raise ValueError(f"tile={tile} must divide R={R} and be <= 512")
     if N % cluster or not 0 < cluster <= 512:
         raise ValueError(f"cluster={cluster} must divide N={N}, <= 512")
     if secondary_static not in (-1, 0, 1):
@@ -153,6 +154,9 @@ def render_culled_table(
             _f32(backfacing_invalid_normal_threshold),
             _f32(transmittance_threshold), _f32(eps_forward_normalization),
             _log_f32(transmittance_threshold), float(exp_power), stream)
+    if err == SHAPES_REFUSED:
+        raise ValueError(f"render_culled_table: no kernel for max_hits="
+                         f"{max_hits}, tile={tile}, cluster={cluster}")
     if err != 0:
         raise RuntimeError(f"render_culled_table kernel launch failed: "
                            f"cudaError {err}")

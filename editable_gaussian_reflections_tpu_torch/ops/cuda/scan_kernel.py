@@ -65,6 +65,7 @@ from .layout import (
     ScanTable,
 )
 from .render_kernel import (
+    SHAPES_REFUSED,
     _check,
     _f32,
     _pair_math,
@@ -76,8 +77,10 @@ from .render_kernel import (
 ATTR_PRECISIONS = ("highest", "bf16")
 # the JAX scan kernels' exit group (pallas_render_culled_v6/_v7's default)
 SCAN_CHECK_EVERY = 8
-# the kernel stages a cluster's rows in shared memory (<= 64 KB)
+# the kernel stages two clusters' rows in shared memory (<= 135 KB), and
+# runs blocks of at most 512 rays (csrc/render_scan.cu, scan_shape_ok)
 MAX_CLUSTER = 512
+MAX_TILE = 512
 # the JAX package runs its scan kernels only while the transposed scan pack
 # fits a TPU core's VMEM (render_kernel_v5.py RESIDENT_TPACK_LIMIT, 128
 # lanes of f32 per Gaussian, the dummy cluster included)
@@ -104,6 +107,35 @@ def _entry_point():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_info(pair_math: str = "quadric", stats: bool = False,
+                attr_precision: str = "highest", cube: bool = True,
+                backfacing: bool = False, tile: int = 256,
+                cluster: int = 256) -> dict:
+    """What the card's runtime reports of the compiled kernel for these
+    options (pair math "direct" or "quadric", counters, bf16 attributes,
+    exp_power 3 or not, the backfacing test of reflected passes) launched
+    with `tile`-ray blocks at `cluster`: registers and spilled (local) bytes
+    per thread, dynamic shared memory per block and resident blocks per SM.
+    Needs a CUDA device."""
+    if pair_math not in ("direct", "quadric"):
+        raise ValueError(f"pair_math={pair_math!r}")
+    fn = build.load("render_scan").egr_render_scan_info
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(0 if pair_math == "direct" else 1, int(stats),
+             int(attr_precision == "bf16"), int(cube), int(backfacing), tile,
+             cluster, ctypes.addressof(out))
+    if err == SHAPES_REFUSED:
+        raise ValueError(f"render_scan: no kernel for tile={tile}, "
+                         f"cluster={cluster}")
+    if err != 0:
+        raise RuntimeError(f"render_scan kernel info failed: cudaError "
+                           f"{err}")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3])
 
 
 def scan_fits(capacity: int, cluster: int) -> bool:
@@ -319,8 +351,9 @@ def render_scan(
 
     R = rays_o.shape[0]
     N = scan.table.shape[0]
-    if R % tile or not 0 < tile <= 1024:
-        raise ValueError(f"tile={tile} must divide R={R} and be <= 1024")
+    if R % tile or not 0 < tile <= MAX_TILE:
+        raise ValueError(f"tile={tile} must divide R={R} and be <= "
+                         f"{MAX_TILE}")
     if N % cluster or not 0 < cluster <= MAX_CLUSTER:
         raise ValueError(f"cluster={cluster} must divide N={N}, <= "
                          f"{MAX_CLUSTER}")
@@ -354,6 +387,9 @@ def render_scan(
             _f32(backfacing_invalid_normal_threshold),
             _f32(transmittance_threshold), _f32(eps_forward_normalization),
             float(exp_power), stream)
+    if err == SHAPES_REFUSED:
+        raise ValueError(f"render_scan: no kernel for tile={tile}, "
+                         f"cluster={cluster}")
     if err != 0:
         raise RuntimeError(f"render_scan kernel launch failed: cudaError "
                            f"{err}")

@@ -1,12 +1,15 @@
 """Time the fused path of one source tree end to end, as chip_smoke.py's
-phases 4 and 7 do: the 800x800 eval frame of room_scene(100_000) through
-dispatch_render_frame (one warm-up, 3 timed and one profiled frame) and the
+phases 4, 7 and 9 do: the 800x800 eval frame of room_scene(100_000) through
+dispatch_render_frame (one warm-up, 3 timed and one profiled frame), the
 768x768 training step on room_scene(175_000) (one warm-up, 3 timed and one
-profiled step), both as tools/fused_setup.py makes them.  Prints one line
-per path: ms per frame or step, the profiled run's device time and its
-k-buffer kernel's share, the starved share, the losses, and a digest of the
-last timed frame and of the state after the timed steps, so that two trees
-can be shown to compute the same.  Needs a CUDA card.
+profiled step), and the fast path on the eval frame's scene: bench.py's
+scanq frame and its scan twin (as the eval frame) and measure_fps() at the
+Config defaults (its warm-up and timed pass over 8 views, twice), all as
+tools/fused_setup.py makes them.  Prints one line per path: ms per frame or
+step (and FPS), the profiled run's device time and its render kernel's
+share, the starved share, the losses, and a digest of the last timed frame
+and of the state after the timed steps, so that two trees can be shown to
+compute the same.  Needs a CUDA card.
 
 To compare two trees, unpack the other one (`git archive`) into a
 directory git ignores and run both in one process sequence, alternating:
@@ -78,6 +81,43 @@ def main(argv: list[str]) -> None:
                                      for tree in ("scene", "mu", "nu")
                                      for name in tr.PARAM_FIELDS)))
     print("FUSED_AB " + json.dumps(res), flush=True)
+    del t, s, st
+    torch.cuda.empty_cache()
+    fast_ab(fs, root, dev)
+
+
+def fast_ab(fs, root: str, dev) -> None:
+    """The fast path's frames and measure_fps (module docstring)."""
+    import torch
+
+    from editable_gaussian_reflections_tpu_torch.measure_fps import (
+        measure_fps)
+
+    model_path = Path(root) / "build" / "fps_model"
+    model_path.mkdir(parents=True, exist_ok=True)
+    fp = fs.fast_path(dev, str(model_path))
+    fp.calls = None
+    for mode in ("scanq", "scan"):
+        e = fp.bench
+        e.frame_kw = dict(e.frame_kw, composite_mode=mode)
+        if mode == "scan":
+            e.frame_kw["attr_precision"] = "highest"
+        f = fs.time_frames(e, 3)
+        dev_ms = sum(f.by_kernel.values())
+        res = dict(tree=root, card=fs.card(), mode=mode, frame_ms=f.ms,
+                   frame_device_ms=dev_ms,
+                   frame_render_scan_ms=sum(
+                       v for k, v in f.by_kernel.items()
+                       if "render_scan_kernel" in k),
+                   frame_starved=f.steps.overflow.mean().item(),
+                   frame_digest=digest(f.final, *f.steps))
+        print("FUSED_AB " + json.dumps(res), flush=True)
+        del f
+    torch.cuda.empty_cache()
+    fps = [measure_fps(fp.cfg, fp.views, fp.scene, fp.settings)
+           for _ in range(2)]
+    print("FUSED_AB " + json.dumps(dict(tree=root, card=fs.card(),
+                                        measure_fps=fps)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The fused path at full width, as `chip_smoke.py` drives it (phases 4, 5
-and 7) and `tools/walk_ab.py` and `tools/fused_ab.py` time it, in one
+"""The fused path at full width, as `chip_smoke.py` drives it (phases 4, 5,
+7 and 9) and `tools/walk_ab.py` and `tools/fused_ab.py` time it, in one
 place:
 
   eval render    bench.py's room_scene(100_000) at 800x800, 2 bounces, the
@@ -10,7 +10,14 @@ place:
                  room_scene(175_000) (capacity 176,128): seed 1 as the
                  state, the seed-0 room's G-buffers as targets, 8192-ray
                  tiles, culled, all tiles in one trace_slots launch per
-                 bounce.
+                 bounce;
+  fast path      the eval render's scene and frame in the scan modes, (a)
+                 at bench.py's configuration (BENCH_KW: scanq, K 16,
+                 cluster 128, 128/768 candidates, counters off, bf16
+                 attributes, throughput cutoff 1e-3) and (b) as
+                 measure_fps() renders at the Config defaults (scanq, K 32,
+                 cluster 256, 192 candidates, counters off) over
+                 N_FPS_VIEWS views orbiting room_camera.
 
 `first_two_passes` records a frame's first two render kernel calls, and
 `time_frames` / `time_steps` are the timed runs (warm-up, timed, profiled).
@@ -21,10 +28,12 @@ times).
 
 from __future__ import annotations
 
+import math
 import subprocess
 import time
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from editable_gaussian_reflections_tpu_torch import training as tr
@@ -43,6 +52,7 @@ from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
 from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
 )
+from editable_gaussian_reflections_tpu_torch.scene.cameras import Camera
 from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
     FRAME_KW,
     TRAIN_N,
@@ -50,10 +60,21 @@ from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
     ZNEAR,
     room,
 )
+from editable_gaussian_reflections_tpu_torch.utils.synth import room_camera
 
 SETTINGS = RenderSettings()
 EVAL_SIZE, EVAL_N = 800, 100_000
 TRAIN_W = TRAIN_H = 768
+# bench.py's render configuration, artifacts/bench_best.json written out:
+# "mc": "128:768:256:256:tc3" (primary:secondary candidates, primary:
+# secondary cull tiles, throughput cutoff 1e-3), K 16, cluster 128, scanq,
+# counters off, bf16 attributes
+BENCH_KW = dict(max_hits=16, cull_cluster=128, max_clusters=128,
+                max_clusters_secondary=768, cull_tile_secondary=256,
+                composite_mode="scanq", kernel_stats=False,
+                attr_precision="bf16")
+BENCH_SETTINGS = SETTINGS._replace(secondary_throughput_threshold=1e-3)
+N_FPS_VIEWS = 8
 
 
 def first_two_passes(scene, camera, width, height, samples,
@@ -107,6 +128,69 @@ def eval_frame(device) -> SimpleNamespace:
     return SimpleNamespace(scene=scene, camera=camera, gen=gen, W=W, H=H,
                            settings=SETTINGS, calls=calls,
                            frame_kw=dict(num_bounces=2, **FRAME_KW))
+
+
+def orbit_views(n: int, width: int, height: int) -> list:
+    """`n` scene cameras (scene/cameras.py) circling the room's vertical
+    axis around room_camera's pose, +-0.25 rad, the z-planes of the smoke's
+    frames: the views measure_fps renders."""
+    eye, c2w = room_camera()
+    views = []
+    blank = np.zeros((height, width, 3), np.float32)
+    for i in range(n):
+        a = -0.25 + 0.5 * i / max(1, n - 1)
+        rz = np.array([[math.cos(a), -math.sin(a), 0.0],
+                       [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]])
+        c2w_i, eye_i = rz @ c2w, rz @ eye
+        # Camera.render_pose negates R and then its first column again
+        R = -c2w_i
+        R[:, 0] = c2w_i[:, 0]
+        T = -R.T @ eye_i
+        fov_x = 2.0 * math.atan(math.tan(0.45) * width / height)
+        view = Camera(colmap_id=i, R=R, T=T, FoVx=fov_x, FoVy=0.9,
+                      image=blank, image_name=f"orbit_{i}", uid=i)
+        view.znear, view.zfar = ZNEAR, ZFAR
+        views.append(view)
+    return views
+
+
+def fast_path(device, model_path: str) -> SimpleNamespace:
+    """The fast path's inputs: the eval render's scene and camera, its
+    generator `gen` (seed 5) and the samples of its first frame; `calls`,
+    the render_scan calls of the primary and first reflected pass of a
+    frame on those samples for (a) bench.py's scanq ("bench scanq") and its
+    scan twin ("bench scan": direct pair math, float attributes) and (b)
+    measure_fps's scanq at the Config defaults ("fps scanq"); `bench`, the
+    eval_frame-like inputs of time_frames for (a)'s scanq frame (later
+    frames go on drawing from gen); and (b)'s Config `cfg` (its fps.json
+    written to model_path), settings and N_FPS_VIEWS `views`."""
+    from editable_gaussian_reflections_tpu_torch.config import Config
+
+    W = H = EVAL_SIZE
+    scene, camera = room(EVAL_N, device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    samples = draw_samples(gen, W, H, 3)
+    cfg = Config()
+    cfg.composite_mode = "scanq"        # measure_fps.main's default
+    cfg.model_path = model_path
+    settings = tr.settings_from_config(cfg)
+    fps_kw = dict(max_hits=cfg.max_hits, cull_cluster=cfg.cull_cluster,
+                  max_clusters=cfg.max_clusters, composite_mode="scanq",
+                  kernel_stats=False)
+    configs = {"bench scanq": (BENCH_KW, BENCH_SETTINGS),
+               "bench scan": (dict(BENCH_KW, composite_mode="scan",
+                                   attr_precision="highest"),
+                              BENCH_SETTINGS),
+               "fps scanq": (fps_kw, settings)}
+    calls = {name: first_two_passes(scene, camera, W, H, samples, kw, st)
+             for name, (kw, st) in configs.items()}
+    bench = SimpleNamespace(scene=scene, camera=camera, gen=gen, W=W, H=H,
+                            settings=BENCH_SETTINGS,
+                            frame_kw=dict(num_bounces=2, **BENCH_KW))
+    return SimpleNamespace(scene=scene, camera=camera, gen=gen, W=W, H=H,
+                           samples=samples, calls=calls, bench=bench,
+                           cfg=cfg, settings=settings,
+                           views=orbit_views(N_FPS_VIEWS, W, H))
 
 
 def training_step(device) -> SimpleNamespace:

@@ -13,8 +13,9 @@
 // the refill), then every thread tests its ray against them cluster by
 // cluster.  Exits are decided per group only, so the result equals
 // render_culled's (exit mode 0) at the same cluster, tile, check_every and
-// near distances, bit for bit: the processed clusters, the insertion order
-// and every sum are the same.  So the two kernels' times on the same inputs
+// near distances, bit for bit: the processed clusters, the kept hits (exact
+// ties at the K-th depth decided in the drain's order, trace_tile.cuh's
+// drain_walk) and every sum are the same.  So the two kernels' times on the same inputs
 // differ by the refills and barriers (and by this walk's call of the pair
 // math, below), not by the work.
 //
@@ -68,13 +69,18 @@ __global__ void grouped_walk_kernel(TraceParams p, float thr, float eps_norm,
   const float* cand_near = p.cand_near + (size_t)ti * p.mc;
   const bool dead_all = __syncthreads_and(!ray.live);
   const int n_groups = (p.mc + CE - 1) / CE;
+  bool tie = false;   // an insertion met an exact tie at the K-th depth
+  int n_done = p.mc;  // the clusters processed
 
   for (int g = 0; g < n_groups && !dead_all; ++g) {
     const int base = g * CE;
     const bool finished =
         (log_t <= (double)p.log_thr) || (kth < cand_near[base]);
     // the vote is also the barrier after the previous group's readers
-    if (__syncthreads_and(finished)) break;
+    if (__syncthreads_and(finished)) {
+      n_done = base;
+      break;
+    }
 
     for (int j = 0; j < CE; ++j) {  // one refill for the whole group
       const int ci = base + j;
@@ -105,29 +111,16 @@ __global__ void grouped_walk_kernel(TraceParams p, float thr, float eps_norm,
         if (!pair_direct<CUBE>(p, ray, G, gvalid, t, alpha)) continue;
         chunk_log_t += log1p((double)(-alpha));
 
-        if (t < kth) {  // replace the first slot holding the K-th depth
-          int win = -1;
-#pragma unroll
-          for (int s = 0; s < K; ++s)
-            if (win < 0 && st[s] >= kth) win = s;
-#pragma unroll
-          for (int s = 0; s < K; ++s) {
-            if (s == win) {
-              st[s] = t;
-              sa[s] = alpha;
-              sid[s] = c * C + k;
-            }
-          }
-          kth = st[0];
-#pragma unroll
-          for (int s = 1; s < K; ++s) kth = fmaxf(kth, st[s]);
-        }
+        if (t < kth)
+          tie |= insert_slot<K>(st, sa, sid, t, alpha, c * C + k, kth);
       }
       log_t += chunk_log_t;
       trav += chunk_trav;
       chunks += chunk_any;
     }
   }
+  // an exact tie at the K-th depth: insert in the drain's order instead
+  if (tie) drain_walk<K, CUBE>(p, ray, cand, n_done, st, sa, sid);
 
   sort_slots<K>(st, sa, sid);
   composite_slots<K>(

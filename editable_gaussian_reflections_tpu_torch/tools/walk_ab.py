@@ -6,8 +6,11 @@ first batch (phase 5: 768x768, room_scene(175_000), all 72 tiles in one
 launch), both as tools/fused_setup.py makes them, then trace_hits on the
 first launch of the primary and first reflected pass of the non-fused eval
 render (culled) and training step (brute), as chip_smoke.py's phases 11
-and 12 make them (tools/nonfused_setup.py).  CUDA events, after one warm-up
-call.  Needs a CUDA card.
+and 12 make them (tools/nonfused_setup.py), then render_scan on the primary
+and first reflected pass of the fast path's frames, as chip_smoke.py's
+phase 9 makes them (tools/fused_setup.py fast_path): bench.py's scanq and
+its scan (direct) twin, and measure_fps's scanq at the Config defaults.
+CUDA events, after one warm-up call.  Needs a CUDA card.
 
 To compare two trees, unpack the other one (`git archive`) into a
 directory git ignores and run both in one process sequence, alternating:
@@ -26,6 +29,14 @@ csrc/ (under <tree>/build/walk_cut/) whose trace_slots kernel fills each
 ray's slot columns with K hits on its tile's first listed clusters instead
 of walking, so that what is left is the epilogue (the sort, alpha
 recomputed, the gathers and the 37 x K row written) at the launch's shapes.
+
+    python editable_gaussian_reflections_tpu_torch/tools/walk_ab.py <tree> --cut-scan=<exp|sums|both>
+
+times only render_scan's passes, built from a copy of <tree>'s csrc/
+(under <tree>/build/scan_cut/) whose float64 work per hit is float32
+instead: the exp of each valid pair's opacity (exp), the chunk's product
+and sums (sums), or both - what they cost of a pass.  The results differ
+from the plain version's; they are timed, not checked.
 """
 
 from __future__ import annotations
@@ -51,6 +62,17 @@ NO_WALK = """  col_t = smem + NSTAGE * N_STAGE_ROWS * p.cpad + threadIdx.x;
     col_id[s * blockDim.x] =
         c < 0 ? 0 : c * p.cluster + (threadIdx.x + 7 * s) % p.cluster;
   }"""
+
+
+# the float64 work per hit of render_scan, and what --cut-scan puts in its
+# place: the opacity's exp (csrc/trace_hits_walk.cuh hit_gaussval) and the
+# chunk's product and sums (csrc/render_scan.cu Sum)
+SCAN_CUTS = {
+    "exp": ("trace_hits_walk.cuh",
+            "return (float)exp((double)(-powered / (2.0f * p.exp_power)));",
+            "return expf(-powered / (2.0f * p.exp_power));"),
+    "sums": ("render_scan.cu", "using Sum = double;", "using Sum = float;"),
+}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -93,6 +115,24 @@ def cut_walk_csrc(tree: Path) -> Path:
     return dst
 
 
+def cut_scan_csrc(tree: Path, what: str) -> Path:
+    """A copy of `tree`'s csrc/ with render_scan's float64 work per hit cut
+    to float32 (SCAN_CUTS; "both": every cut), under
+    tree/build/scan_cut/csrc."""
+    src = tree / "editable_gaussian_reflections_tpu_torch" / "csrc"
+    dst = tree / "build" / "scan_cut" / "csrc"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    for name in (SCAN_CUTS if what == "both" else [what]):
+        fname, old, new = SCAN_CUTS[name]
+        f = dst / fname
+        text = f.read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{f}: the line to cut is not there once")
+        f.write_text(text.replace(old, new))
+    return dst
+
+
 def main(argv: list[str]) -> None:
     tree = Path(argv[0]).resolve()
     root = str(tree)
@@ -101,9 +141,13 @@ def main(argv: list[str]) -> None:
 
     from editable_gaussian_reflections_tpu_torch.ops.cuda import build
     cut = "--cut-walk" in argv[1:]
-    variant = [a for a in argv[1:] if a != "--cut-walk"]
+    cut_scan = [a.split("=", 1)[1] for a in argv[1:]
+                if a.startswith("--cut-scan=")]
+    variant = [a for a in argv[1:] if not a.startswith("--cut-")]
     if cut:
         build.CSRC = cut_walk_csrc(tree)
+    elif cut_scan:
+        build.CSRC = cut_scan_csrc(tree, cut_scan[0])
     elif variant:  # the library's name hashes the sources it is built from
         build.CSRC = Path(variant[0]).resolve()
     from editable_gaussian_reflections_tpu_torch.ops.cuda.render_kernel import (
@@ -118,6 +162,9 @@ def main(argv: list[str]) -> None:
     fs = _setup("fused_setup")
     tag = f"AB {root} {argv[1:]}"
     print(f"{tag}: card [{fs.card()}]", flush=True)
+    if cut_scan:
+        scan_ab(fs, tag, dev, tree)
+        return
     if not cut:
         e = fs.eval_frame(dev)
         rc = {name: [round(cuda_ms(lambda: render_culled(
@@ -140,6 +187,8 @@ def main(argv: list[str]) -> None:
     print(f"{tag}: card after [{fs.card()}]", flush=True)
     if not cut:
         trace_hits_ab(_setup("nonfused_setup"), tag, dev)
+        torch.cuda.empty_cache()
+        scan_ab(fs, tag, dev, tree)
 
 
 def trace_hits_ab(nf, tag: str, dev) -> None:
@@ -162,6 +211,26 @@ def trace_hits_ab(nf, tag: str, dev) -> None:
                 for _ in range(2)]
     print(f"{tag}: trace_hits ms, first launch of {nf.NF_W}x{nf.NF_H} "
           f"({', '.join(f'{k} {v}' for k, v in res.items())})", flush=True)
+
+
+def scan_ab(fs, tag: str, dev, tree: Path) -> None:
+    """render_scan's passes at the chip_smoke.py phase 9 shapes (`fs`: the
+    module tools/fused_setup.py)."""
+    from editable_gaussian_reflections_tpu_torch.ops.cuda.scan_kernel import (
+        render_scan)
+
+    fp = fs.fast_path(dev, str(tree / "build" / "fps_model"))
+    res = {}
+    for config, calls in fp.calls.items():
+        for name, c in zip(("primary", "reflected"), calls):
+            if c.kernel.__name__ != "render_scan":
+                raise RuntimeError(f"{config} {name}: not a scan pass")
+            res[f"{config} {name}"] = [
+                round(cuda_ms(lambda: render_scan(*c.args, **c.kwargs), 5), 3)
+                for _ in range(2)]
+    print(f"{tag}: render_scan ms, {fp.W}x{fp.H} fast path "
+          f"({', '.join(f'{k} {v}' for k, v in res.items())})", flush=True)
+    print(f"{tag}: card after [{fs.card()}]", flush=True)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 render_culled_reference (the plain version of csrc/render_culled.cu) is
 held against pallas_render_culled_v4 and pallas_render_culled_v3 in
-interpret mode, on the 2048-Gaussian room at 32x32 rays.  Float lanes to
+interpret mode, on the 2048-Gaussian room at 32x32 rays, and on an exact
+depth tie at the K-th slot that a later hit breaks.  Float lanes to
 rtol 1e-4 / atol 5e-5 (the JAX package's own kernel tolerance); the counter
 lanes (accumulated hits, traversed Gaussians, processed chunks) exactly,
 since they record where the early exit happened.
@@ -188,6 +189,40 @@ def test_reference_matches_pallas(case):
         dead = ~args["alive"]
         assert np.all(out[dead, :layout.OUT_TFINAL] == 0.0)
         assert np.all(out[dead, layout.OUT_TFINAL] == 1.0)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "apart"])
+def test_boundary_tie_matches_pallas(shared):
+    """An exact depth tie at the K-th slot that a later, nearer hit breaks
+    (test_torch_trace_hits_cuda.boundary_tie_case: A red, B blue): the
+    plain walk keeps the Gaussian pallas_render_culled_v4's drain keeps (A,
+    not B: its ids), and the composite equals the Pallas kernel's."""
+    from editable_gaussian_reflections_tpu_torch.ops.cuda.render_kernel import (
+        walk_tiles)
+    from test_torch_trace_hits_cuda import boundary_tie_case
+
+    tie = boundary_tie_case(K=16, cluster=128, shared=shared)
+    args = dict(rays_o=tie["rays_o"], rays_d=tie["rays_d"],
+                gpack=tie["gpack"], candidates=tie["candidates"],
+                cand_near=tie["cand_near"], alive=None, t_split=None)
+    kw = dict(near=NEAR, far=FAR, exp_power=3.0, secondary=0.0,
+              backfacing_max_dist=BF_MAX_DIST,
+              backfacing_invalid_normal_threshold=BF_THR,
+              transmittance_threshold=0.01, eps_forward_normalization=1e-12,
+              max_hits=16, cluster=128, tile=256, window_mode=0,
+              secondary_static=0)
+    ref = _jax_out(args, kw, "v4")
+    out = _port_out(args, kw, "v4").numpy()
+    assert_lanes_match(out, ref)
+    t = {k: torch.tensor(args[k]) for k in
+         ("rays_o", "rays_d", "gpack", "candidates", "cand_near")}
+    walk = list(walk_tiles(
+        t["rays_o"], t["rays_d"], t["gpack"], t["candidates"],
+        t["cand_near"], NEAR, FAR, 3.0, 0.0, BF_MAX_DIST, BF_THR,
+        max_hits=16, cluster=128, tile=256, secondary_static=0))
+    ids = walk[0][3]
+    assert (ids == tie["a"]).any(dim=1).all()
+    assert not (ids == tie["b"]).any()
 
 
 def test_wrapper_takes_plain_version_for_cpu_tensors():

@@ -45,9 +45,12 @@ from editable_gaussian_reflections_tpu_torch.utils.synth import (
     room_scene,
 )
 from test_torch_trace_hits_cuda import (
+    TIE_RAYS,
+    boundary_tie_tensors,
     exit_tile_chunks,
     exit_tile_inputs,
     mixed_alive,
+    tie_stress_inputs,
     walk_design_inputs,
 )
 
@@ -197,6 +200,32 @@ def test_kernel_matches_reference(case, cuda):
     if case in DESIGN and DESIGN[case][7] == "exits":
         chunks = ref[::64, layout.OUT_CHUNKS].tolist()
         assert chunks == exit_tile_chunks(0, DESIGN[case][13])
+
+
+@pytest.mark.parametrize("K,shared", [(16, True), (32, False)])
+def test_boundary_tie(K, shared, cuda):
+    """test_torch_trace_hits_cuda.boundary_tie_case through render_culled:
+    A (red) and B (blue) tie at the K-th slot until D evicts one; the
+    kernel composites what the plain version does, bit for bit."""
+    (o, d, gpack, _t, _f, cands, cnear), _a, _b = boundary_tie_tensors(
+        cuda, K=K, shared=shared)
+    args = (o, d, gpack, cands, cnear, 0.05, FAR, 3.0, 0.0, 0.1, 0.9)
+    kw = dict(max_hits=K, cluster=128, tile=TIE_RAYS)
+    out = render_culled(*args, **kw)
+    ref = render_culled_reference(*args, **kw)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert (ref[:, layout.OUT_NUMACC] == K).all()
+
+
+def test_tie_stress(cuda):
+    """test_torch_trace_hits_cuda.tie_stress_inputs through render_culled
+    (K 16, primary rays): bit for bit the plain version's lanes."""
+    o, d, gpack, _t, _f, cands, cnear, kw = tie_stress_inputs(
+        cuda, "primary", 2)
+    args = (o, d, gpack, cands, cnear, 0.0, FAR, 3.0, 0.0, 0.1, 0.9)
+    out = render_culled(*args, max_hits=16, **kw)
+    ref = render_culled_reference(*args, max_hits=16, **kw)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
 def test_wrapper_checks_inputs(cuda):

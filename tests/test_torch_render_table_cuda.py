@@ -30,6 +30,11 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.render_table import (
 from editable_gaussian_reflections_tpu_torch.scene import gaussian_scene as gs
 from editable_gaussian_reflections_tpu_torch.utils.synth import room_scene
 from test_torch_render_kernel_cuda import _rays
+from test_torch_trace_hits_cuda import (
+    TIE_RAYS,
+    boundary_tie_tensors,
+    tie_stress_inputs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -99,6 +104,34 @@ def test_kernel_matches_reference(case, cuda):
     ref = _call(CASES[case], cuda, render_culled_table_reference)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("K,shared", [(16, True), (32, False)])
+def test_boundary_tie(K, shared, cuda):
+    """test_torch_trace_hits_cuda.boundary_tie_case through the round-2
+    render (trace_tile.cuh's walk): the kernel composites what the plain
+    version does, bit for bit."""
+    (o, d, gpack, table, _f, cands, cnear), _a, _b = boundary_tie_tensors(
+        cuda, K=K, shared=shared)
+    args = (o, d, gpack, table, cands, cnear, 0.05, FAR, 3.0, 0.0, 0.1, 0.9)
+    kw = dict(max_hits=K, cluster=128, tile=TIE_RAYS)
+    out = render_culled_table(*args, **kw)
+    ref = render_culled_table_reference(*args, **kw)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert (ref[:, layout.OUT_NUMACC] == K).all()
+
+
+@pytest.mark.parametrize("K,rays,seed", [(16, "primary", 0),
+                                         (32, "reflected", 1)])
+def test_tie_stress(K, rays, seed, cuda):
+    """test_torch_trace_hits_cuda.tie_stress_inputs through the round-2
+    render: bit for bit the plain version's lanes."""
+    o, d, gpack, table, _f, cands, cnear, kw = tie_stress_inputs(cuda, rays,
+                                                                 seed)
+    args = (o, d, gpack, table, cands, cnear, 0.0, FAR, 3.0, 0.0, 0.1, 0.9)
+    out = render_culled_table(*args, max_hits=K, **kw)
+    ref = render_culled_table_reference(*args, max_hits=K, **kw)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
 def test_lanes_equal_render_culled_where_nothing_exits(cuda):

@@ -1,6 +1,11 @@
 """The streaming scan kernel (csrc/render_scan.cu) against its plain PyTorch
-version, on the same CUDA tensors, and a scan frame on cuda against the same
-frame on the cpu.  Needs a CUDA card and nvcc; every test here skips without
+version, on the same CUDA tensors - on the renderer's own passes, and on
+cases aimed at the kernel's design (blocks of one origin beside blocks whose
+origins differ by one ulp, clusters that are not a multiple of 4, all-dead
+tiles, empty list entries, saturation exits in the first, a middle and the
+last group, Gaussians thin enough to take the division, a non-integer
+exp_power, counters and bf16 attributes on and off) - and a scan frame on
+cuda against the same frame on the cpu.  Needs a CUDA card and nvcc; every test here skips without
 a card.  Imports neither jax nor the JAX package:
 
     python -m pytest --noconftest tests/test_torch_scan_cuda.py
@@ -27,6 +32,12 @@ from editable_gaussian_reflections_tpu_torch.scene import gaussian_scene as gs
 from editable_gaussian_reflections_tpu_torch.utils.synth import (
     room_camera,
     room_scene,
+)
+from test_torch_trace_hits_cuda import (
+    exit_tile_chunks,
+    exit_tile_inputs,
+    mixed_alive,
+    walk_design_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -108,6 +119,79 @@ def test_kernel_matches_reference(case, bounce, cuda):
     np.testing.assert_array_equal(out[:, layout.OUT_NUMACC:],
                                   ref[:, layout.OUT_NUMACC:])
     assert (out[:, layout.OUT_TRAV].max() > 0) == stats
+
+
+# (pair math, rays, cluster, tile, ray count, Gaussian count, exp_power,
+# lists, special, alive, check_every, stats, bf16): walk_design_inputs'
+# rays, lists and special; lists "exits" are exit_tile_inputs' tiles of 64
+# rays (their heavy cluster in each position of 8, check_every 2: exits
+# after the first, second and third group, none in the last), alive
+# mixed_alive's (every third ray dead and the last tile wholly dead)
+DESIGN = {
+    "direct_ulp_origin_hand": ("direct", "ulp", 256, 128, 1024, 4096, 3.0,
+                               "hand", "", True, 8, True, False),
+    "quadric_ulp_origin_c50_pow2_5_bf16": ("quadric", "ulp", 50, 100, 1000,
+                                           4050, 2.5, "hand", "", True, 4,
+                                           False, True),
+    "direct_c50_reflected_backfacing": ("direct", "reflected", 50, 200,
+                                        1000, 4050, 2.0, "hand",
+                                        "invalid_cluster", True, 8, True,
+                                        False),
+    "quadric_reflected_c64_select_bf16": ("quadric", "reflected", 64, 128,
+                                          1024, 4096, 3.0, "select", "",
+                                          False, 8, True, True),
+    "direct_thin_all": ("direct", "primary", 256, 256, 768, 4096, 3.0,
+                        "all", "thin", False, 8, True, False),
+    "quadric_thin_all_pow2_5": ("quadric", "primary", 256, 256, 768, 4096,
+                                2.5, "all", "thin", False, 8, True, False),
+    "direct_exits": ("direct", "primary", 256, 64, 0, 0, 3.0, "exits", "",
+                     True, 2, True, False),
+    "quadric_exits_bf16": ("quadric", "primary", 256, 64, 0, 0, 3.0,
+                           "exits", "", True, 2, True, True),
+}
+
+
+def _design_scan(case, device, fn):
+    (math, kind, cluster, tile, n_rays, n_gauss, exp_power, lists, special,
+     with_alive, ce, stats, bf16) = DESIGN[case]
+    thr = 0.01
+    if lists == "exits":
+        o, d, gpack, _t, _f, cands, cnear, alive, thr = exit_tile_inputs(
+            device, tile)
+        near = 0.05
+    else:
+        o, d, gpack, _t, _f, cands, cnear, near = walk_design_inputs(
+            device, kind, cluster, tile, n_rays, n_gauss, lists, special)
+        alive = mixed_alive(n_rays, tile, device) if with_alive else None
+    reflected = kind == "reflected"
+    return fn(o, d, layout.pack_scan_table(gpack, math), cands, cnear, near,
+              FAR, exp_power, 1.0 if reflected else 0.0,
+              10.0 if reflected else 0.1, 0.9, transmittance_threshold=thr,
+              cluster=cluster, tile=tile, alive=alive, check_every=ce,
+              secondary_static=1 if reflected else 0, stats=stats,
+              attr_precision="bf16" if bf16 else "highest")
+
+
+@pytest.mark.parametrize("case", sorted(DESIGN))
+def test_kernel_design_cases(case, cuda):
+    before = render_scan.launches
+    out = _design_scan(case, cuda, render_scan)
+    torch.cuda.synchronize()
+    assert render_scan.launches == before + 1
+    ref = _design_scan(case, cuda, render_scan_reference)
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    f = slice(0, layout.OUT_NUMACC)
+    np.testing.assert_allclose(out[:, f], ref[:, f], rtol=1e-4, atol=5e-5)
+    np.testing.assert_array_equal(out[:, layout.OUT_NUMACC:],
+                                  ref[:, layout.OUT_NUMACC:])
+    stats = DESIGN[case][11]
+    assert (ref[:, layout.OUT_NUMACC].max() > 0) == stats
+    assert (ref[:, :layout.OUT_DEPTH] != 0).any()
+    if DESIGN[case][7] == "exits":
+        # a tile stops at the first vote after its heavy cluster; one with
+        # dead rays (never saturated) walks its whole list
+        chunks = ref[::64, layout.OUT_CHUNKS].tolist()
+        assert chunks == exit_tile_chunks(0, DESIGN[case][10])
 
 
 def test_wrapper_checks_inputs(cuda):

@@ -7,7 +7,8 @@ ray-independent terms once per Gaussian on blocks whose rays share an
 origin): K 16 and 32, integer and non-integer exp_power, the backfacing
 gate, ray and Gaussian counts that are not multiples of the block, of 4 or
 of the cluster, blocks of primary rays (one origin) beside padded blocks
-that are not, exact depth ties, Gaussians thin enough that |ld|^2 passes
+that are not, exact depth ties (also one at the K-th slot that a later hit
+breaks, where the walk must keep what the plain version's drain keeps), Gaussians thin enough that |ld|^2 passes
 2^126 (the walk's division instead of its fast reciprocal), clusters with
 no valid Gaussian and empty list entries, and saturation exits before the first, after the first,
 after a middle and before the last candidate; and the non-fused frame and
@@ -280,6 +281,49 @@ def test_trace_hits_kernel_design_cases(case, cuda):
         assert (kept[huge] == len(THIN)).all()
 
 
+# the boundary-tie case (boundary_tie_case) on the walk's paths: (mode, K,
+# cluster, rays share the origin)
+TIE_CASES = {
+    "culled_k16_shared": ("culled", 16, 128, True),
+    "culled_k32_apart": ("culled", 32, 128, False),
+    "brute_k16_shared": ("brute", 16, 256, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TIE_CASES))
+def test_trace_hits_boundary_tie(case, cuda):
+    """An exact tie at the K-th slot that a later hit breaks: the kernel
+    keeps the Gaussian the plain version's drain keeps (A, not B), every
+    output equal."""
+    mode, K, cluster, shared = TIE_CASES[case]
+    (o, d, gpack, _t, _f, cands, cnear), a, b = boundary_tie_tensors(
+        cuda, K=K, cluster=cluster, shared=shared)
+    if mode == "brute":
+        cands = cnear = None
+    args = (o, d, gpack, cands, cnear, 0.05, FAR, 3.0, 0.0, 0.1, 0.9)
+    kw = dict(max_hits=K, cluster=cluster, tile=TIE_RAYS)
+    out = trace_hits(*args, **kw)
+    ref = trace_hits_reference(*args, **kw)
+    _assert_equal(out, ref)
+    assert (ref[1] == a).any(dim=1).all() and not (ref[1] == b).any()
+
+
+@pytest.mark.parametrize("K,rays,seed", [(16, "primary", 0),
+                                         (32, "reflected", 1)])
+def test_trace_hits_tie_stress(K, rays, seed, cuda):
+    """tie_stress_inputs: most rays keep hits tied in depth bit for bit,
+    and later clusters evict between them; the kernel keeps the plain
+    version's Gaussians on every ray."""
+    o, d, gpack, _t, _f, cands, cnear, kw = tie_stress_inputs(cuda, rays,
+                                                               seed)
+    args = (o, d, gpack, cands, cnear, 0.0, FAR, 3.0, 0.0, 0.1, 0.9)
+    out = trace_hits(*args, max_hits=K, **kw)
+    ref = trace_hits_reference(*args, max_hits=K, **kw)
+    _assert_equal(out, ref)
+    t = torch.where(ref[0] < 1e37, ref[0], torch.nan)
+    assert (t[:, 1:] == t[:, :-1]).any(dim=1).float().mean() > 0.5
+
+
 def _one_ray_tiles(o, d, rows, tile):
     """Rays in tiles of `tile` copies of one ray each: rows[i] for tile i."""
     idx = torch.tensor(rows, device=o.device).repeat_interleave(tile)
@@ -346,9 +390,10 @@ def _tables(device, cluster):
 def walk_design_inputs(device, rays, cluster, tile, n_rays, n_gauss, lists,
                        special):
     """(rays_o, rays_d, gpack, table, ftable, candidates, cand_near, near)
-    of a walk design case.  rays: "primary" (one origin), "reflected", or
+    of a walk design case.  rays: "primary" (one origin), "reflected",
     "mixed" (primary, with one ray of every other block moved off the eye:
-    blocks that share an origin beside blocks that do not).  lists:
+    blocks that share an origin beside blocks that do not), or "ulp" (as
+    mixed, moved by one ulp).  lists:
     "select" (select_candidates, 24 a tile), "hand" (random lists of 20
     holding the all-invalid cluster 7 and empty entries, near distances
     ascending, so that tiles stop on their K-th hit) or "all" (every
@@ -364,6 +409,10 @@ def walk_design_inputs(device, rays, cluster, tile, n_rays, n_gauss, lists,
     if rays == "mixed":
         o = o.clone()
         o[tile::2 * tile] += torch.tensor([0.0, 1e-3, 0.0], device=device)
+    if rays == "ulp":
+        o = o.clone()
+        y = o[tile::2 * tile, 1]
+        o[tile::2 * tile, 1] = torch.nextafter(y, torch.full_like(y, np.inf))
     if special == "ties":
         gpack[:, 1::2] = gpack[:, 0::2]
         half = n_gauss // 2
@@ -392,6 +441,109 @@ def walk_design_inputs(device, rays, cluster, tile, n_rays, n_gauss, lists,
             T, nc).contiguous()
         cnear = torch.full((T, nc), -np.inf, device=device)
     return o, d, gpack, table, ftable, cands, cnear, near
+
+
+# The boundary-tie case: an exact depth tie at the K-th slot that a later,
+# nearer hit evicts.  One tile of 256 rays, each through a line of round
+# Gaussians on the view axis.  Cluster 0 holds K hits; the three deepest
+# stand at lanes p1 < p3 < p2 (deepest, third, second), every other below
+# A.  Cluster 1 holds, in lane order, A, a nearer C, and B: a copy of A's
+# geometry (so the two tie bit for bit on every ray) with other attributes.
+# Cluster 2 holds D, nearer than A.  The walk in Gaussian order puts A, C
+# and B in the slots of the deepest, second and third of cluster 0, that is
+# in lane order p1, p2, p3 (A before B); the drain, which filled cluster 0's
+# hits in depth order, puts C, A and B in those of the deepest, second and
+# third (B before A).  D replaces the first slot holding A's depth: B in the
+# drain, which keeps A.
+TIE_LANES = dict(p1=3, p3=8, p2=12, A=1, C=6, B=9, D=2)
+TIE_RAYS = 256
+
+
+def boundary_tie_case(K=16, cluster=128, shared=True, seed=0):
+    """The boundary-tie case as numpy arrays: rays_o, rays_d [256, 3];
+    gpack [32, 3 * cluster]; table [N, 16] (the attribute table of gpack's
+    rows); ftable [N, 32] (a frame table of random values); candidates and
+    cand_near [1, 3] (clusters 0, 1, 2 at near 0); and the ids of A and B.
+    shared: every ray starts at the origin (a primary pass), else origins
+    a little apart."""
+    from editable_gaussian_reflections_tpu_torch.ops.cuda import layout as L
+
+    rng = np.random.default_rng(seed)
+    lanes, C = TIE_LANES, cluster
+    N = 3 * C
+    uv = rng.uniform(-0.02, 0.02, size=(TIE_RAYS, 2))
+    d = np.concatenate([uv, np.ones((TIE_RAYS, 1))], axis=1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = np.zeros((TIE_RAYS, 3), np.float32)
+    if not shared:
+        o += rng.uniform(-1e-3, 1e-3, size=o.shape).astype(np.float32)
+    depth = np.zeros(N)
+    deep = {lanes["p1"]: 10.0, lanes["p2"]: 9.5, lanes["p3"]: 9.0}
+    rest = [k for k in range(K) if k not in deep]
+    depth[rest] = rng.permutation(1.0 + 5.0 * np.arange(K - 3) / (K - 3))
+    for k, z in deep.items():
+        depth[k] = z
+    a, b = C + lanes["A"], C + lanes["B"]
+    depth[a] = depth[b] = 8.0
+    depth[C + lanes["C"]] = 7.5
+    depth[2 * C + lanes["D"]] = 6.75
+    on = depth > 0.0
+    gpack = np.zeros((L.N_ROWS, N), np.float32)
+    gpack[L.ROW_MEAN + 2] = depth
+    for i in range(3):
+        gpack[L.ROW_ROT + 4 * i] = 1.0          # identity rotation
+    gpack[L.ROW_INV:L.ROW_INV + 3] = 2.0        # radius 0.5
+    gpack[L.ROW_OPACITY] = 0.05
+    gpack[L.ROW_SF2] = 1.0
+    gpack[L.ROW_NRM + 2] = -1.0
+    gpack[L.ROW_NLEN] = 1.0
+    gpack[L.ROW_VALID] = 1.0
+    for row in (L.ROW_RGB, L.ROW_F0):
+        gpack[row:row + 3] = rng.uniform(size=(3, N))
+    gpack[L.ROW_ROUGH] = rng.uniform(size=N)
+    gpack[L.ROW_RGB:L.ROW_RGB + 3, a] = (1.0, 0.0, 0.0)
+    gpack[L.ROW_RGB:L.ROW_RGB + 3, b] = (0.0, 0.0, 1.0)
+    gpack[:, ~on] = 0.0
+    table = np.zeros((N, L.TABLE_A), np.float32)
+    table[:, :L.NUM_ATTR] = gpack[list(L.ATTR_ROWS)].T
+    ftable = rng.normal(size=(N, 32)).astype(np.float32)
+    return dict(rays_o=o, rays_d=d, gpack=gpack, table=table, ftable=ftable,
+                candidates=np.array([[0, 1, 2]], np.int32),
+                cand_near=np.zeros((1, 3), np.float32), a=a, b=b)
+
+
+def tie_stress_inputs(device, rays, seed):
+    """Exact depth ties everywhere: the room's first 2048 Gaussians with the
+    geometry of half of them copied onto other random columns, clusters of
+    64 listed for each 128-ray tile in a random order at near -INF (so
+    later clusters keep evicting between tied hits), 1024 primary or
+    reflected rays.  Returns (rays_o, rays_d, gpack, table, ftable,
+    candidates, cand_near, call kwargs but max_hits)."""
+    rng = np.random.default_rng(seed)
+    n_gauss, cluster, tile = 2048, 64, 128
+    gpack, _b, table, ftable = _tables(device, 256)
+    gpack = gpack[:, :n_gauss].clone()
+    src = rng.integers(0, n_gauss, size=n_gauss // 2)
+    dst = rng.integers(0, n_gauss, size=n_gauss // 2)
+    gpack[:ROW_VALID + 1, dst] = gpack[:ROW_VALID + 1, src]
+    o, d = _rays(rays, device, 1024)
+    T, nc = 1024 // tile, n_gauss // cluster
+    cands = torch.tensor(np.stack([rng.permutation(nc) for _ in range(T)]),
+                         dtype=torch.int32, device=device)
+    cnear = torch.full((T, nc), -np.inf, device=device)
+    return (o, d, gpack.contiguous(), table[:n_gauss].contiguous(),
+            ftable[:n_gauss].contiguous(), cands, cnear,
+            dict(cluster=cluster, tile=tile, transmittance_threshold=0.0))
+
+
+def boundary_tie_tensors(device, **kw):
+    """boundary_tie_case as tensors on `device` (rays_o, rays_d, gpack,
+    table, ftable, candidates, cand_near), and the ids of A and B."""
+    case = boundary_tie_case(**kw)
+    names = ("rays_o", "rays_d", "gpack", "table", "ftable", "candidates",
+             "cand_near")
+    return (tuple(torch.tensor(case[n], device=device) for n in names),
+            case["a"], case["b"])
 
 
 def mixed_alive(n_rays, tile, device):

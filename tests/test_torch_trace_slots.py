@@ -4,7 +4,9 @@ trace_slots_reference (the plain version of csrc/trace_slots.cu) and
 unpack_slots are held against pallas_trace_slots_v4 and pallas_trace_slots
 in interpret mode, on the 2048-Gaussian room at 32x16 rays (two 256-ray
 tiles), K=16 and a few candidate clusters per tile, for primary rays and for
-reflected-ray-like rays with a dead-ray mask.
+reflected-ray-like rays with a dead-ray mask; and on an exact depth tie at
+the K-th slot that a later hit breaks, where the kept ids must equal the
+Pallas drain's on every ray.
 
 The JAX side runs in a child process whose XLA is capped at the AVX
 instruction set (as in test_torch_render_frame.py): with FMA contraction,
@@ -51,6 +53,11 @@ K, CLUSTER, TILE, MC = 16, 256, 256, 8
 H, W = 16, 32
 IDS_EQUAL = 0.999
 REL_TOL = 1e-5
+
+# the boundary-tie case (test_torch_trace_hits_cuda.boundary_tie_case, K
+# 16, cluster 128, one tile): rays share the origin or not
+TIE_CASES = {"tie_shared": True, "tie_apart": False}
+TIE_CLUSTER = 128
 
 # (rays, JAX kernel, port exit mode, check_every, secondary_static)
 CASES = {
@@ -149,6 +156,19 @@ def jax_reference(path):
         out[f"{case}/slots"] = np.asarray(slots)
         out[f"{case}/acc"] = np.asarray(acc)
 
+    from test_torch_trace_hits_cuda import boundary_tie_case
+    for case, shared in TIE_CASES.items():
+        tie = boundary_tie_case(K=K, cluster=TIE_CLUSTER, shared=shared)
+        slots, acc = pallas_trace_slots_v4(
+            jnp.asarray(tie["rays_o"]), jnp.asarray(tie["rays_d"]),
+            jnp.asarray(tie["gpack"]), jnp.asarray(tie["ftable"]),
+            jnp.asarray(tie["candidates"]), jnp.asarray(tie["cand_near"]),
+            NEAR, FAR, 3.0, 0.0, BF_MAX_DIST, BF_THR,
+            transmittance_threshold=THR, max_hits=K, cluster=TIE_CLUSTER,
+            tile=TILE, interpret=True, secondary_static=0)
+        out[f"{case}/slots"] = np.asarray(slots)
+        out[f"{case}/acc"] = np.asarray(acc)
+
     o, d = rays["secondary"][:2]
     unpacked = jrk.unpack_slots(out["secondary_dead_v4/slots"],
                                 out["secondary_dead_v4/acc"], K,
@@ -232,6 +252,32 @@ def test_reference_matches_pallas(case, jax_ref):
         dead = ~jax_ref[f"{kind}/alive"]
         assert not valid[dead].any()
         assert np.all(acc[dead, 0] == 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(TIE_CASES))
+def test_boundary_tie_matches_pallas(case, jax_ref):
+    """An exact depth tie at the K-th slot that a later, nearer hit breaks
+    (test_torch_trace_hits_cuda.boundary_tie_case): the plain walk keeps
+    the Gaussian pallas_trace_slots_v4's drain keeps (A, not B), on every
+    ray; ids and counters equal exactly."""
+    from test_torch_trace_hits_cuda import boundary_tie_case
+
+    tie = boundary_tie_case(K=K, cluster=TIE_CLUSTER, shared=TIE_CASES[case])
+    t = {k: torch.tensor(v) for k, v in tie.items() if k not in ("a", "b")}
+    slots, acc = trace_slots_reference(
+        t["rays_o"], t["rays_d"], t["gpack"], t["table"], t["ftable"],
+        t["candidates"], t["cand_near"], NEAR, FAR, 3.0, 0.0, BF_MAX_DIST,
+        BF_THR, transmittance_threshold=THR, max_hits=K, cluster=TIE_CLUSTER,
+        tile=TILE, exit_mode=0, check_every=8)
+    slots, acc = slots.numpy(), acc.numpy()
+    ref_slots, ref_acc = jax_ref[f"{case}/slots"], jax_ref[f"{case}/acc"]
+    ids, ref_ids = _blocks(slots)[:, layout.SLOT_ID], _blocks(
+        ref_slots)[:, layout.SLOT_ID]
+    np.testing.assert_array_equal(ids, ref_ids)
+    np.testing.assert_array_equal(acc[:, 1:3], ref_acc[:, 1:3])
+    assert (ids == tie["a"]).any(axis=1).all()
+    assert not (ids == tie["b"]).any()
+    assert_slots_match(slots, acc, ref_slots, ref_acc)
 
 
 def test_unpack_slots_matches_jax(jax_ref):

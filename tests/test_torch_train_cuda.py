@@ -55,9 +55,12 @@ from editable_gaussian_reflections_tpu_torch.utils.synth import (
     room_scene,
 )
 from test_torch_trace_hits_cuda import (
+    TIE_RAYS,
+    boundary_tie_tensors,
     exit_tile_chunks,
     exit_tile_inputs,
     mixed_alive,
+    tie_stress_inputs,
     walk_design_inputs,
 )
 
@@ -190,6 +193,48 @@ def test_trace_slots_kernel_matches_reference(case, cuda):
         chunks = ref_acc[::64, 2].tolist()
         assert chunks == exit_tile_chunks(DESIGN[case][11],
                                           DESIGN[case][13])
+
+
+# the boundary-tie case on trace_slots: (K, rays share the origin, exit
+# mode, check_every)
+TIE_CASES = {
+    "k16_shared_v4": (16, True, 0, 8),
+    "k32_apart_v1": (32, False, 1, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TIE_CASES))
+def test_trace_slots_boundary_tie(case, cuda):
+    """test_torch_trace_hits_cuda.boundary_tie_case through trace_slots:
+    the kernel keeps the plain version's Gaussians, A and not B, and every
+    slot block and counter equals the plain version's."""
+    K, shared, exit_mode, ce = TIE_CASES[case]
+    (o, d, gpack, table, ftable, cands, cnear), a, b = boundary_tie_tensors(
+        cuda, K=K, shared=shared)
+    args = (o, d, gpack, table, ftable, cands, cnear, 0.05, FAR, 3.0, 0.0,
+            0.1, 0.9)
+    kw = dict(max_hits=K, cluster=128, tile=TIE_RAYS, exit_mode=exit_mode,
+              check_every=ce)
+    slots, acc = trace_slots(*args, **kw)
+    ref_slots, ref_acc = trace_slots_reference(*args, **kw)
+    torch.testing.assert_close(acc, ref_acc, rtol=0, atol=0)
+    torch.testing.assert_close(slots, ref_slots, rtol=0, atol=0)
+    ids = ref_slots.reshape(-1, layout.SLOT_BLOCKS, K)[:, layout.SLOT_ID]
+    assert (ids == a).any(dim=1).all() and not (ids == b).any()
+
+
+def test_trace_slots_tie_stress(cuda):
+    """test_torch_trace_hits_cuda.tie_stress_inputs through trace_slots
+    (K 32, reflected rays): every slot block and counter equals the plain
+    version's."""
+    o, d, gpack, table, ftable, cands, cnear, kw = tie_stress_inputs(
+        cuda, "reflected", 1)
+    args = (o, d, gpack, table, ftable, cands, cnear, 0.0, FAR, 3.0, 0.0,
+            0.1, 0.9)
+    slots, acc = trace_slots(*args, max_hits=32, **kw)
+    ref_slots, ref_acc = trace_slots_reference(*args, max_hits=32, **kw)
+    torch.testing.assert_close(acc, ref_acc, rtol=0, atol=0)
+    torch.testing.assert_close(slots, ref_slots, rtol=0, atol=0)
 
 
 def test_trace_slots_wrapper_checks_inputs(cuda):
