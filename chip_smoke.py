@@ -33,12 +33,13 @@ Phases, one line each (any failure raises and the script exits non-zero):
      the Config defaults (K=32, cluster 256, 192 candidates, 8192-ray tiles,
      2 bounces), the step's tiles in the batch the main path launches -
      trace_slots on its primary and first reflected pass, scatter_grads on
-     the hits of all 3 bounces; all timed with CUDA events, trace_slots
+     the hits of all 3 bounces (within 1e-6 x scale, zeros equal; its
+     nonzero values counted); all timed with CUDA events, trace_slots
      beside its bound and no-FMA issue floor, with what the runtime reports
-     of its compiled kernel in both exit modes.  5b: trace_slots
-     in exit mode 1 (pallas_trace_slots' pairs, check_every 2) on the same
-     primary batch: timed, its bound, held against its plain version on the
-     first CHECK_TILES tiles.  Phase 5 requires equal ids and counters on
+     of both compiled kernels (trace_slots in both exit modes).  5b:
+     trace_slots in exit mode 1 (pallas_trace_slots' pairs, check_every 2)
+     on the same primary batch: timed, its bound, held against its plain
+     version on the first CHECK_TILES tiles.  Phase 5 requires equal ids and counters on
      every ray (exact depth ties included); phases 4, 11 and 12 print the
      share of rays equal, and every phase lists the rays that differ;
   6. one small training step (64x64, room_scene(4096)) on cuda and on cpu
@@ -117,7 +118,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      512;
  16. the slot sort (csrc/sort_slots.cu) vs plain on the Pallas test's
      inputs and on 655,360 x 32 slots with 5 auxiliary blocks, bit for bit;
-     timed against its byte bound.
+     timed against its byte bound, with what the runtime reports of the
+     compiled kernel at K 16 and 32.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -170,6 +172,9 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.render_table import (
     render_culled_table_reference,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.sort_slots import (
+    kernel_info as sort_kernel_info,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.sort_slots import (
     sort_slots_aux,
     sort_slots_aux_reference,
 )
@@ -177,6 +182,9 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.scan_kernel import (
     kernel_info as scan_kernel_info,
     render_scan,
     render_scan_reference,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.scatter import (
+    kernel_info as scatter_kernel_info,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.scatter import (
     scatter_add,
@@ -233,6 +241,9 @@ from editable_gaussian_reflections_tpu_torch.tools.fused_setup import (
 )
 from editable_gaussian_reflections_tpu_torch.tools.fused_setup import (
     training_step as fused_training_step,
+)
+from editable_gaussian_reflections_tpu_torch.tools.scatter_ab import (
+    sort_inputs,
 )
 from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
     FRAME_KW,
@@ -1319,19 +1330,6 @@ def phase_dtype(dev, record, smi) -> dict:
     return res
 
 
-def sort_inputs(R: int, K: int, A: int, seed: int, dev) -> list:
-    """tests/test_pallas_kernel.py's slot-sort inputs at R x K: exact ties
-    (t[:, 3] = t[:, 5]), empty slots in front and interleaved."""
-    rng = np.random.default_rng(seed)
-    t = rng.uniform(0, 10, (R, K)).astype(np.float32)
-    t[:, 3] = t[:, 5]
-    t[0, :4] = 3.0e38
-    t[1, ::2] = 3.0e38
-    ids = rng.integers(0, 1000, (R, K)).astype(np.int32)
-    aux = rng.normal(size=(R, A * K)).astype(np.float32)
-    return [torch.tensor(a, device=dev) for a in (t, ids, aux)]
-
-
 def phase_sort(dev, record, smi) -> dict:
     """Phase 16: the slot-sort kernel against its plain version on the
     Pallas test's inputs and on SORT_RAYS x SORT_K slots."""
@@ -1355,15 +1353,17 @@ def phase_sort(dev, record, smi) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     b_ms, b_by = bound(SORT_RAYS * SORT_K * SORT_K / 2, PEAK_FP32,
                        nbytes(*large, *outs[1]))
+    info = {f"K{k}": sort_kernel_info(k) for k in (16, 32)}
     res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                launches=launches, rays=SORT_RAYS, k=SORT_K, aux=SORT_AUX,
-               max_abs_err=0.0)
+               max_abs_err=0.0, kernel_info=info)
     record["phase16_sort"] = res
     print(f"phase 16: slot sort = plain bit for bit on the Pallas test's "
           f"inputs (8x16, 5 aux) and on {SORT_RAYS}x{SORT_K} with "
           f"{SORT_AUX} aux blocks: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
           f"bound {b_ms:.3f} ms by {b_by}); launches {launches} [{smi}]",
           flush=True)
+    print_kernel_info("phase 16", "sort_slots", info, at="256-thread blocks")
     return res
 
 
@@ -1705,7 +1705,8 @@ def main() -> None:
                              library_ms=sc_lib_ms, max_abs_err=sc_err,
                              scale=sc_scale, hits=n_hits,
                              rows=ids.shape[0], nonzero_values=nnz,
-                             bound_ms=sc_bound_ms, bound_by=sc_bound_by)
+                             bound_ms=sc_bound_ms, bound_by=sc_bound_by,
+                             kernel_info=scatter_kernel_info())
     del payload, ids, acc_k, acc_r, a32, r32, idx, vals, keep
     record.update(phase5=phase5, tiles_per_launch=tiles_per_launch)
     print(f"phase 5: trace_slots at the step's batch ({tiles_per_launch} of "
@@ -1726,7 +1727,11 @@ def main() -> None:
           f"{phase5['scatter']['hits']} hits): {sc_ms:.3f} ms (plain "
           f"{sc_plain_ms:.3f} ms, index_add_ {sc_lib_ms:.3f} ms, bound "
           f"{sc_bound_ms:.3f} ms by {sc_bound_by}), max abs err {sc_err:.3g} "
-          f"of scale {sc_scale:.3g}, zeros equal [{smi}]", flush=True)
+          f"of scale {sc_scale:.3g}, zeros equal; {nnz} nonzero values "
+          f"[{smi}]", flush=True)
+    print_kernel_info("phase 5", "scatter_grads",
+                      {"kernel": phase5["scatter"]["kernel_info"]},
+                      at="4096-row chunks")
 
     # -- phase 6: one small step on cuda and on cpu, same samples -----------
     small = {}
@@ -1891,6 +1896,8 @@ def main() -> None:
         "bound_ms": sc_bound_ms,
         "bound_by": sc_bound_by,
         "library_ms": sc_lib_ms,
+        "registers": phase5["scatter"]["kernel_info"]["registers"],
+        "blocks_per_sm": phase5["scatter"]["kernel_info"]["blocks_per_sm"],
     }, {
         "name": "render_scan",
         "route": "cuda",
@@ -1993,6 +2000,10 @@ def main() -> None:
         "bound_ms": sort["bound_ms"],
         "bound_by": sort["bound_by"],
         "library_ms": None,
+        "registers": {k: v["registers"] for k, v in
+                      sort["kernel_info"].items()},
+        "blocks_per_sm": {k: v["blocks_per_sm"] for k, v in
+                          sort["kernel_info"].items()},
     }]
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

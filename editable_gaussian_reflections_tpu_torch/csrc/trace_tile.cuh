@@ -1,9 +1,9 @@
 // trace_tile.cuh - what the kernels share beside the k-buffer walk: the
 // gpack row constants and INF / MAX_ALPHA (every walk, trace_hits_walk.cuh
-// included), the slot sort (sort_slots.cu), and the first version's walk
-// pieces that the measurement kernel tools/grouped_walk.cu runs: its params
-// (TraceParams), its pair math as functions, its insertion into register
-// slots and the drain-order walk that decides exact depth ties for it.
+// included), and the first version's walk pieces that the measurement
+// kernel tools/grouped_walk.cu runs: its params (TraceParams), its pair math
+// as functions, its insertion into register slots, the drain-order walk
+// that decides exact depth ties for it, and its slot sort.
 //
 // The walk they served (one block per ray tile, a cluster's 22 geometry
 // rows staged in shared memory, the K nearest hits (t, alpha, id) per thread

@@ -6,7 +6,9 @@ and of the XLA segment-sum in ops/render_grads.py (scatter_grads): both add
 each hit's row of gradient columns into the row of its Gaussian.  Here the
 sums go into a float64 accumulator [N, C] that the caller rounds to float32
 once, after the last scatter of a step (csrc/scatter_grads.cu says why).
-Rows with id -1 are skipped.
+Rows with id -1 are skipped.  The kernel sums equal ids of a chunk of rows
+in registers before it adds them; `kernel_info` reports what the card's
+runtime says of it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,22 @@ def _entry_point():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_info() -> dict:
+    """What the card's runtime reports of the compiled kernel: registers and
+    spilled (local) bytes per thread, static shared memory per block and
+    resident blocks per SM.  Needs a CUDA device."""
+    fn = build.load("scatter_grads").egr_scatter_add_info
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"scatter_grads kernel info failed: cudaError "
+                           f"{err}")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3])
 
 
 def _check_inputs(acc, payload, ids):

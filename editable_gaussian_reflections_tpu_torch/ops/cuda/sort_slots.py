@@ -6,9 +6,10 @@ and its plain PyTorch version (`sort_slots_aux_reference`).
 Counterpart of the inline Pallas kernel of tests/test_pallas_kernel.py
 (test_sort_slots_orders_by_depth_with_aux) around trace_kernel.py's
 _sort_slots.  That sort orders by (t, slot index); this one, like every
-k-buffer walk of the port (csrc/trace_tile.cuh sort_slots), by (t, id).
-The two differ only in the order of slots with equal t: within such a
-group, ids and auxiliary values are a permutation of _sort_slots'.
+k-buffer walk of the port, by (t, id), and slots with equal (t, id) keep
+their input order (the kernel's last key is the slot index).  The two
+differ only in the order of slots with equal t and different ids: within
+such a group, ids and auxiliary values are a permutation of _sort_slots'.
 
 Layout (the Pallas test's): t [R, K] f32, ids [R, K] int32, aux [R, A*K]
 f32 with block a in columns a*K .. a*K+K-1.
@@ -42,9 +43,27 @@ def _entry_point():
     return fn
 
 
+def kernel_info(k: int) -> dict:
+    """What the card's runtime reports of the compiled kernel at K = k:
+    registers and spilled (local) bytes per thread, static shared memory
+    per block and resident blocks per SM.  Needs a CUDA device."""
+    if k not in SUPPORTED_K:
+        raise ValueError(f"K={k}: the kernel is built for {SUPPORTED_K}")
+    fn = build.load("sort_slots").egr_sort_slots_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(k, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"sort_slots kernel info failed: cudaError {err}")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3])
+
+
 def sort_slots_aux_reference(t, ids, aux):
-    """Plain PyTorch version: render_kernel.sort_slots with each slot's
-    index riding along, then the auxiliary blocks gathered through it."""
+    """Plain PyTorch version: render_kernel.sort_slots (two stable sorts, by
+    id and then by t) with each slot's index riding along, then the
+    auxiliary blocks gathered through it."""
     R, K = t.shape
     A = aux.shape[1] // K
     slot = torch.arange(K, device=t.device).expand(R, K)

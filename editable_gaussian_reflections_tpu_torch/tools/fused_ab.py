@@ -18,6 +18,12 @@ directory git ignores and run both in one process sequence, alternating:
 
 <tree> is the root whose package is imported; the setup is this script's
 own tree's, run on <tree>'s package.
+
+    python editable_gaussian_reflections_tpu_torch/tools/fused_ab.py <tree> --steps
+
+times only the training steps: the fused 768x768 step as above, then the
+non-fused (brute) 1365x768 step of chip_smoke.py's phase 12
+(tools/nonfused_setup.py: one warm-up, 3 timed and one profiled step).
 """
 
 from __future__ import annotations
@@ -41,7 +47,6 @@ def main(argv: list[str]) -> None:
     sys.path.insert(0, root)
     import torch
 
-    from editable_gaussian_reflections_tpu_torch import training as tr
     from editable_gaussian_reflections_tpu_torch.renderer import raytracer as rt
     if not rt.__file__.startswith(root):
         raise RuntimeError(f"imported {rt.__file__}, not the tree {root}")
@@ -51,6 +56,10 @@ def main(argv: list[str]) -> None:
     spec.loader.exec_module(fs)
 
     dev = torch.device("cuda")
+    steps_only = "--steps" in argv[1:]
+    if steps_only:
+        step_ab(fs, root, dev)
+        return
     e = fs.eval_frame(dev)
     f = fs.time_frames(e, 3)
     dev_ms = sum(f.by_kernel.values())
@@ -65,25 +74,46 @@ def main(argv: list[str]) -> None:
     del e, f
     torch.cuda.empty_cache()
 
-    t = fs.training_step(dev)
-    t.steps = t.residuals = t.targets_b = t.calls = None
-    torch.cuda.empty_cache()
-    s = fs.time_steps(t, 3)
-    dev_ms = sum(s.by_kernel.values())
-    st = s.timed_state
-    res = dict(tree=root, card=fs.card(), step_ms=s.ms,
-               step_device_ms=dev_ms,
-               step_trace_slots_ms=sum(
-                   v for k, v in s.by_kernel.items()
-                   if "trace_slots_kernel" in k),
-               l1_diffuse=s.l1s, starved=s.starved, peak_gb=s.peak_gb,
-               state_digest=digest(*(getattr(getattr(st, tree), name)
-                                     for tree in ("scene", "mu", "nu")
-                                     for name in tr.PARAM_FIELDS)))
-    print("FUSED_AB " + json.dumps(res), flush=True)
-    del t, s, st
-    torch.cuda.empty_cache()
+    step_ab(fs, root, dev, brute=False)
     fast_ab(fs, root, dev)
+
+
+def step_ab(fs, root: str, dev, brute: bool = True) -> None:
+    """The fused training step and, with `brute`, the non-fused one (module
+    docstring)."""
+    import torch
+
+    from editable_gaussian_reflections_tpu_torch import training as tr
+
+    setups = [("fused", fs.training_step)]
+    if brute:
+        spec = importlib.util.spec_from_file_location(
+            "nonfused_setup", Path(__file__).with_name("nonfused_setup.py"))
+        nf = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(nf)
+        setups.append(("brute", nf.training_step))
+    for kind, setup in setups:
+        t = setup(dev)
+        t.steps = t.residuals = t.targets_b = t.calls = None
+        torch.cuda.empty_cache()
+        s = fs.time_steps(t, 3)
+        dev_ms = sum(s.by_kernel.values())
+        st = s.timed_state
+        res = dict(tree=root, card=fs.card(), step=kind, step_ms=s.ms,
+                   step_device_ms=dev_ms,
+                   step_trace_slots_ms=sum(
+                       v for k, v in s.by_kernel.items()
+                       if "trace_slots_kernel" in k),
+                   step_scatter_ms=sum(
+                       v for k, v in s.by_kernel.items()
+                       if "scatter_add_kernel" in k),
+                   l1_diffuse=s.l1s, starved=s.starved, peak_gb=s.peak_gb,
+                   state_digest=digest(*(getattr(getattr(st, tree), name)
+                                         for tree in ("scene", "mu", "nu")
+                                         for name in tr.PARAM_FIELDS)))
+        print("FUSED_AB " + json.dumps(res), flush=True)
+        del t, s, st
+        torch.cuda.empty_cache()
 
 
 def fast_ab(fs, root: str, dev) -> None:

@@ -5,8 +5,10 @@ without a card.  Imports neither jax nor the JAX package:
 
     python -m pytest --noconftest tests/test_torch_sort_dtype_cuda.py
 
-The sort and both mixes agree bit for bit (infinities equal), the mixes at
-16 rounds and at the tool's 512.  PyTorch takes a bf16 product or sum in
+The sort and both mixes agree bit for bit (infinities equal), the sort on
+exact (t, id) ties, whole rays of one empty (3e38, id) slot, and ray counts
+that leave a block or a warp part-filled; the mixes at 16 rounds and at the
+tool's 512.  PyTorch takes a bf16 product or sum in
 float32 and rounds it to bf16, which for two bf16 operands gives the
 correctly rounded result that the packed instruction gives; the exp is
 discussed in csrc/bench_dtype.cu.
@@ -35,14 +37,24 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("K", [16, 32])
-def test_sort_matches_reference(K, cuda):
+# (K, rays, case): the kernel takes 8 rays a block at K 32 and 16 at K 16,
+# a ray on a warp (K 32) or a half-warp (K 16)
+SORT_CASES = [(16, 4096, "ties"), (32, 4096, "ties"),
+              (32, 4096, "empty_rays"), (16, 4096, "empty_rays"),
+              (32, 4099, "ties"), (16, 4097, "ties")]
+
+
+@pytest.mark.parametrize("K, R, case", SORT_CASES)
+def test_sort_matches_reference(K, R, case, cuda):
     rng = np.random.default_rng(K)
-    R, A = 4096, 5
+    A = 5
     t = rng.uniform(0, 10, (R, K)).astype(np.float32)
     t[:, 3] = t[:, 5]
     t[::7, ::3] = 3.0e38
     ids = rng.integers(0, 50, (R, K)).astype(np.int32)
+    if case == "empty_rays":    # every slot (3e38, one id): input order
+        t[::5] = 3.0e38
+        ids[::5] = 9
     aux = rng.normal(size=(R, A * K)).astype(np.float32)
     args = [torch.tensor(a, device=cuda) for a in (t, ids, aux)]
     before = sort_slots_aux.launches

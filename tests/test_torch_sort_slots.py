@@ -7,7 +7,8 @@ tests/test_pallas_kernel.py (interpret mode), on that test's inputs: K 16,
 (3e38) slots in front and interleaved.  _sort_slots orders by (t, slot
 index), the port by (t, id), so the rule is: t equal everywhere; ids and
 auxiliary values equal outside groups of equal t; within each such group,
-the (id, aux) columns a permutation of JAX's.  Exact comparisons: a sort
+the (id, aux) columns a permutation of JAX's; within each group of equal
+(t, id), JAX's order (the input slot order).  Exact comparisons: a sort
 moves values and rounds nothing.
 
 The kernel itself runs only on a CUDA card:
@@ -95,6 +96,38 @@ def test_reference_matches_pallas_up_to_tie_order(id_ties):
     # the port's order within a tie: by id
     tie = st[:, 1:] == st[:, :-1]
     assert (sid[:, 1:][tie] >= sid[:, :-1][tie]).all()
+
+
+def test_equal_t_and_id_keep_the_pallas_slot_order():
+    """The order the kernel must reproduce: slots with equal (t, id) leave
+    the plain version in their input slot order, which is the order JAX's
+    _sort_slots ((t, slot index)) gives them.  Aux block 0 carries each
+    slot's input index, so both sides' permutations can be read off; ray 2
+    holds K slots of (3e38, one id)."""
+    t, ids, aux = _inputs(5, id_ties=True)
+    t[2, :] = 3.0e38
+    ids[2, :] = 17.0
+    aux[:, :K] = np.arange(K, dtype=np.float32)
+    jt, jids, jaux = _jax_sort(t, ids, aux)
+    st, sid, saux = (x.numpy() for x in sort_slots_aux_reference(
+        torch.tensor(t), torch.tensor(ids.astype(np.int32)),
+        torch.tensor(aux)))
+    src, jsrc = saux[:, :K].astype(int), jaux[:, :K].astype(int)
+    np.testing.assert_array_equal(t[np.arange(R)[:, None], src], st)
+    n_pairs = 0
+    for r in range(R):
+        keys = sorted({(float(a), float(b)) for a, b in zip(st[r], sid[r])})
+        for tk, ik in keys:
+            port = src[r][(st[r] == tk) & (sid[r] == ik)]
+            pallas = jsrc[r][(jt[r] == tk) & (jids[r] == ik)]
+            # input slot order in both, the same slots in the same order
+            assert (np.diff(port) > 0).all(), (r, tk, ik, port)
+            np.testing.assert_array_equal(port, pallas)
+            n_pairs += len(port) > 1
+    # slots 3 and 5 of every ray but ray 0 (whose slot 3 is emptied), and
+    # ray 2's K slots as one group
+    assert n_pairs >= R - 1
+    np.testing.assert_array_equal(src[2], np.arange(K))
 
 
 def test_wrapper_takes_plain_version_for_cpu_tensors():

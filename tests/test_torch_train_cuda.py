@@ -254,17 +254,96 @@ def test_trace_slots_wrapper_checks_inputs(cuda):
         trace_slots(*args, **dict(kw, exit_mode=2))
 
 
-def test_scatter_kernel_matches_reference(cuda):
-    g = torch.Generator().manual_seed(3)
+def _random_ids_case(g):
+    """The first case: heavy duplicates, empty slots, exact cancellations,
+    a nonzero start (zero in its first rows)."""
     M, N, C = 200_000, 1000, 22
     payload = torch.randn(M, C, generator=g)
     payload[torch.rand(M, C, generator=g) < 0.3] = 0.0
-    # heavy duplicates, empty slots, and exact cancellations
     ids = torch.randint(-1, N, (M,), generator=g, dtype=torch.int32)
     payload[1::2][:1000] = -payload[0::2][:1000]
     ids[1::2][:1000] = ids[0::2][:1000]
     start = torch.randn(N, C, generator=g, dtype=torch.float64)
     start[:10] = 0.0
+    return payload, ids, start
+
+
+def _coherent_ids(g, side=64, K=32, n_gauss=600, radius=6.0):
+    """Ids as the fused step lays them out: rays in 16x16 pixel tiles, each
+    ray's K slots the Gaussians whose disc covers its pixel, nearest first,
+    then -1.  Gaussians are numbered along x in bands of 8 pixel rows, so
+    that neighbours have near ids."""
+    rng = np.random.default_rng(int(torch.randint(1 << 30, (1,),
+                                                  generator=g)))
+    centers = rng.uniform(0, side, (n_gauss, 2))
+    centers = centers[np.lexsort((centers[:, 0], centers[:, 1] // 8))]
+    depth = rng.uniform(1, 2, n_gauss)
+    ys, xs = np.mgrid[0:side, 0:side]
+    tiles = [(ty, tx) for ty in range(0, side, 16)
+             for tx in range(0, side, 16)]
+    order = np.concatenate([(ys[ty:ty + 16, tx:tx + 16] * side
+                             + xs[ty:ty + 16, tx:tx + 16]).ravel()
+                            for ty, tx in tiles])
+    pix = np.stack([xs.ravel(), ys.ravel()], 1)[order] + 0.5
+    ids = np.full((side * side, K), -1, np.int32)
+    for r, p in enumerate(pix):
+        hit = np.flatnonzero(((centers - p) ** 2).sum(1) < radius ** 2)
+        hit = hit[np.argsort(depth[hit], kind="stable")][:K]
+        ids[r, :len(hit)] = hit
+    return torch.tensor(ids.ravel()), n_gauss
+
+
+def _scatter_case(name, g):
+    """(payload, ids, start) of one case of the scatter test.  The kernel's
+    blocks take 4096-row chunks, and each of its 8 warps a span of the
+    chunk's sorted valid rows."""
+    C = 22
+    if name == "random":
+        return _random_ids_case(g)
+    if name == "one_id":        # every chunk one Gaussian, a run per span
+        M, N = 3 * 4096 + 17, 50
+        ids = torch.full((M,), 7, dtype=torch.int32)
+        ids[::5] = -1
+    elif name == "all_distinct":  # no two rows of a chunk alike
+        M, N = 2 * 4096, 10_000
+        ids = torch.randperm(N, generator=g)[:M].to(torch.int32)
+    elif name == "straddle":    # runs of 700 rows across chunks and spans
+        M, N = 3 * 4096 + 100, 20
+        ids = (torch.arange(M) // 700).to(torch.int32)
+    elif name == "below_one_chunk":
+        M, N = 37, 5
+        ids = torch.randint(-1, N, (M,), generator=g, dtype=torch.int32)
+    elif name == "ragged":      # M not a multiple of the chunk
+        M, N = 5 * 4096 + 1234, 300
+        ids = torch.randint(-1, N, (M,), generator=g, dtype=torch.int32)
+    elif name == "all_invalid":
+        M, N = 3 * 4096 + 5, 40
+        ids = torch.full((M,), -1, dtype=torch.int32)
+    elif name == "coherent":    # a 16x16-tiled pass's K slots
+        ids, N = _coherent_ids(g)
+        M = ids.shape[0]
+    elif name == "ids_above_2_20":  # ids that share their low 20 bits
+        M, N = 3 * 4096, (1 << 21) + 64
+        low = torch.randint(-1, 64, (M,), generator=g, dtype=torch.int32)
+        high = torch.randint(0, 3, (M,), generator=g, dtype=torch.int32)
+        ids = torch.where(low >= 0, low + high * (1 << 20), low)
+    else:
+        raise ValueError(name)
+    payload = torch.randn(M, C, generator=g)
+    payload[torch.rand(M, C, generator=g) < 0.3] = 0.0
+    start = torch.randn(N, C, generator=g, dtype=torch.float64)
+    return payload, ids, start
+
+
+SCATTER_CASES = ("random", "one_id", "all_distinct", "straddle",
+                 "below_one_chunk", "ragged", "all_invalid", "coherent",
+                 "ids_above_2_20")
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_kernel_matches_reference(case, cuda):
+    g = torch.Generator().manual_seed(3)
+    payload, ids, start = _scatter_case(case, g)
     payload, ids = payload.to(cuda), ids.to(cuda)
     before = scatter_add.launches
     got = scatter_add(start.to(cuda), payload, ids)
