@@ -112,14 +112,23 @@ Phases, one line each (any failure raises and the script exits non-zero):
      v5's prepared lists) held bit for bit to the plain version on whole
      passes, timed against their bound;
  15. the tools/bench_vpu_dtype.py twin at its defaults (256x512, 512
-     rounds, 20 calls): us per call in float32 and bf16 against the
-     instruction-rate bounds, the bf16 speedup; kernel vs plain, bit for
-     bit with equal infinities, at MIX_CHECK_REPS rounds and at the timed
-     512;
+     rounds, 20 calls), then per type the kernel's device time (profiler)
+     against the bound counted from the SASS (MIX_INSTR), beside the tool's
+     events time, the host's time to enqueue a call and a 0-round call's
+     events time, and the bf16 speedup; kernel vs plain, bit for bit with
+     equal infinities, at MIX_CHECK_REPS rounds and at the timed 512; the
+     kernels' registers and blocks per SM;
  16. the slot sort (csrc/sort_slots.cu) vs plain on the Pallas test's
      inputs and on 655,360 x 32 slots with 5 auxiliary blocks, bit for bit;
      timed against its byte bound, with what the runtime reports of the
-     compiled kernel at K 16 and 32.
+     compiled kernel at K 16 and 32;
+ 17. the bench.py twin (python -m editable_gaussian_reflections_tpu_torch.
+     bench) at its defaults - artifacts/bench_best.json's configuration,
+     the frame of phase 9a - its last line parsed and its mode's render
+     kernel launched 3 times a frame; then the four tool twins once at full
+     width with their iterations cut (TOOL_ARGV): bench_render_sweep,
+     bench_scan_mode, bench_train_step and bench_slots_kernel, each row
+     free of errors and each tool's kernels launched.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -128,9 +137,13 @@ chiprun_out/chip_smoke.json.  Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import io
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -140,6 +153,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from editable_gaussian_reflections_tpu_torch import bench
 from editable_gaussian_reflections_tpu_torch import training as tr
 from editable_gaussian_reflections_tpu_torch.measure_fps import measure_fps
 from editable_gaussian_reflections_tpu_torch.ops.cuda import build
@@ -159,6 +173,9 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.bench_dtype import (
     DTYPES,
     mix,
     mix_reference,
+)
+from editable_gaussian_reflections_tpu_torch.ops.cuda.bench_dtype import (
+    kernel_info as mix_kernel_info,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.render_fine import (
     render_culled_v5_reference,
@@ -299,20 +316,35 @@ BENCH_V5_CONFIGS = bench_v5.DEFAULT_CONFIGS.split(",") + ["v6:64:128:128:256"]
 BENCH_V5_ITERS = 10
 # the v5 configuration whose passes are held against the plain version
 V5_CFG = "v5:64:128:128:256"
-# the op mix's instruction rates on one H100 SXM: the clock implied by the FP32
-# peak (132 SMs x 128 lanes x 2 flops), 128 FP32 lanes (packed bf16 runs on
-# the same pipe) and 16 MUFU lanes per SM and clock (Hopper white paper)
+# the op mix's bound: instructions per element and round, counted from the
+# SASS of csrc/bench_dtype.cu's first port (one element a thread; the
+# kernel's header quotes the listing), what expf and h2exp lower to
+# included: issue slots, and of them the FP32 pipe's (packed bf16 runs
+# there), the ALU's and MUFU's
+MIX_INSTR = {"f32": dict(issue=17, fp32=13, alu=3, mufu=1),
+             "bf16": dict(issue=11.5, fp32=7, alu=3, mufu=1)}
+# what one H100 SXM SM issues or runs a clock (NVIDIA's throughput table for
+# compute capability 9.0): a warp instruction a scheduler (128 lanes), 128
+# FP32 lanes, 64 ALU lanes, 16 MUFU lanes; at the clock implied by the FP32
+# peak (132 SMs x 128 lanes x 2 flops)
+MIX_RATES = dict(issue=128, fp32=128, alu=64, mufu=16)
 SMS = 132
 CLOCK_HZ = PEAK_FP32 / (SMS * 128 * 2)
-FP32_LANES_S, MUFU_LANES_S = SMS * 128 * CLOCK_HZ, SMS * 16 * CLOCK_HZ
-# instructions per element and round on the FP32 pipe (bench_dtype.cu)
-MIX_FP32_INSTR = {"f32": 10.0, "bf16": 5.5}
+# the no-FMA issue floor's rate: 128 FP32 lanes an SM, one flop a lane
+FP32_LANES_S = SMS * 128 * CLOCK_HZ
 MIX_CHECK_REPS = 16
 # tools/bench_vpu_dtype.py's defaults: rows, cols, rounds, timed calls
 MIX_SHAPE, MIX_REPS, MIX_ITERS = (256, 512), 512, 20
 # the slot sort's large case: the eval render's rays, K 32, the Pallas
 # test's 5 auxiliary blocks
 SORT_RAYS, SORT_K, SORT_AUX = 655_360, 32, 5
+# phase 17: the bench twin at its defaults, then each tool twin at full
+# width with its iterations cut (arguments as on their command lines)
+BENCH_ARGV = []
+TOOL_ARGV = {"bench_render_sweep": ["--iters", "1"],
+             "bench_scan_mode": ["--iters", "1"],
+             "bench_train_step": ["--iters", "1"],
+             "bench_slots_kernel": ["--iters", "2"]}
 
 
 def first_tiles(call, n_tiles: int, ray_pos=(0, 1), cand_pos=(3, 4)):
@@ -1273,10 +1305,43 @@ def phase_bench_v5(dev, record, smi) -> dict:
     return res
 
 
+def mix_bound(name: str, elements: int, reps: int) -> dict:
+    """The op mix's bound in `name` ("f32", "bf16"): the slowest of its
+    pipes at MIX_RATES over MIX_INSTR's counts, against reading the block
+    and writing the result once."""
+    pipes = {pipe: elements * reps * count / (SMS * MIX_RATES[pipe]
+                                             * CLOCK_HZ) * 1e3
+             for pipe, count in MIX_INSTR[name].items()}
+    pipe = max(pipes, key=pipes.get)
+    b_ms, b_by = bound(0.0, PEAK_FP32, 2 * 4 * elements)
+    if pipes[pipe] >= b_ms:
+        b_ms, b_by = pipes[pipe], "operations"
+    return dict(bound_ms=b_ms, bound_by=b_by, bound_pipe=pipe,
+                pipes_ms=pipes)
+
+
+def device_ms_per_launch(fn, name_part: str) -> tuple:
+    """(median device ms, launches seen) of the kernels named like
+    `name_part` that fn() launches, from the profiler's trace (the median:
+    a launch the profiler's start delays does not move it)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                if name_part in e.name
+                and e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us:
+        raise RuntimeError(f"the profiler saw no {name_part} kernel")
+    return statistics.median(us) / 1e3, len(us)
+
+
 def phase_dtype(dev, record, smi) -> dict:
-    """Phase 15: the tools/bench_vpu_dtype.py twin at its defaults, the
-    kernels against their plain versions at MIX_CHECK_REPS rounds and at
-    the timed MIX_REPS, bit for bit (infinities equal)."""
+    """Phase 15: the tools/bench_vpu_dtype.py twin at its defaults, then
+    per type the kernel's own device time (profiler) beside the tool's
+    events time and a 0-round call's, and the kernels against their plain
+    versions at MIX_CHECK_REPS rounds and at the timed MIX_REPS, bit for
+    bit (infinities equal)."""
     (rows, cols), reps, iters = MIX_SHAPE, MIX_REPS, MIX_ITERS
     mix.launches = 0
     run = bench_vpu_dtype.run(rows, cols, reps, iters, dev)
@@ -1299,33 +1364,50 @@ def phase_dtype(dev, record, smi) -> dict:
         out = mix(x, reps, dtype)
         exact(f"phase 15 {name} kernel vs plain at {reps} rounds", out, ref)
         us, tops, _checksum = run[name]
-        # the bound: the slower of the FP32 pipe and MUFU at their
-        # instruction rates, against reading x and writing acc once
-        fp32_ms = n * reps * MIX_FP32_INSTR[name] / FP32_LANES_S * 1e3
-        mufu_ms = n * reps / MUFU_LANES_S * 1e3
-        b_ms, b_by = bound(0.0, PEAK_FP32, 2 * 4 * n)
-        if max(fp32_ms, mufu_ms) >= b_ms:
-            b_ms, b_by = max(fp32_ms, mufu_ms), "operations"
-        res[name] = dict(ms=us / 1e3, tops=tops, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by,
-                         bound_pipe=("FP32 pipe" if fp32_ms >= mufu_ms
-                                     else "MUFU.EX2"),
-                         fp32_pipe_ms=fp32_ms, mufu_ms=mufu_ms,
+
+        def calls():
+            for _ in range(iters):
+                mix(x, reps, dtype)
+
+        # the kernel's own time, and what the host takes to enqueue a call
+        dev_ms, profiled = device_ms_per_launch(calls, "mix_")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        reps0_ms, _ = bench_v5.time_call(lambda: mix(x, 0, dtype), iters)
+        res[name] = dict(ms=dev_ms, profiled_launches=profiled,
+                         events_ms=us / 1e3, host_ms=host_ms,
+                         reps0_ms=reps0_ms, tops=tops, plain_ms=plain_ms,
+                         **mix_bound(name, n, reps),
+                         kernel=mix_kernel_info(dtype),
                          inf_share=torch.isinf(out).float().mean().item(),
                          max_abs_err=0.0)
     res["speedup"] = res["f32"]["ms"] / res["bf16"]["ms"]
+    res["events_speedup"] = res["f32"]["events_ms"] / res["bf16"]["events_ms"]
     record["phase15_dtype"] = res
+
+    def line(v):
+        by_host = ("; the events time is the host's enqueue rate"
+                   if v["host_ms"] >= 0.9 * v["events_ms"] else "")
+        return (f"device {v['ms'] * 1e3:.2f} us, {v['bound_ms'] / v['ms']:.1%}"
+                f" of the {v['bound_ms'] * 1e3:.2f} us bound ({v['bound_by']}"
+                f", {v['bound_pipe']}); events {v['events_ms'] * 1e3:.2f} us "
+                f"a call of the tool, host {v['host_ms'] * 1e3:.2f} us a call"
+                f"{by_host}, 0 rounds {v['reps0_ms'] * 1e3:.2f} us; "
+                f"{v['kernel']['registers']} registers, "
+                f"{v['kernel']['blocks_per_sm']} blocks/SM of "
+                f"{v['kernel']['threads']} x {v['kernel']['per_thread']}")
+
     f, b = res["f32"], res["bf16"]
     print(f"phase 15: bench_vpu_dtype {rows}x{cols}, {reps} rounds: f32 "
-          f"{f['ms'] * 1e3:.1f} us ({f['tops']:.3f} T ops/s; bound "
-          f"{f['bound_ms'] * 1e3:.1f} us by {f['bound_by']}, "
-          f"{f['bound_pipe']}), bf16 {b['ms'] * 1e3:.1f} us "
-          f"({b['tops']:.3f} T ops/s; bound {b['bound_ms'] * 1e3:.1f} us by "
-          f"{b['bound_by']}, {b['bound_pipe']}); bf16 speedup "
-          f"{res['speedup']:.2f}x; kernel = plain bit for bit at "
-          f"{MIX_CHECK_REPS} and {reps} rounds in both types (infinite at "
-          f"{reps}: f32 {f['inf_share']:.2%}, bf16 {b['inf_share']:.2%}); "
-          f"plain {f['plain_ms']:.1f} / {b['plain_ms']:.1f} ms; launches "
+          f"{line(f)}; bf16 {line(b)}; bf16 speedup {res['speedup']:.2f}x "
+          f"on the device ({res['events_speedup']:.2f}x in the tool's "
+          f"events); kernel = plain bit for bit at {MIX_CHECK_REPS} and "
+          f"{reps} rounds in both types (infinite at {reps}: f32 "
+          f"{f['inf_share']:.2%}, bf16 {b['inf_share']:.2%}); plain "
+          f"{f['plain_ms']:.1f} / {b['plain_ms']:.1f} ms; launches "
           f"{launches} [{smi}]", flush=True)
     return res
 
@@ -1364,6 +1446,82 @@ def phase_sort(dev, record, smi) -> dict:
           f"bound {b_ms:.3f} ms by {b_by}); launches {launches} [{smi}]",
           flush=True)
     print_kernel_info("phase 16", "sort_slots", info, at="256-thread blocks")
+    return res
+
+
+def phase_bench(dev, record, smi) -> dict:
+    """Phase 17: the bench.py twin at its defaults (its last line parsed,
+    the render kernel of its configuration's mode launched 3 times a frame),
+    then each tool twin once with TOOL_ARGV (every row without an error,
+    its kernels launched)."""
+    counters = {"render_culled": render_culled, "render_scan": render_scan,
+                "trace_slots": trace_slots, "scatter_grads": scatter_add}
+
+    def run_counted(fn, argv):
+        for c in counters.values():
+            c.launches = 0
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                ret = fn(argv)
+            torch.cuda.synchronize()
+        finally:
+            sys.stdout.write(buf.getvalue())
+        return (ret, buf.getvalue(),
+                {k: c.launches for k, c in counters.items()})
+
+    ret, out, launches = run_counted(bench.main, BENCH_ARGV)
+    last = json.loads(out.strip().splitlines()[-1])
+    keys = {"metric", "value", "unit", "vs_baseline", "device"}
+    if set(last) != keys or not (math.isfinite(last["value"])
+                                 and last["value"] > 0):
+        raise RuntimeError(f"phase 17: bench's last line {last}")
+    mode = ret["config"].get("composite_mode", "kbuffer")
+    kernel = "render_culled" if mode == "kbuffer" else "render_scan"
+    other = "render_scan" if kernel == "render_culled" else "render_culled"
+    if (launches[kernel], launches[other]) != (3 * ret["frames"], 0):
+        raise RuntimeError(f"phase 17: bench launched {launches} in "
+                           f"{ret['frames']} frames of mode {mode}")
+    res = dict(bench=dict(last, frames=ret["frames"], ms=ret["ms"],
+                          starved=ret["starved"], launches=launches,
+                          mode=mode))
+    # the kernels each tool must launch
+    needs = {"bench_render_sweep": ("render_culled",),
+             "bench_scan_mode": ("render_culled", "render_scan"),
+             "bench_train_step": ("trace_slots", "scatter_grads"),
+             "bench_slots_kernel": ("trace_slots",)}
+    for name, argv in TOOL_ARGV.items():
+        t0 = time.perf_counter()
+        _ret, out, launches = run_counted(
+            importlib.import_module(
+                f"editable_gaussian_reflections_tpu_torch.tools.{name}").main,
+            argv)
+        lines = [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith("{")]
+        bad = [ln for ln in lines if "error" in ln]
+        if bad or not all(launches[k] > 0 for k in needs[name]):
+            raise RuntimeError(f"phase 17: {name} {argv}: errors {bad}, "
+                               f"launches {launches}")
+        res[name] = dict(argv=argv, rows=lines, launches=launches,
+                         s=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    record["phase17_bench"] = res
+    b = res["bench"]
+    sweep_best = res["bench_render_sweep"]["rows"][-1]["best_honest"]
+    scan_rows = [r for r in res["bench_scan_mode"]["rows"] if "cfg" in r]
+    step = res["bench_train_step"]["rows"][-1]
+    slots = res["bench_slots_kernel"]["rows"]
+    print(f"phase 17: bench twin ({mode}) {b['value']} Mrays/s "
+          f"({b['ms']:.1f} ms/frame, starved {b['starved']:.4f}, "
+          f"vs_baseline {b['vs_baseline']}; {kernel} launched "
+          f"{b['launches'][kernel]} times in {b['frames']} frames); "
+          f"bench_render_sweep best honest {sweep_best and sweep_best['mc']}; "
+          f"bench_scan_mode "
+          + ", ".join(f"{r['cfg']} {r['ms']} ms" for r in scan_rows)
+          + f"; bench_train_step {step['s_per_iter']} s/iter; "
+          f"bench_slots_kernel "
+          + ", ".join(f"{r['case']} {r['kernel_ms']} ms" for r in slots)
+          + f" [{smi}]", flush=True)
     return res
 
 
@@ -1822,6 +1980,7 @@ def main() -> None:
     v5 = phase_bench_v5(dev, record, smi)
     dtype = phase_dtype(dev, record, smi)
     sort = phase_sort(dev, record, smi)
+    phase_bench(dev, record, smi)
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -1978,7 +2137,9 @@ def main() -> None:
         "route": "cuda",
         "source": src + "bench_dtype.cu",
         "replaces": "tools/bench_vpu_dtype.py:53",
-        # the bench_vpu_dtype twin's run (phase 15): float32, and bf16 beside
+        # the bench_vpu_dtype twin's run (phase 15): float32, and bf16
+        # beside; ms is the kernel's device time (profiler), events_ms the
+        # tool's reading, host_ms what the host takes to enqueue a call
         "launches": dtype["launches"],
         "max_abs_err": dtype["f32"]["max_abs_err"],
         "ms": dtype["f32"]["ms"],
@@ -1986,8 +2147,16 @@ def main() -> None:
         "bound_ms": dtype["f32"]["bound_ms"],
         "bound_by": dtype["f32"]["bound_by"],
         "library_ms": None,
+        "events_ms": dtype["f32"]["events_ms"],
+        "host_ms": dtype["f32"]["host_ms"],
+        "reps0_ms": dtype["f32"]["reps0_ms"],
         "bf16_ms": dtype["bf16"]["ms"],
+        "bf16_events_ms": dtype["bf16"]["events_ms"],
         "bf16_bound_ms": dtype["bf16"]["bound_ms"],
+        "registers": {k: dtype[k]["kernel"]["registers"]
+                      for k in ("f32", "bf16")},
+        "blocks_per_sm": {k: dtype[k]["kernel"]["blocks_per_sm"]
+                          for k in ("f32", "bf16")},
     }, {
         "name": "sort_slots",
         "route": "cuda",

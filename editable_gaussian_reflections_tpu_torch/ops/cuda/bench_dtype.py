@@ -10,8 +10,9 @@ element x of a float32 block runs `reps` rounds of
 (acc starting at x; the tool's lines 38-47) in float32 or in bfloat16,
 every operation rounded to that type, and returns acc as float32.  The
 tool counts MIX_OPS elementwise operations per element and round.  The
-kernels (csrc/bench_dtype.cu): float32 one element per thread, bf16 two per
-thread in packed instructions.
+kernels (csrc/bench_dtype.cu) carry several elements a thread (bf16 in
+packed pairs) on a grid sized on the card; `kernel_info` reports what the
+card's runtime says of them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import build
@@ -27,6 +29,16 @@ from .render_kernel import _check
 MIX_OPS = 12
 HALF = 0.5
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _bf16_bits(v: float) -> int:
+    """The bits of v rounded to bf16 (to nearest, ties to even)."""
+    u = int(np.float32(v).view(np.uint32))
+    return (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+
+
+# the bf16 kernel takes half as its bits, computed here once, not per call
+HALF_BF16_BITS = _bf16_bits(HALF)
 
 
 @functools.cache
@@ -40,6 +52,24 @@ def _entry_points():
                      ctypes.c_int, ctypes.c_ushort, ctypes.c_void_p]
     f32.restype = bf16.restype = ctypes.c_int
     return f32, bf16
+
+
+def kernel_info(dtype: torch.dtype) -> dict:
+    """What the card's runtime reports of the kernel for `dtype`: registers
+    and spilled (local) bytes per thread, resident blocks per SM, threads a
+    block, chains a thread (float32 elements or bf16 pairs) and the SMs.
+    Needs a CUDA device."""
+    if dtype not in DTYPES.values():
+        raise ValueError(f"dtype={dtype}: expected one of {list(DTYPES)}")
+    fn = build.load("bench_dtype").egr_mix_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(int(dtype == torch.bfloat16), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"bench_dtype kernel info failed: cudaError {err}")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                threads=out[3], per_thread=out[4], sms=out[5])
 
 
 def mix_reference(x: torch.Tensor, reps: int, dtype: torch.dtype):
@@ -82,10 +112,8 @@ def mix(x: torch.Tensor, reps: int, dtype: torch.dtype) -> torch.Tensor:
         if dtype == torch.float32:
             err = f32(x.data_ptr(), out.data_ptr(), n, reps, HALF, stream)
         else:
-            bits = torch.tensor(HALF, dtype=torch.bfloat16).view(
-                torch.int16).item() & 0xFFFF
-            err = bf16(x.data_ptr(), out.data_ptr(), n // 2, reps, bits,
-                       stream)
+            err = bf16(x.data_ptr(), out.data_ptr(), n // 2, reps,
+                       HALF_BF16_BITS, stream)
     if err != 0:
         raise RuntimeError(f"bench_dtype kernel launch failed: cudaError "
                            f"{err}")

@@ -78,6 +78,7 @@ def dispatch_render_frame(scene: GaussianScene, cam: CameraParams,
                           max_clusters: int | None = None,
                           max_clusters_secondary: int | None = None,
                           cull_tile_secondary: int = 256,
+                          cull_tile_primary: int = 256,
                           split_far: bool = False,
                           composite_mode: str = "kbuffer",
                           kernel_stats: bool = True,
@@ -92,7 +93,7 @@ def dispatch_render_frame(scene: GaussianScene, cam: CameraParams,
     `samples` is a FrameSamples (us [S, H*W, 2]) for the fused path and a
     TileSamples (us [T, S, tile, 2]) for render_frame.  max_clusters None
     takes each path's own default (64 fused, 192 non-fused).  The fused-path
-    knobs (secondary budget and cull tile, composite mode, kernel_stats,
+    knobs (secondary budget, both cull tiles, composite mode, kernel_stats,
     attr_precision) are not read by render_frame; chunk and tile are not
     read by the fused path.  split_far and unknown composite modes raise."""
     check_composite_mode(composite_mode, split_far)
@@ -104,6 +105,7 @@ def dispatch_render_frame(scene: GaussianScene, cam: CameraParams,
             max_clusters=64 if max_clusters is None else max_clusters,
             max_clusters_secondary=max_clusters_secondary,
             cull_tile_secondary=cull_tile_secondary,
+            cull_tile_primary=cull_tile_primary,
             composite_mode=composite_mode, samples=samples,
             kernel_stats=kernel_stats, attr_precision=attr_precision)
     return render_frame(

@@ -12,9 +12,10 @@ place:
                  tiles, culled, all tiles in one trace_slots launch per
                  bounce;
   fast path      the eval render's scene and frame in the scan modes, (a)
-                 at bench.py's configuration (BENCH_KW: scanq, K 16,
-                 cluster 128, 128/768 candidates, counters off, bf16
-                 attributes, throughput cutoff 1e-3) and (b) as
+                 at bench.py's configuration (BENCH_KW, as the bench twin
+                 resolves it: scanq, K 16, cluster 128, 128/768
+                 candidates, counters off, bf16 attributes, throughput
+                 cutoff 1e-3) and (b) as
                  measure_fps() renders at the Config defaults (scanq, K 32,
                  cluster 256, 192 candidates, counters off) over
                  N_FPS_VIEWS views orbiting room_camera.
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from editable_gaussian_reflections_tpu_torch import training as tr
+from editable_gaussian_reflections_tpu_torch.bench import bench_config
 from editable_gaussian_reflections_tpu_torch.config import Config
 from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
     RayTargets,
@@ -53,6 +55,9 @@ from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
 )
 from editable_gaussian_reflections_tpu_torch.scene.cameras import Camera
+from editable_gaussian_reflections_tpu_torch.tools.bench_render_sweep import (
+    frame_kwargs,
+)
 from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
     FRAME_KW,
     TRAIN_N,
@@ -65,15 +70,12 @@ from editable_gaussian_reflections_tpu_torch.utils.synth import room_camera
 SETTINGS = RenderSettings()
 EVAL_SIZE, EVAL_N = 800, 100_000
 TRAIN_W = TRAIN_H = 768
-# bench.py's render configuration, artifacts/bench_best.json written out:
-# "mc": "128:768:256:256:tc3" (primary:secondary candidates, primary:
-# secondary cull tiles, throughput cutoff 1e-3), K 16, cluster 128, scanq,
-# counters off, bf16 attributes
-BENCH_KW = dict(max_hits=16, cull_cluster=128, max_clusters=128,
-                max_clusters_secondary=768, cull_tile_secondary=256,
-                composite_mode="scanq", kernel_stats=False,
-                attr_precision="bf16")
-BENCH_SETTINGS = SETTINGS._replace(secondary_throughput_threshold=1e-3)
+# bench.py's render configuration as the bench twin resolves it from
+# artifacts/bench_best.json (today scanq, K 16, cluster 128, 128/768
+# candidates, 256-ray cull tiles, counters off, bf16 attributes, throughput
+# cutoff 1e-3), in dispatch_render_frame's keywords
+_bench_kw, BENCH_SETTINGS = bench_config()
+BENCH_KW = frame_kwargs(_bench_kw)
 N_FPS_VIEWS = 8
 
 
@@ -193,10 +195,12 @@ def fast_path(device, model_path: str) -> SimpleNamespace:
                            views=orbit_views(N_FPS_VIEWS, W, H))
 
 
-def training_step(device) -> SimpleNamespace:
-    """The training step's inputs, and `step(state)` -> (state, metrics):
-    the state from room_scene(TRAIN_N, seed 1), the targets the G-buffers of
-    the seed-0 room rendered on `gen` (seed 3), which prepare_step and the
+def training_step(device, n: int = TRAIN_N, side: int = TRAIN_W
+                  ) -> SimpleNamespace:
+    """The training step's inputs at side x side pixels (768x768 unless a
+    test shrinks it), and `step(state)` -> (state, metrics): the state from
+    room_scene(n, seed 1), the targets the G-buffers of the seed-0 room
+    rendered on `gen` (seed 3), which prepare_step and the
     steps go on drawing from.  `calls`: the trace_slots calls of the
     primary and first reflected pass of the first batch of tiles the step
     launches, from fused_forward, whose outputs (`steps`, `residuals`) and
@@ -204,28 +208,28 @@ def training_step(device) -> SimpleNamespace:
     cfg = Config()
     settings = tr.settings_from_config(cfg)
     num_bounces, K = 2, cfg.max_hits
-    tile = tr.pick_tile_size(TRAIN_W * TRAIN_H, cfg.ray_tile)
+    tile = tr.pick_tile_size(side * side, cfg.ray_tile)
     step_kw = dict(num_bounces=num_bounces, max_hits=K,
                    chunk=cfg.trace_chunk, tile=tile, use_pallas=True,
                    exp_power_static=float(cfg.exp_power), use_culling=True,
                    cull_tile=cfg.cull_tile, cull_cluster=cfg.cull_cluster,
                    max_clusters=cfg.max_clusters)
-    scene_t, camera = room(TRAIN_N, device, seed=0)
+    scene_t, camera = room(n, device, seed=0)
     gen = torch.Generator(device=device).manual_seed(3)
-    gb, _ = render_frame_fused(scene_t, camera, settings, gen, TRAIN_W,
-                               TRAIN_H, num_bounces=2, **FRAME_KW)
+    gb, _ = render_frame_fused(scene_t, camera, settings, gen, side, side,
+                               num_bounces=2, **FRAME_KW)
     targets = RayTargets(diffuse=gb.rgb[0], specular=gb.rgb[1] + gb.rgb[2],
                          depth=gb.depth[0], normal=gb.normal[0],
                          roughness=gb.roughness[0], f0=gb.f0[0])
     del scene_t, gb
-    scene0, _ = room(TRAIN_N, device, seed=1)
+    scene0, _ = room(n, device, seed=1)
     state = tr.init_train_state(scene0)
     cap = scene0.capacity
     lrs = tr.lr_tree(cfg, 1, 1.0)
     hyper = dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
                  scale_decay=cfg.scale_decay, apply_grads=1.0)
     prep = tr.prepare_step(
-        state, camera, targets, settings, gen, TRAIN_W, TRAIN_H,
+        state, camera, targets, settings, gen, side, side,
         num_bounces, tile, True, True, True, cfg.cull_tile, cfg.cull_cluster,
         cfg.max_clusters)
     n_tiles = prep["dirs_t"].shape[0]
@@ -247,7 +251,7 @@ def training_step(device) -> SimpleNamespace:
 
     def step(st):
         return tr.train_step(st, camera, targets, settings, lrs, hyper, gen,
-                             TRAIN_W, TRAIN_H, **step_kw)
+                             side, side, **step_kw)
 
     return SimpleNamespace(
         cfg=cfg, settings=settings, num_bounces=num_bounces, K=K, tile=tile,

@@ -8,10 +8,13 @@ without a card.  Imports neither jax nor the JAX package:
 The sort and both mixes agree bit for bit (infinities equal), the sort on
 exact (t, id) ties, whole rays of one empty (3e38, id) slot, and ray counts
 that leave a block or a warp part-filled; the mixes at 16 rounds and at the
-tool's 512.  PyTorch takes a bf16 product or sum in
-float32 and rounds it to bf16, which for two bf16 operands gives the
-correctly rounded result that the packed instruction gives; the exp is
-discussed in csrc/bench_dtype.cu.
+tool's 512, and on the shapes the kernels' grid and element groups meet at
+their edges: 0 rounds, one element pair, a ragged n (the last group of E
+elements or P pairs part-filled), an n that makes the grid stride more than
+once, and a block not aligned for 16-byte loads.  PyTorch takes a bf16
+product or sum in float32 and rounds it to bf16, which for two bf16
+operands gives the correctly rounded result that the packed instruction
+gives; the exp is discussed in csrc/bench_dtype.cu.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from editable_gaussian_reflections_tpu_torch.ops.cuda.bench_dtype import (
+    kernel_info,
     mix,
     mix_reference,
 )
@@ -74,3 +78,37 @@ def test_mix_matches_reference(cuda):
             assert torch.equal(mix(x, reps, dtype),
                                mix_reference(x, reps, dtype)), (reps, dtype)
     assert mix.launches == before + 4
+
+
+def _mix_case(case, device):
+    """(x, reps) of a case of test_mix_edges."""
+    def draw(n):
+        return torch.tensor(np.random.default_rng(n).uniform(0.1, 0.9, n),
+                            dtype=torch.float32, device=device)
+
+    if case == "reps0":
+        return draw(8192), 0
+    if case == "one_pair":
+        return draw(2), 16
+    if case == "ragged":     # not a multiple of E x threads x SMs, nor of 4
+        return draw(2 * 67_589), 16
+    if case == "unaligned":  # 4 bytes past a 16-byte boundary
+        return draw(4098)[1:-1], 16
+    # more elements than the resident threads carry in one pass
+    once = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        info = kernel_info(dtype)
+        once = max(once, info["sms"] * info["blocks_per_sm"] * info["threads"]
+                   * info["per_thread"] * (2 if dtype == torch.bfloat16
+                                           else 1))
+    return draw(2 * once + 6), 16
+
+
+@pytest.mark.parametrize("case", ["reps0", "one_pair", "ragged", "unaligned",
+                                  "strides"])
+def test_mix_edges(case, cuda):
+    x, reps = _mix_case(case, cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = mix(x, reps, dtype)
+        assert out.shape == x.shape
+        assert torch.equal(out, mix_reference(x, reps, dtype)), dtype
