@@ -128,7 +128,26 @@ Phases, one line each (any failure raises and the script exits non-zero):
      kernel launched 3 times a frame; then the four tool twins once at full
      width with their iterations cut (TOOL_ARGV): bench_render_sweep,
      bench_scan_mode, bench_train_step and bench_slots_kernel, each row
-     free of errors and each tool's kernels launched.
+     free of errors and each tool's kernels launched;
+ 18. the training CLI's loop (train.train_scene, through
+     tools/cli_setup.py: set_seeds, prepare_output_and_logger, a Scene of
+     an in-memory SceneInfo) at 768x768 on 4 train and 1 test view
+     orbiting the room, their G-buffers the port's render of the seed-0
+     room_scene(175_000), initialized from the seed-1 room's points (knn3
+     scales), the Config defaults but CLI_KW: 3 primary-only steps, the
+     far-field injection and the candidate budget's growth at 4, znear
+     pruning at 4 and 8, weight pruning at 8, the denoised report at 10,
+     PLY and checkpoint saves at 8 and 10; host ms per iteration by regime
+     (synchronized), knn3, report, render, denoise and save times, capacity,
+     live count and max_clusters, l1_diffuse and starved per step, the
+     report's PSNRs and cull_overflow, each step's and the report's
+     launches of trace_slots, scatter_grads and render_culled, peak GB;
+     then a resume from step_8 in a fresh loop (the loaded state equal to
+     the saved one, iterations 9 and 10 with 2 bounces and the re-grown
+     budget, every state finite); then (b) the same loop at 64x64 on
+     room_scene(16384) with 1024 far-field points on the card and on the
+     CPU with the same samples: final TrainStates equal bit for bit, the
+     CSV PSNRs within CLI_PSNR_DB.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -143,17 +162,20 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import torch
 
 from editable_gaussian_reflections_tpu_torch import bench
+from editable_gaussian_reflections_tpu_torch import train as ttrain
 from editable_gaussian_reflections_tpu_torch import training as tr
 from editable_gaussian_reflections_tpu_torch.measure_fps import measure_fps
 from editable_gaussian_reflections_tpu_torch.ops.cuda import build
@@ -229,18 +251,31 @@ from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
     draw_samples,
     draw_tile_samples,
     full_f32_matmuls,
+    fused_path_ok,
     hit_grads,
     render_accumulated_chunked,
     render_frame,
     render_frame_fused,
     tiles_per_launch_for,
 )
+from editable_gaussian_reflections_tpu_torch.renderer import render as trd
 from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
 )
+from editable_gaussian_reflections_tpu_torch.scene import init as tinit
+from editable_gaussian_reflections_tpu_torch.scene.gaussian_scene import (
+    num_live,
+)
+from editable_gaussian_reflections_tpu_torch.scene.scene import Scene
 from editable_gaussian_reflections_tpu_torch.tools import (
     bench_v5,
     bench_vpu_dtype,
+)
+from editable_gaussian_reflections_tpu_torch.tools.cli_setup import (
+    cli_config,
+    gbuffer_views,
+    scene_info,
+    train_cli,
 )
 from editable_gaussian_reflections_tpu_torch.tools.fused_setup import (
     BENCH_KW,
@@ -345,6 +380,19 @@ TOOL_ARGV = {"bench_render_sweep": ["--iters", "1"],
              "bench_scan_mode": ["--iters", "1"],
              "bench_train_step": ["--iters", "1"],
              "bench_slots_kernel": ["--iters", "2"]}
+# phase 18: the training CLI's loop on views orbiting the room (4 train, 1
+# test) at full width, and at CLI_SMALL_SIDE on the card and on the CPU;
+# Config defaults but for CLI_KW (the warm-up ends at 4: injection and the
+# budget's growth; znear pruning at 4 and 8, weight pruning at 8, the
+# denoised report at 10, saves at 8 and 10)
+CLI_SIDE, CLI_N, CLI_VIEWS = 768, 175_000, (4, 1)
+CLI_KW = dict(iterations=10, no_bounces_until_iter=4, pruning_interval=4,
+              pruning_start_iter=5, test_iterations=[10],
+              save_iterations=[8, 10], val_view=0)
+CLI_SMALL_SIDE, CLI_SMALL_N, CLI_SMALL_FAR = 64, 16384, 1024
+# the CSV PSNRs of the card's and the CPU's run (cuDNN's convolutions in
+# the KPN denoiser are not bit-equal to the CPU's)
+CLI_PSNR_DB = 0.01
 
 
 def first_tiles(call, n_tiles: int, ray_pos=(0, 1), cand_pos=(3, 4)):
@@ -1525,6 +1573,325 @@ def phase_bench(dev, record, smi) -> dict:
     return res
 
 
+CLI_COUNTERS = {"trace_slots": trace_slots, "scatter_grads": scatter_add,
+                "render_culled": render_culled, "trace_hits": trace_hits}
+
+
+def launch_counts() -> dict:
+    return {k: c.launches for k, c in CLI_COUNTERS.items()}
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def probe_cli(dev, step_samples=None, render_samples=None):
+    """Wrappers around what the CLI's loop calls (its train_step, render,
+    training_report, far-field injection, saves, checkpoint load, the
+    denoiser and the init's knn3), each synchronized and host-timed, with
+    the kernels' launches per step and report.  `step_samples(i, kw)` and
+    `render_samples(scene, kw)` replace the steps' and the renders' draws.
+    Yields the record."""
+    rec = dict(steps=[], renders=[], reports=[], saves=[], knn3=[],
+               denoise=[], injections=[], saved={}, loaded=[])
+    real = dict(step=ttrain.train_step, render=ttrain.render,
+                report=ttrain.training_report,
+                append=ttrain.append_with_opt_state,
+                save_state=ttrain.save_train_state,
+                load_state=ttrain.load_train_state, save_ply=Scene.save,
+                knn3=tinit.mean_dist2_knn3, denoise=trd.denoise_specular)
+
+    def timed(name, fn, *args, **kw):
+        sync(dev)
+        before, t0 = launch_counts(), time.perf_counter()
+        out = fn(*args, **kw)
+        sync(dev)
+        rec[name].append(dict(t0=t0, ms=(time.perf_counter() - t0) * 1e3,
+                              launches={k: v - before[k] for k, v in
+                                        launch_counts().items()}))
+        return out
+
+    def step(state, cp, targets, settings, lrs, hyper, **kw):
+        if step_samples is not None:
+            kw = dict(kw, generator=None,
+                      samples=step_samples(len(rec["steps"]), kw))
+        new, m = timed("steps", real["step"], state, cp, targets, settings,
+                       lrs, hyper, **kw)
+        rec["steps"][-1].update(
+            bounces=kw["num_bounces"], apply=hyper["apply_grads"],
+            mc=kw["max_clusters"], culled=kw["use_culling"],
+            capacity=state.scene.capacity, live=num_live(state.scene),
+            l1=m["l1_diffuse"].item(), starved=m["starved"].item(),
+            finite=state_finite(new))
+        return new, m
+
+    def render(camera, scene, settings, *args, **kw):
+        if render_samples is not None:
+            kw = dict(kw, samples=render_samples(scene, kw))
+        pkg = timed("renders", real["render"], camera, scene, settings,
+                    *args, **kw)
+        rec["renders"][-1]["overflow"] = pkg.overflow_frac
+        return pkg
+
+    def append(state, new, **kw):
+        out = timed("injections", real["append"], state, new, **kw)
+        rec["injections"][-1].update(before=state.scene.capacity,
+                                     after=out.scene.capacity,
+                                     live=num_live(out.scene))
+        return out
+
+    def save_state(path, state):
+        rec["saved"][os.path.basename(path)] = state
+        return timed("saves", real["save_state"], path, state)
+
+    def load_state(path, device):
+        state = real["load_state"](path, device)
+        rec["loaded"].append((os.path.basename(path), state))
+        return state
+
+    with contextlib.ExitStack() as stack:
+        for obj, name, fn in (
+                (ttrain, "train_step", step), (ttrain, "render", render),
+                (ttrain, "training_report",
+                 lambda *a, **k: timed("reports", real["report"], *a, **k)),
+                (ttrain, "append_with_opt_state", append),
+                (ttrain, "save_train_state", save_state),
+                (ttrain, "load_train_state", load_state),
+                (Scene, "save",
+                 lambda *a, **k: timed("saves", real["save_ply"], *a, **k)),
+                (tinit, "mean_dist2_knn3",
+                 lambda *a, **k: timed("knn3", real["knn3"], *a, **k)),
+                (trd, "denoise_specular",
+                 lambda *a, **k: timed("denoise", real["denoise"], *a,
+                                       **k))):
+            stack.enter_context(mock.patch.object(obj, name, fn))
+        yield rec
+
+
+def iteration_ms(rec, end: float) -> list:
+    """Each iteration's host ms (from its step's start to the next one's,
+    synchronized), less the report and saves that ran in it."""
+    starts = [s["t0"] for s in rec["steps"]] + [end]
+    out = []
+    for i in range(len(rec["steps"])):
+        t0, t1 = starts[i], starts[i + 1]
+        extra = sum(e["ms"] for k in ("reports", "saves") for e in rec[k]
+                    if t0 <= e["t0"] < t1)
+        out.append((t1 - t0) * 1e3 - extra)
+    return out
+
+
+def csv_scores(model: Path) -> dict:
+    return {split: np.loadtxt(model / f"{split}_validation_scores.csv",
+                              delimiter=",", ndmin=2)
+            for split in ("train", "test")}
+
+
+def phase_cli(dev, record, smi) -> dict:
+    """Phase 18: the training CLI's loop (train.train_scene through
+    tools/cli_setup.py) at CLI_SIDE on the card, resumed from step 8; then
+    at CLI_SMALL_SIDE on the card and on the CPU with the same samples."""
+    out_dir = ROOT / "build" / "cli_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n_train, n_test = CLI_VIEWS
+    t0 = time.perf_counter()
+    views = gbuffer_views(CLI_N, CLI_SIDE, n_train, n_test, dev)
+    info = scene_info(CLI_N, *views)
+    setup_s = time.perf_counter() - t0
+    cfg = cli_config(str(out_dir / "model"), CLI_SIDE, **CLI_KW)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for c in CLI_COUNTERS.values():
+        c.launches = 0
+    with probe_cli(dev) as rec:
+        state, _ = train_cli(cfg, info, dev)
+        sync(dev)
+        end = time.perf_counter()
+    launches = launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == "cuda" else 0.0)
+    steps = rec["steps"]
+    it_ms = iteration_ms(rec, end)
+    warm = cfg.no_bounces_until_iter
+    grown = steps[warm]["mc"]
+    failed = []
+    if [s["bounces"] for s in steps] != [0] * warm + [2] * (
+            cfg.iterations - warm):
+        failed.append("bounces")
+    prunes = [i + 1 for i, s in enumerate(steps) if s["apply"] == 0.0]
+    if prunes != [4, 8]:
+        failed.append(f"prune iterations {prunes}")
+    if not all(s["culled"] for s in steps):
+        failed.append("an unculled step")
+    inj = rec["injections"]
+    if len(inj) != 1 or inj[0]["after"] <= inj[0]["before"]:
+        failed.append(f"injection {inj}")
+    if not (grown > cfg.max_clusters and all(
+            s["mc"] == (cfg.max_clusters if i < warm else grown)
+            for i, s in enumerate(steps))):
+        failed.append(f"budget {[s['mc'] for s in steps]}")
+    if not steps[8]["live"] < steps[7]["live"]:
+        failed.append("weight pruning at 8 killed nothing")
+    if not all(s["finite"] for s in steps) or not state_finite(state):
+        failed.append("a non-finite state")
+    if not all(math.isfinite(s["l1"]) for s in steps):
+        failed.append("a non-finite l1_diffuse")
+    model = Path(cfg.model_path)
+    for it in cfg.save_iterations:
+        for f in (f"point_cloud/iteration_{it}/point_cloud.ply",
+                  f"checkpoints/step_{it}/train_state.pt"):
+            if not (model / f).is_file():
+                failed.append(f"missing {f}")
+    scores = csv_scores(model)
+    if not all(np.isfinite(v[:, 1:]).all() for v in scores.values()):
+        failed.append(f"scores {scores}")
+    for k in ("trace_slots", "scatter_grads", "render_culled"):
+        if launches[k] == 0:
+            failed.append(f"{k} not launched")
+    if len(rec["reports"]) != 1 or len(rec["renders"]) != 1 + n_test:
+        failed.append(f"reports {len(rec['reports'])}, renders "
+                      f"{len(rec['renders'])}")
+    if failed:
+        raise RuntimeError(f"phase 18: {failed}")
+
+    # resume from step 8 in a fresh loop: iterations 9 and 10
+    resumed_dir = out_dir / "resumed"
+    shutil.copytree(model, resumed_dir, ignore=shutil.ignore_patterns(
+        "step_10", "iteration_10"))
+    cfg_r = cli_config(str(resumed_dir), CLI_SIDE, **CLI_KW)
+    with probe_cli(dev) as rec_r:
+        state_r, _ = train_cli(cfg_r, info, dev, resume=True)
+        sync(dev)
+    loaded = rec_r["loaded"]
+    cap = loaded[0][1].scene.capacity if loaded else 0
+    expect_mc = max(cfg.max_clusters, ttrain.grown_budget(
+        cfg.max_clusters, cap, cap - cfg.init_num_pts_farfield))
+    if [n for n, _ in loaded] != ["step_8"] or states_equal(
+            loaded[0][1], rec["saved"]["step_8"]):
+        failed.append("the loaded state is not the one saved at 8")
+    if [s["bounces"] for s in rec_r["steps"]] != [2, 2]:
+        failed.append(f"resumed steps {rec_r['steps']}")
+    if not all(s["mc"] == expect_mc > cfg.max_clusters
+               for s in rec_r["steps"]):
+        failed.append(f"resumed budget {[s['mc'] for s in rec_r['steps']]}"
+                      f", expected {expect_mc}")
+    if not (all(s["finite"] for s in rec_r["steps"])
+            and state_finite(state_r)):
+        failed.append("a non-finite resumed state")
+    if failed:
+        raise RuntimeError(f"phase 18 resume: {failed}")
+    del state, state_r, rec["saved"], rec_r["saved"], loaded
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) the card against the CPU, the same samples
+    small = gbuffer_views(CLI_SMALL_N, CLI_SMALL_SIDE, n_train, n_test, dev)
+    info_s = scene_info(CLI_SMALL_N, *small)
+
+    def step_samples(d):
+        def draw(i, kw):
+            s = draw_tile_samples(torch.Generator().manual_seed(100 + i),
+                                  kw["width"], kw["height"], kw["tile"],
+                                  kw["num_bounces"] + 1)
+            return TileSamples(s.jitter.to(d), s.us.to(d))
+        return draw
+
+    def render_samples(d):
+        def draw(scene, kw):
+            side, nb = CLI_SMALL_SIDE, kw["num_bounces"] + 1
+            gen = torch.Generator().manual_seed(7)
+            if kw.get("use_culling") and fused_path_ok(
+                    scene, side, side, kw["cull_cluster"],
+                    kw.get("composite_mode", "kbuffer")):
+                s = draw_samples(gen, side, side, nb)
+            else:
+                s = draw_tile_samples(gen, side, side, kw["tile"], nb)
+            return type(s)(s.jitter.to(d), s.us.to(d))
+        return draw
+
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        cfg_s = cli_config(str(out_dir / f"small_{d.type}"), CLI_SMALL_SIDE,
+                           **dict(CLI_KW,
+                                  init_num_pts_farfield=CLI_SMALL_FAR))
+        t0 = time.perf_counter()
+        with probe_cli(d, step_samples(d), render_samples(d)) as r:
+            st, _ = train_cli(cfg_s, info_s, d)
+        runs[d.type] = dict(state=st, rec=r, s=time.perf_counter() - t0,
+                            scores=csv_scores(Path(cfg_s.model_path)))
+    diff = states_equal(runs[dev.type]["state"], runs["cpu"]["state"])
+    psnr_gap = max(float(np.abs(runs[dev.type]["scores"][k][:, 1:]
+                                - runs["cpu"]["scores"][k][:, 1:]).max())
+                   for k in ("train", "test"))
+    l1s = {k: [s["l1"] for s in v["rec"]["steps"]] for k, v in runs.items()}
+    if diff or psnr_gap > CLI_PSNR_DB or l1s[dev.type] != l1s["cpu"]:
+        raise RuntimeError(f"phase 18 (b): the card's and the CPU's runs "
+                           f"differ in {diff}; PSNR gap {psnr_gap} dB; l1 "
+                           f"{l1s}")
+
+    def regime(idx):
+        return statistics.mean(it_ms[i - 1] for i in idx)
+
+    res = dict(
+        setup_s=setup_s, iteration_ms=it_ms,
+        primary_only_ms=regime((2, 3)), injection_ms=it_ms[warm - 1],
+        steady_ms=regime((5, 6, 7, 9)), prune_ms=it_ms[7],
+        first_ms=it_ms[0], knn3_ms=[e["ms"] for e in rec["knn3"]],
+        report_ms=rec["reports"][0]["ms"],
+        render_ms=[e["ms"] for e in rec["renders"]],
+        denoise_ms=[e["ms"] for e in rec["denoise"]],
+        save_ms=[e["ms"] for e in rec["saves"]],
+        injection=dict(before=inj[0]["before"], after=inj[0]["after"],
+                       live=inj[0]["live"], ms=inj[0]["ms"]),
+        capacity=[s["capacity"] for s in steps],
+        live=[s["live"] for s in steps],
+        max_clusters=[s["mc"] for s in steps], resumed_mc=expect_mc,
+        l1_diffuse=[s["l1"] for s in steps],
+        starved=[s["starved"] for s in steps],
+        step_launches=[s["launches"] for s in steps],
+        report_launches=rec["reports"][0]["launches"], launches=launches,
+        overflow=[e["overflow"] for e in rec["renders"]],
+        scores={k: v.tolist() for k, v in scores.items()}, peak_gb=peak_gb,
+        resumed_l1=[s["l1"] for s in rec_r["steps"]],
+        small=dict(s={k: v["s"] for k, v in runs.items()},
+                   psnr_gap_db=psnr_gap, l1=l1s[dev.type]))
+    record["phase18_cli"] = res
+    ls = [(x["trace_slots"], x["scatter_grads"], x["render_culled"])
+          for x in res["step_launches"]]
+    print(f"phase 18: training CLI at {CLI_SIDE}x{CLI_SIDE}, room_scene("
+          f"{CLI_N}) G-buffers in {n_train} train + {n_test} test views "
+          f"(set up in {setup_s:.1f} s), Config defaults + {CLI_KW}: ms per "
+          f"iteration {', '.join(f'{x:.1f}' for x in it_ms)}; primary-only "
+          f"{res['primary_only_ms']:.1f}, injection {res['injection_ms']:.1f}"
+          f", steady 2-bounce {res['steady_ms']:.1f}, prune "
+          f"{res['prune_ms']:.1f} ms; knn3 "
+          f"{', '.join(f'{x:.1f}' for x in res['knn3_ms'])} ms; report "
+          f"{res['report_ms']:.1f} ms (renders "
+          f"{', '.join(f'{x:.1f}' for x in res['render_ms'])}, denoise "
+          f"{', '.join(f'{x:.1f}' for x in res['denoise_ms'])}); saves "
+          f"{', '.join(f'{x:.1f}' for x in res['save_ms'])} ms; capacity "
+          f"{inj[0]['before']} -> {inj[0]['after']} (live after injection "
+          f"{inj[0]['live']}), live {res['live']}; max_clusters "
+          f"{cfg.max_clusters} -> {grown} (resumed {expect_mc}); l1_diffuse "
+          f"{', '.join(f'{x:.6f}' for x in res['l1_diffuse'])}; starved "
+          f"{', '.join(f'{x:.4f}' for x in res['starved'])}; report PSNR "
+          f"{res['scores']}, cull_overflow "
+          f"{', '.join(f'{x:.4f}' for x in res['overflow'])}; launches a "
+          f"step (trace_slots/scatter_grads/render_culled) "
+          f"{ls}, a report {res['report_launches']}; peak {peak_gb:.1f} GB; "
+          f"resumed at 9 from step_8 (state bit-equal), 2 bounces, "
+          f"l1_diffuse {res['resumed_l1']} [{smi}]", flush=True)
+    print(f"phase 18 (b): the CLI at {CLI_SMALL_SIDE}x{CLI_SMALL_SIDE}, "
+          f"room_scene({CLI_SMALL_N}), {CLI_SMALL_FAR} far-field points, "
+          f"card vs CPU with the same samples: final TrainStates equal bit "
+          f"for bit, l1_diffuse equal at every step, CSV PSNRs within "
+          f"{psnr_gap:.2f} dB; {runs[dev.type]['s']:.1f} s on the card, "
+          f"{runs['cpu']['s']:.1f} s on the CPU", flush=True)
+    return res
+
+
 def main() -> None:
     # the smoke drives one card: only the first visible one is made visible,
     # before CUDA initialises, so the device count it reports is the one used
@@ -1981,6 +2348,7 @@ def main() -> None:
     dtype = phase_dtype(dev, record, smi)
     sort = phase_sort(dev, record, smi)
     phase_bench(dev, record, smi)
+    cli = phase_cli(dev, record, smi)
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -1999,6 +2367,8 @@ def main() -> None:
         "bound_ms": rc_bound_ms,
         "bound_by": rc_bound_by,
         "library_ms": None,
+        # the training CLI's run (phase 18): its report's eval renders
+        "cli_launches": cli["launches"]["render_culled"],
         "floor_ms": rc_floor["primary"],
         "reflected_ms": kernel_ms_reflected,
         "reflected_plain_ms": phase4["reflected"]["plain_ms"],
@@ -2030,6 +2400,8 @@ def main() -> None:
         "bound_ms": phase5["primary"]["bound_ms"],
         "bound_by": phase5["primary"]["bound_by"],
         "library_ms": None,
+        # the training CLI's run (phase 18): its culled steps
+        "cli_launches": cli["launches"]["trace_slots"],
         "floor_ms": phase5["primary"]["floor_ms"],
         "reflected_ms": phase5["reflected"]["ms"],
         "reflected_plain_ms": phase5["reflected"]["plain_ms"],
@@ -2055,6 +2427,8 @@ def main() -> None:
         "bound_ms": sc_bound_ms,
         "bound_by": sc_bound_by,
         "library_ms": sc_lib_ms,
+        # the training CLI's run (phase 18): one a step
+        "cli_launches": cli["launches"]["scatter_grads"],
         "registers": phase5["scatter"]["kernel_info"]["registers"],
         "blocks_per_sm": phase5["scatter"]["kernel_info"]["blocks_per_sm"],
     }, {

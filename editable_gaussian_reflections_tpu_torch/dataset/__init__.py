@@ -1,6 +1,6 @@
-"""Dataset package: the Blender layout (dataset/blender.py).  The prior and
-COLMAP layouts of the JAX package are not ported yet (ROADMAP.md Queue 1,
-item 8)."""
+"""Dataset package: the Blender layout (dataset/blender.py).  The JAX
+package's Blender-prior and COLMAP-prior layouts (dataset/blender_prior.py,
+dataset/colmap_prior.py and the COLMAP readers) are not ported yet."""
 
 from .blender import BlenderDataset
 from .camera_info import CameraInfo

@@ -12,6 +12,8 @@ import torch
 
 # flags.h:8 - "Essential for stability, can't remove"
 MAX_ALPHA = 0.9999
+# flags.h:16-19 - the most GGX reflection bounces a frame traces
+MAX_BOUNCES = 2
 # flags.h (ROUGHNESS_DOWNWEIGHT_GRAD, on): the specular loss gradient of
 # bounce b >= 1 is scaled by (1 - roughness of bounce b-1)^POWER
 ROUGHNESS_DOWNWEIGHT_GRAD_POWER = 3.0

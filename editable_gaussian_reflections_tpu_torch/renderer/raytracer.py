@@ -245,8 +245,8 @@ def check_composite_mode(composite_mode: str, split_far: bool = False) -> None:
             "'kbuffer' | 'scan' | 'scanq'")
     if split_far:
         raise NotImplementedError(
-            "split_far=True: the two-pass near/far bounce is not ported yet "
-            "(ROADMAP.md Queue 1, item 13)")
+            "split_far=True: the two-pass near/far bounce (merge_slots and "
+            "the far pass) is not ported yet")
 
 
 def _prepare_fused_frame(scene: GaussianScene, camera: CameraParams,
@@ -1201,8 +1201,7 @@ def render_tile_with_grads_fused(
     if split_far:
         raise NotImplementedError(
             "split_far=True: the two-pass near/far bounce (merge_slots, "
-            "window modes 1/2) is not ported yet (ROADMAP.md Queue 1, "
-            "item 13)")
+            "window modes 1/2 and the far pass) is not ported yet")
     del use_mxu_scatter  # one scatter kernel serves both JAX forms
     steps, final, residuals, _calls = fused_forward(
         rays_o, rays_d, settings, znear, zfar, us, num_bounces, max_hits,

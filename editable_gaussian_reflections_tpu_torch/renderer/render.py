@@ -5,8 +5,8 @@ dispatch_render_frame routes a frame to the fused whole-frame path
 (render_frame_fused) when its shapes allow, and to the non-fused
 render_frame otherwise, exactly where the JAX dispatch does.  render()
 returns a SimpleNamespace with the JAX facade's field names ([S, C, H, W] /
-[3, H, W] numpy arrays).  Denoising (renderer/denoise.py) is not ported
-yet: render(denoise=True) raises.
+[3, H, W] numpy arrays); with denoise=True its final image is demodulated
+and denoised on the scene's device (renderer/denoise.py).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..scene.gaussian_scene import GaussianScene
+from .denoise import denoise_specular
 from .raytracer import (
     CameraParams,
     FrameSamples,
@@ -140,12 +141,9 @@ def render(
     generator seeded 0.  Returns a SimpleNamespace: rgb [S, 3, H, W] per
     bounce, final [3, H, W], overflow_frac (the share of starved bounce x
     ray slots), depth / normal / roughness / f0 / transmittance [S, C, H, W]
-    and the camera's targets [C, H, W] (None without them)."""
-    if denoise:
-        raise NotImplementedError(
-            "denoise=True: renderer/denoise.py (the spp-aware a-trous filter "
-            "and the KPN denoiser) is not ported yet (ROADMAP.md Queue 1, "
-            "item 10)")
+    and the camera's targets [C, H, W] (None without them).  denoise=True
+    filters the specular part of `final` guided by the primary G-buffer
+    (render.py:144-153)."""
     dev = scene.xyz.device
     if generator is None and backend_kwargs.get("samples") is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -162,6 +160,13 @@ def render(
             a = a[..., None]
         return a.reshape(a.shape[0], H, W, a.shape[-1]).transpose(0, 3, 1, 2)
 
+    final_img = final.reshape(H, W, 3)
+    if denoise:
+        final_img = denoise_specular(
+            final_img, steps.rgb[0].reshape(H, W, 3),
+            steps.normal[0].reshape(H, W, 3), steps.depth[0].reshape(H, W),
+            steps.roughness[0].reshape(H, W))
+
     t = camera if targets_available else None
 
     def tgt(name):
@@ -170,7 +175,7 @@ def render(
 
     return SimpleNamespace(
         rgb=chw(steps.rgb),
-        final=final.cpu().numpy().reshape(H, W, 3).transpose(2, 0, 1),
+        final=final_img.cpu().numpy().transpose(2, 0, 1),
         # share of (step, ray) slots starved by candidate-list overflow
         overflow_frac=float(steps.overflow.mean()),
         depth=chw(steps.depth),

@@ -48,12 +48,13 @@ def get_dataset(cfg: Config, data_dir: str, split: str):
     """The Blender layout (dataset_readers.py:65-89).  A priors/ or sparse/
     directory marks the COLMAP-prior or Blender-prior layouts, which are not
     ported yet: they raise rather than load as something else."""
-    for marker, layout in (("priors", "COLMAP prior"),
-                           ("sparse", "Blender prior")):
+    for marker, layout, module in (
+            ("priors", "COLMAP prior", "colmap_prior"),
+            ("sparse", "Blender prior", "blender_prior")):
         if os.path.exists(os.path.join(data_dir, marker)):
             raise NotImplementedError(
-                f"{data_dir}: the {layout} dataset layout ({marker}/) is not "
-                "ported yet (ROADMAP.md Queue 1, item 8)")
+                f"{data_dir}: the {layout} dataset layout ({marker}/) needs "
+                f"dataset/{module}.py, which is not ported yet")
     from ..dataset.blender import BlenderDataset
     return BlenderDataset(
         data_dir, split=split, resolution=cfg.resolution,

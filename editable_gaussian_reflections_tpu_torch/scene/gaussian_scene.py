@@ -147,3 +147,8 @@ def from_numpy(params: dict[str, np.ndarray],
         dtype = torch.bool if name == "live_mask" else torch.float32
         fields[name] = torch.tensor(a, dtype=dtype, device=device)
     return GaussianScene(**fields)
+
+
+def num_live(scene: GaussianScene) -> int:
+    """How many slots hold a live Gaussian."""
+    return int(scene.live_mask.sum().item())

@@ -159,8 +159,8 @@ def prepare_render_inputs(scene: GaussianScene, settings: RenderSettings,
             "(plain PyTorch versions on the CPU)")
     if split_far:
         raise NotImplementedError(
-            "split_far=True: the two-pass near/far bounce is not ported yet "
-            "(ROADMAP.md Queue 1, item 13)")
+            "split_far=True: the two-pass near/far bounce (merge_slots and "
+            "the far pass) is not ported yet")
     frames, attrs = build_frames(scene, settings.alpha_threshold,
                                  settings.exp_power,
                                  settings.global_scale_factor)
@@ -433,6 +433,25 @@ def prune_step(state: TrainState, kill: torch.Tensor) -> TrainState:
                       total_weight=torch.zeros_like(state.total_weight))
 
 
+def use_pallas_backend(cfg: Config) -> bool:
+    """Whether the step traces with the kernels (the JAX package's Pallas
+    backend; JAX training.py:395-403): True for every cfg.backend.  The
+    port never selects use_pallas=False, the JAX package's XLA tracer,
+    which it does not have; `step_culls` says which kernel path runs, as
+    default_backend_kwargs does for frames (renderer/render.py)."""
+    del cfg
+    return True
+
+
+def step_culls(cfg: Config) -> bool:
+    """Whether the training step may cull (the shapes permitting): "xla"
+    runs the brute trace_hits step, as JAX's XLA tracer traces every
+    Gaussian; "auto" and "pallas" cull as cfg.cull says on every device.
+    (JAX's "auto" takes its XLA path on a CPU backend; on CPU tensors the
+    port runs its kernels' plain versions, so "auto" culls there too.)"""
+    return cfg.backend != "xla" and cfg.cull
+
+
 def pick_tile_size(num_rays: int, preferred: int) -> int:
     """Largest divisor of num_rays that is <= preferred."""
     t = min(preferred, num_rays)
@@ -476,7 +495,11 @@ def append_with_opt_state(state: TrainState, new: dict,
                           pad_multiple: int = 2048) -> TrainState:
     """Far-field injection preserving survivors' Adam moments
     (densification_postfix + cat_tensors_to_optimizer semantics): the live
-    rows, then the new ones, padded to a multiple of `pad_multiple`."""
+    rows, then the new ones, padded to a multiple of `pad_multiple`.
+
+    The padded rows' moments are zeros.  (The JAX package pads the moments
+    with pad_to's parameter fills, -10 for scaling and opacity: a negative
+    second moment, so the next Adam step writes NaN into those dead rows.)"""
     scene = state.scene
     dev = scene.xyz.device
     idx = torch.nonzero(scene.live_mask).squeeze(1)
@@ -496,7 +519,11 @@ def append_with_opt_state(state: TrainState, new: dict,
             else:
                 add = torch.zeros(shape, dtype=old.dtype, device=dev)
             fields[f] = torch.cat([old, add])
-        return pad_to(GaussianScene(live_mask=live_mask, **fields), cap)
+        out = GaussianScene(live_mask=live_mask, **fields)
+        if take_new:
+            return pad_to(out, cap)
+        return GaussianScene(*(torch.cat([a, a.new_zeros(
+            (cap - a.shape[0],) + tuple(a.shape[1:]))]) for a in out))
 
     new_scene = rebuild(scene, take_new=True)
     new_mu = rebuild(state.mu, take_new=False)._replace(

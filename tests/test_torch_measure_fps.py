@@ -120,10 +120,11 @@ def test_prior_layouts_raise(model_dir, tmp_path):
     (tmp_path / "sparse").mkdir()
     cfg = dataclasses.replace(load_model_config(str(model), []),
                               source_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="blender_prior.py"):
         Scene(cfg, load_iteration=ITERATION, model_path=str(model),
               device="cpu")
-    with pytest.raises(NotImplementedError, match="create_from_pcd"):
+    # initializing from the point cloud reads the dataset first
+    with pytest.raises(NotImplementedError, match="blender_prior.py"):
         Scene(cfg, model_path=str(model), device="cpu")
 
 

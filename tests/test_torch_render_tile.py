@@ -57,6 +57,9 @@ from editable_gaussian_reflections_tpu_torch.ops.intersect import (
 )
 from editable_gaussian_reflections_tpu_torch.renderer import raytracer as trt
 from editable_gaussian_reflections_tpu_torch.renderer import render as trd
+from editable_gaussian_reflections_tpu_torch.renderer.denoise import (
+    denoise_specular,
+)
 from editable_gaussian_reflections_tpu_torch.scene import gaussian_scene as tgs
 from editable_gaussian_reflections_tpu_torch.scene.cameras import Camera
 from editable_gaussian_reflections_tpu_torch.utils.synth import (
@@ -329,7 +332,9 @@ def test_dispatch_routes_like_jax():
 
 def test_render_facade_equals_dispatch():
     """render() returns the JAX facade's fields, [S, C, H, W] / [3, H, W],
-    from the same frame as dispatch_render_frame; denoise raises."""
+    from the same frame as dispatch_render_frame; with denoise=True its
+    final is that frame's final denoised (renderer/denoise.py), the rest
+    unchanged."""
     scene, camera = _room()
     W, H, nb, kw = FRAMES["culled_linear_padded"]
     eye, c2w = room_camera()
@@ -363,8 +368,16 @@ def test_render_facade_equals_dispatch():
                                                                      W)
     assert res.target.shape == (3, H, W) and res.target_specular is None
     assert res.overflow_frac == pytest.approx(float(steps.overflow.mean()))
-    with pytest.raises(NotImplementedError, match="denoise"):
-        trd.render(view, scene, denoise=True, **kw)
+    den = trd.render(view, scene, trt.RenderSettings(), num_bounces=1,
+                     znear=ZNEAR, zfar=ZFAR, samples=samples, denoise=True,
+                     **kw)
+    want = denoise_specular(
+        final.reshape(H, W, 3), steps.rgb[0].reshape(H, W, 3),
+        steps.normal[0].reshape(H, W, 3), steps.depth[0].reshape(H, W),
+        steps.roughness[0].reshape(H, W))
+    np.testing.assert_array_equal(den.final, want.numpy().transpose(2, 0, 1))
+    assert not np.array_equal(den.final, res.final)
+    np.testing.assert_array_equal(den.rgb, res.rgb)
 
 
 def test_render_accumulated_chunked_equals_unchunked():

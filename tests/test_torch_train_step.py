@@ -431,10 +431,32 @@ def test_prune_step_matches_jax(jax_ref):
 
 
 def test_append_with_opt_state_matches_jax(jax_ref):
+    """JAX's appended state exactly, except the padded rows' Adam moments:
+    zeros in the port, pad_to's parameter fills in JAX (-10 for scaling and
+    opacity, whose negative second moment turns the next Adam step's
+    update NaN in those dead rows; see training.append_with_opt_state)."""
     x, state, _ = _port_seeded()
-    _assert_state(ttr.append_with_opt_state(state, x["new"],
-                                            pad_multiple=16),
-                  jax_ref, "append", exact=True)
+    res = ttr.append_with_opt_state(state, x["new"], pad_multiple=16)
+    live = res.scene.live_mask.numpy()
+    assert not live.all()                    # the case has padded rows
+    ref = dict(jax_ref)
+    for tree in ("mu", "nu"):
+        for f in FIELDS:
+            pad = getattr(getattr(res, tree), f).numpy()[~live]
+            np.testing.assert_array_equal(pad, np.zeros_like(pad))
+            b = ref[f"append/{tree}/{f}"].copy()
+            b[~live] = 0.0
+            ref[f"append/{tree}/{f}"] = b
+    _assert_state(res, ref, "append", exact=True)
+    # the next Adam step keeps every row finite
+    n = res.scene.capacity
+    shapes = dict(mean=(n, 3), scale=(n, 3), rotation=(n, 4), opacity=(n,),
+                  rgb=(n, 3), normal=(n, 3), f0=(n, 3), roughness=(n,),
+                  total_weight=(n,))
+    nxt = ttr.apply_updates(res, ParamGrads(**{
+        k: torch.zeros(v) for k, v in shapes.items()}), LRS, HYPER)
+    for f in FIELDS:
+        assert torch.isfinite(getattr(nxt.scene, f)).all(), f
 
 
 def test_lr_tree_and_schedule_match_jax(jax_ref):
