@@ -147,7 +147,26 @@ Phases, one line each (any failure raises and the script exits non-zero):
      budget, every state finite); then (b) the same loop at 64x64 on
      room_scene(16384) with 1024 far-field points on the card and on the
      CPU with the same samples: final TrainStates equal bit for bit, the
-     CSV PSNRs within CLI_PSNR_DB.
+     CSV PSNRs within CLI_PSNR_DB;
+ 19. run.sh from disk: tools/prior_setup.py writes phase 18's views
+     (768x768, 4 train + 1 test, the seed-0 room_scene(175_000)'s
+     G-buffers) as a Blender-prior dataset with the port's own PNG writer
+     and a COLMAP sparse model of the seed-1 room's points; get_dataset
+     reads it back (BlenderPriorDataset: the RANSAC depth rescale runs),
+     each buffer held to the in-memory G-buffers within its format's
+     quantisation and the fit (LOAD_TOL), with the PNG read ms per file
+     (also of a Paeth-filtered copy); then the CLIs in-process, each
+     timed with its kernels' launches: prepare_initial_ply --mode sfm,
+     train (phase 18's CLI_KW, init_type sfm), render (--spp 128
+     --spp_chunk 16 --skip_video; ms and spp per view, overflow.json),
+     metrics (psnr ssim msssim lpips: finite, PSNR above 0, lpips_rand at
+     least 0) and tools.render_novel_views (RUN_NOVEL: 2 views at 16 spp,
+     cut from 300 at 128); then (b) the same pipeline at RUN_SMALL_SIDE on
+     room_scene(RUN_SMALL_N) on the card and on the CPU with the same
+     samples (the render's and the novel views' spp cut to RUN_SMALL_SPP
+     and RUN_SMALL_NOVEL): the trained PLYs equal, every PNG within
+     RUN_PNG_SHARE / RUN_FLIP_SHARE, overflow.json equal, metrics.json
+     within RUN_METRIC_TOL.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -175,8 +194,17 @@ import numpy as np
 import torch
 
 from editable_gaussian_reflections_tpu_torch import bench
+from editable_gaussian_reflections_tpu_torch import metrics as tmetrics
+from editable_gaussian_reflections_tpu_torch import (
+    prepare_initial_ply as tprep,
+)
+from editable_gaussian_reflections_tpu_torch import render as trender
 from editable_gaussian_reflections_tpu_torch import train as ttrain
 from editable_gaussian_reflections_tpu_torch import training as tr
+from editable_gaussian_reflections_tpu_torch.config import Config
+from editable_gaussian_reflections_tpu_torch.dataset.image_utils import (
+    from_png,
+)
 from editable_gaussian_reflections_tpu_torch.measure_fps import measure_fps
 from editable_gaussian_reflections_tpu_torch.ops.cuda import build
 from editable_gaussian_reflections_tpu_torch.ops.cuda.layout import (
@@ -243,7 +271,12 @@ from editable_gaussian_reflections_tpu_torch.ops.render_grads import (
     new_grad_accumulator,
 )
 from editable_gaussian_reflections_tpu_torch.ops.tonemap import tonemap
+from editable_gaussian_reflections_tpu_torch.utils.image import (
+    read_png,
+    write_png,
+)
 from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
+    FrameSamples,
     RayTargets,
     RenderSettings,
     StepOutputs,
@@ -258,6 +291,7 @@ from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
     render_frame_fused,
     tiles_per_launch_for,
 )
+from editable_gaussian_reflections_tpu_torch.renderer import raytracer as rt
 from editable_gaussian_reflections_tpu_torch.renderer import render as trd
 from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
@@ -266,10 +300,17 @@ from editable_gaussian_reflections_tpu_torch.scene import init as tinit
 from editable_gaussian_reflections_tpu_torch.scene.gaussian_scene import (
     num_live,
 )
+from editable_gaussian_reflections_tpu_torch.scene.dataset_readers import (
+    get_dataset,
+)
 from editable_gaussian_reflections_tpu_torch.scene.scene import Scene
 from editable_gaussian_reflections_tpu_torch.tools import (
     bench_v5,
     bench_vpu_dtype,
+)
+from editable_gaussian_reflections_tpu_torch.tools import prior_setup as tprior
+from editable_gaussian_reflections_tpu_torch.tools import (
+    render_novel_views as tnovel,
 )
 from editable_gaussian_reflections_tpu_torch.tools.cli_setup import (
     cli_config,
@@ -393,6 +434,36 @@ CLI_SMALL_SIDE, CLI_SMALL_N, CLI_SMALL_FAR = 64, 16384, 1024
 # the CSV PSNRs of the card's and the CPU's run (cuDNN's convolutions in
 # the KPN denoiser are not bit-equal to the CPU's)
 CLI_PSNR_DB = 0.01
+# phase 19: run.sh's CLIs on phase 18's views written to disk in the
+# Blender-prior layout; the render at run.sh's 128 spp in chunks of 16, the
+# novel views cut from 300 at 128 spp to 2 at 16; (b) at RUN_SMALL_SIDE on
+# the card and the CPU, the spp cut further (the CPU runs plain versions)
+RUN_SPP, RUN_SPP_CHUNK = 128, 16
+RUN_NOVEL = ["--n_views", "2", "--spp", "16"]
+RUN_METRICS = ["psnr", "ssim", "msssim", "lpips"]
+RUN_SMALL_SIDE, RUN_SMALL_N, RUN_SMALL_FAR = 64, 4096, 512
+RUN_SMALL_SPP = (4, 2)
+RUN_SMALL_NOVEL = ["--n_views", "2", "--spp", "1"]
+# the loaded views against the in-memory G-buffers: tonemapped RGB within
+# half an 8-bit level, roughness and metalness-f0 within half a 16-bit
+# level, poses to float64 round-off, normals within the 8-bit camera-space
+# quantisation after normalising (1/255 a component, sqrt(3)x at most),
+# distances within the RANSAC fit's error (median and 99th percentile of
+# the relative error; the fit's pairs are within prior_setup.VISIBLE; and
+# the largest error in z as a share of the view's written z range, over
+# every hit pixel: the fit's error is absolute in z, so the relative
+# maximum is that of the few pixels whose rendered distance is far below
+# any surface's, partly covered ones the render's alpha weights towards 0),
+# plus the untonemap round trip's float32 error
+LOAD_TOL = dict(rgb=0.5 / 255 + 1e-4, scalar=0.5 / 65535 + 1e-6,
+                pose=1e-9, normal=2 * math.sqrt(3) / 255,
+                depth_median=1e-2, depth_p99=5e-2, depth_range=2e-2)
+# (b): card vs CPU.  A PNG may differ by one level in RUN_PNG_SHARE of its
+# values and by more in RUN_FLIP_SHARE of its pixels (the denoiser's
+# convolutions: cuDNN against the CPU's); metrics.json within
+# RUN_METRIC_TOL (4 decimals; psnr in dB)
+RUN_PNG_SHARE, RUN_FLIP_SHARE = 0.01, 0.005
+RUN_METRIC_TOL = dict(psnr=0.01, ssim=2e-4, msssim=2e-4, lpips_rand=2e-4)
 
 
 def first_tiles(call, n_tiles: int, ray_pos=(0, 1), cand_pos=(3, 4)):
@@ -1371,17 +1442,20 @@ def mix_bound(name: str, elements: int, reps: int) -> dict:
 def device_ms_per_launch(fn, name_part: str) -> tuple:
     """(median device ms, launches seen) of the kernels named like
     `name_part` that fn() launches, from the profiler's trace (the median:
-    a launch the profiler's start delays does not move it)."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    us = sorted(e.time_range.elapsed_us() for e in prof.events()
-                if name_part in e.name
-                and e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us:
-        raise RuntimeError(f"the profiler saw no {name_part} kernel")
-    return statistics.median(us) / 1e3, len(us)
+    a launch the profiler's start delays does not move it).  The profiler
+    dropped a whole trace once on the card: a trace with none of them is
+    taken once more, and a second empty one raises."""
+    for _ in range(2):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                    if name_part in e.name
+                    and e.device_type == torch.autograd.DeviceType.CUDA)
+        if us:
+            return statistics.median(us) / 1e3, len(us)
+    raise RuntimeError(f"the profiler saw no {name_part} kernel, twice")
 
 
 def phase_dtype(dev, record, smi) -> dict:
@@ -1892,6 +1966,351 @@ def phase_cli(dev, record, smi) -> dict:
     return res
 
 
+def check_loaded(data: Path, meta: dict, side: int) -> dict:
+    """The dataset on disk read back by get_dataset, view by view, against
+    the G-buffers it was written from (LOAD_TOL); returns the worst
+    errors."""
+    err = dict(rgb=0.0, scalar=0.0, pose=0.0, normal=0.0, f0_colour=0.0,
+               depth_median=0.0, depth_p99=0.0, depth_max=0.0,
+               depth_range=0.0)
+    kinds = []
+    z_ranges = iter(meta["depth"])
+    for split, views in zip(("train", "test"), meta["views"]):
+        ds = get_dataset(Config(resolution=side), str(data), split)
+        kinds.append(type(ds).__name__)
+        if len(ds) != len(views):
+            raise RuntimeError(f"phase 19: {split} has {len(ds)} views, "
+                               f"{len(views)} written")
+        for k, view in enumerate(views):
+            ci = ds[k]
+            if (ci.FovX, ci.FovY) != (view.FoVx, view.FoVy):
+                raise RuntimeError(f"phase 19: {split} {k} fov")
+            err["pose"] = max(err["pose"],
+                              float(np.abs(ci.R - view.R).max()),
+                              float(np.abs(ci.T - view.T).max()))
+            for a, b in ((ci.image, view.original_image),
+                         (ci.diffuse_image, view.diffuse_image),
+                         (ci.specular_image, view.specular_image)):
+                ta, tb = (tonemap(torch.from_numpy(np.asarray(
+                    x, np.float32))).numpy() for x in (a, b))
+                err["rgb"] = max(err["rgb"], float(np.abs(
+                    ta - np.clip(tb, 0, 1)).max()))
+            m = tprior.metalness(view.f0_image)
+            err["scalar"] = max(
+                err["scalar"],
+                float(np.abs(ci.roughness_image[..., 0] - np.clip(
+                    view.roughness_image[..., 0], 0, 1)).max()),
+                float(np.abs(ci.f0_image[..., 0]
+                             - (0.04 * (1.0 - m) + m)).max()))
+            err["f0_colour"] = max(err["f0_colour"], float(np.abs(
+                ci.f0_image - view.f0_image).max()))
+            n = view.normal_image
+            lit = np.linalg.norm(n, axis=-1) >= 0.5
+            err["normal"] = max(err["normal"], float(np.abs(
+                ci.normal_image - tprior.unit(n))[lit].max()))
+            t = view.depth_image[..., 0]
+            hit = t > 0
+            rel = np.abs(ci.depth_image[..., 0][hit] - t[hit]) / t[hit]
+            err["depth_median"] = max(err["depth_median"],
+                                      float(np.median(rel)))
+            err["depth_p99"] = max(err["depth_p99"],
+                                   float(np.percentile(rel, 99)))
+            err["depth_max"] = max(err["depth_max"], float(rel.max()))
+            # the fit's error is absolute in z: as a share of the view's
+            # written z range, over every hit pixel
+            zr = next(z_ranges)
+            dz = np.abs(ci.depth_image[..., 0][hit] - t[hit]) / \
+                tprior.ray_length(view)[hit]
+            err["depth_range"] = max(err["depth_range"], float(
+                dz.max() / (zr["z_hi"] - zr["z_lo"])))
+    failed = {k: v for k, v in err.items()
+              if k in LOAD_TOL and not v <= LOAD_TOL[k]}
+    if failed or kinds != ["BlenderPriorDataset"] * 2:
+        raise RuntimeError(f"phase 19: the loaded views {kinds} differ "
+                           f"from the written ones: {failed} (bounds "
+                           f"{LOAD_TOL})")
+    return err
+
+
+def png_read_ms(data: Path, name: str, tmp: Path) -> dict:
+    """ms to read one view's buffers (the best of 3 reads each, by kind),
+    and a Paeth-filtered copy of its render and depth files (the filter
+    PIL's writer often picks; the port writes filter None)."""
+    out = {}
+    for buf in tprior.BUFFERS:
+        path = data / "train" / buf / f"{buf}_{name.split('_')[-1]}.png"
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            from_png(str(path))
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[buf] = min(ts)
+        if buf in ("render", "depth"):
+            copy = tmp / f"paeth_{buf}.png"
+            write_png(str(copy), read_png(str(path)), "paeth")
+            t0 = time.perf_counter()
+            read_png(str(copy))
+            out[f"paeth_{buf}"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+@contextlib.contextmanager
+def cpu_drawn_samples():
+    """Every frame the renderer draws for itself takes its samples from a
+    CPU generator seeded as the frame's own, moved to the scene's device:
+    the card and the CPU render the same samples."""
+    real_fused, real_frame = rt.render_frame_fused, rt.render_frame
+
+    def cpu_gen(generator):
+        return torch.Generator().manual_seed(generator.initial_seed())
+
+    def fused(scene, camera, settings, generator, width, height, **kw):
+        if kw.get("samples") is None:
+            s = draw_samples(cpu_gen(generator), width, height,
+                             kw.get("num_bounces", 2) + 1,
+                             kw.get("jitter", True))
+            kw["samples"] = FrameSamples(*(
+                None if a is None else a.to(scene.xyz.device) for a in s))
+        return real_fused(scene, camera, settings, None, width, height,
+                          **kw)
+
+    def frame(scene, camera, settings, generator, width, height, **kw):
+        if kw.get("samples") is None:
+            s = draw_tile_samples(
+                cpu_gen(generator), width, height,
+                min(kw.get("tile", 8192), width * height),
+                kw.get("num_bounces", 2) + 1, kw.get("jitter", True))
+            kw["samples"] = TileSamples(*(
+                None if a is None else a.to(scene.xyz.device) for a in s))
+        return real_frame(scene, camera, settings, None, width, height, **kw)
+
+    with contextlib.ExitStack() as stack:
+        for mod in (rt, trd):
+            stack.enter_context(mock.patch.object(mod, "render_frame_fused",
+                                                  fused))
+            stack.enter_context(mock.patch.object(mod, "render_frame",
+                                                  frame))
+        yield
+
+
+def kw_argv(kw: dict) -> list:
+    out = []
+    for k, v in kw.items():
+        out += [f"--{k}"] + ([str(x) for x in v] if isinstance(v, list)
+                             else [str(v)])
+    return out
+
+
+def run_pipeline(dev, data: Path, model: Path, side: int, train_kw: dict,
+                 spp: tuple, novel: list, step_samples=None) -> dict:
+    """run.sh's CLIs in this process on `dev`: prepare_initial_ply (sfm),
+    train, render, metrics, render_novel_views; each stage's seconds and
+    its kernels' launches, the render's ms per view, the training probe's
+    record, metrics.json and overflow.json."""
+    device = ["--device", dev.type]
+    stages, view_ms = {}, []
+    iteration = train_kw["iterations"]
+
+    def stage(name, fn, argv):
+        sync(dev)
+        before, t0 = launch_counts(), time.perf_counter()
+        fn(argv + device)
+        sync(dev)
+        stages[name] = dict(
+            s=time.perf_counter() - t0,
+            launches={k: v - before[k] for k, v in launch_counts().items()})
+
+    real_view = trender.render_view
+
+    def render_view(*args, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = real_view(*args, **kw)
+        sync(dev)
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    stage("prepare_initial_ply", tprep.main,
+          ["-s", str(data), "--mode", "sfm"])
+    with probe_cli(dev, step_samples) as rec:
+        stage("train", ttrain.cli,
+              ["-s", str(data), "-m", str(model), "-r", str(side),
+               "--init_type", "sfm"] + kw_argv(train_kw))
+    with mock.patch.object(trender, "render_view", render_view):
+        stage("render", trender.main,
+              ["-m", str(model), "--spp", str(spp[0]), "--spp_chunk",
+               str(spp[1]), "--skip_video"])
+    stage("metrics", tmetrics.main,
+          ["-m", str(model), "--iteration", str(iteration), "--metrics"]
+          + RUN_METRICS)
+    stage("render_novel_views", tnovel.main, ["-m", str(model)] + novel)
+    base = model / "test" / f"ours_{iteration}"
+    return dict(stages=stages, view_ms=view_ms, rec=rec,
+                metrics=json.loads((model / "metrics.json").read_text()),
+                overflow=json.loads((base / "overflow.json").read_text()))
+
+
+def compare_runs(a: Path, b: Path, iteration: int) -> dict:
+    """The card's and the CPU's model directories: PLY bytes, every PNG,
+    overflow.json and metrics.json."""
+    worst = dict(png_share=0.0, flip_share=0.0, metrics={})
+    failed = []
+    ply = Path("point_cloud") / f"iteration_{iteration}" / "point_cloud.ply"
+    if (a / ply).read_bytes() != (b / ply).read_bytes():
+        failed.append("trained PLYs differ")
+    pngs = sorted(p.relative_to(a) for d in ("test", "novel_views")
+                  for p in (a / d).rglob("*.png"))
+    if pngs != sorted(p.relative_to(b) for d in ("test", "novel_views")
+                      for p in (b / d).rglob("*.png")) or not pngs:
+        failed.append("the PNG trees differ")
+    for rel in pngs:
+        x = read_png(str(a / rel)).astype(np.int16)
+        y = read_png(str(b / rel)).astype(np.int16)
+        d = np.abs(x - y)
+        worst["png_share"] = max(worst["png_share"], float((d > 0).mean()))
+        worst["flip_share"] = max(worst["flip_share"],
+                                  float((d > 1).any(-1).mean()))
+    if (worst["png_share"] > RUN_PNG_SHARE
+            or worst["flip_share"] > RUN_FLIP_SHARE):
+        failed.append(f"PNGs {worst}")
+    base = Path("test") / f"ours_{iteration}" / "overflow.json"
+    if (a / base).read_text() != (b / base).read_text():
+        failed.append("overflow.json differs")
+    ma, mb = (json.loads((m / "metrics.json").read_text()) for m in (a, b))
+    for rp in mb:
+        for k, tol in RUN_METRIC_TOL.items():
+            gap = abs(ma[rp][k] - mb[rp][k])
+            worst["metrics"][k] = max(worst["metrics"].get(k, 0.0), gap)
+            if not gap <= tol + 1e-9:
+                failed.append(f"{rp} {k} {ma[rp][k]} vs {mb[rp][k]}")
+    if failed:
+        raise RuntimeError(f"phase 19 (b): the card's and the CPU's runs "
+                           f"differ: {failed}")
+    return worst
+
+
+def phase_run(dev, record, smi) -> dict:
+    """Phase 19: run.sh from disk at CLI_SIDE (tools/prior_setup.py's
+    Blender-prior dataset of phase 18's views), then at RUN_SMALL_SIDE on
+    the card and on the CPU with the same samples."""
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "run_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    data, model = out_dir / "data", out_dir / "model"
+    n_train, n_test = CLI_VIEWS
+    t0 = time.perf_counter()
+    meta = tprior.write_prior_dataset(str(data), CLI_N, CLI_SIDE, n_train,
+                                      n_test, dev)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_err = check_loaded(data, meta, CLI_SIDE)
+    load_s = time.perf_counter() - t0
+    read_ms = png_read_ms(data, meta["names"][0], out_dir)
+    del meta
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    run = run_pipeline(dev, data, model, CLI_SIDE, CLI_KW,
+                       (RUN_SPP, RUN_SPP_CHUNK), RUN_NOVEL)
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == "cuda" else 0.0)
+    st = run["stages"]
+    failed = []
+    for name, kernels in (("train", ("trace_slots", "scatter_grads")),
+                          ("render", ("render_culled",)),
+                          ("render_novel_views", ("trace_hits",))):
+        for k in kernels:
+            if not st[name]["launches"][k]:
+                failed.append(f"{k} not launched by {name}")
+    steps = run["rec"]["steps"]
+    if len(steps) != CLI_KW["iterations"] or not all(
+            s["finite"] and math.isfinite(s["l1"]) for s in steps):
+        failed.append(f"training steps {len(steps)}, finite "
+                      f"{[s['finite'] for s in steps]}")
+    for rp, vals in run["metrics"].items():
+        if sorted(vals) != sorted(["psnr", "ssim", "msssim", "lpips_rand"]) \
+                or not all(math.isfinite(v) for v in vals.values()) \
+                or not vals["psnr"] > 0 or not vals["lpips_rand"] >= 0:
+            failed.append(f"metrics {rp} {vals}")
+    if failed:
+        raise RuntimeError(f"phase 19: {failed}")
+    full_s = time.perf_counter() - t_phase
+
+    # (b) the card against the CPU, the same samples
+    t0 = time.perf_counter()
+    small = out_dir / "small"
+    tprior.write_prior_dataset(str(small / "data"), RUN_SMALL_N,
+                               RUN_SMALL_SIDE, n_train, n_test, dev)
+    small_kw = dict(CLI_KW, init_num_pts_farfield=RUN_SMALL_FAR)
+
+    def step_samples(d):
+        def draw(i, kw):
+            s = draw_tile_samples(torch.Generator().manual_seed(100 + i),
+                                  kw["width"], kw["height"], kw["tile"],
+                                  kw["num_bounces"] + 1)
+            return TileSamples(s.jitter.to(d), s.us.to(d))
+        return draw
+
+    small_s = {}
+    for d in (dev, torch.device("cpu")):
+        t1 = time.perf_counter()
+        with cpu_drawn_samples():
+            run_pipeline(d, small / "data", small / f"model_{d.type}",
+                         RUN_SMALL_SIDE, small_kw, RUN_SMALL_SPP,
+                         RUN_SMALL_NOVEL, step_samples(d))
+        small_s[d.type] = time.perf_counter() - t1
+    gaps = compare_runs(small / f"model_{dev.type}", small / "model_cpu",
+                        CLI_KW["iterations"])
+    small_total = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+
+    res = dict(
+        write_s=write_s, load_s=load_s, load_err=load_err, read_ms=read_ms,
+        stages=st, view_ms=run["view_ms"], spp=RUN_SPP,
+        iteration_ms=iteration_ms(run["rec"], run["rec"]["steps"][-1]["t0"]
+                                  + run["rec"]["steps"][-1]["ms"] / 1e3),
+        l1_diffuse=[s["l1"] for s in steps],
+        starved=[s["starved"] for s in steps],
+        overflow=run["overflow"], metrics=run["metrics"], peak_gb=peak_gb,
+        full_s=full_s, small=dict(s=small_s, gaps=gaps, total_s=small_total),
+        phase_s=phase_s)
+    record["phase19_run"] = res
+    print(f"phase 19: run.sh from disk at {CLI_SIDE}x{CLI_SIDE} "
+          f"(room_scene({CLI_N}), {n_train} train + {n_test} test views, "
+          f"Blender-prior layout written in {write_s:.1f} s, read back and "
+          f"checked in {load_s:.1f} s: worst rgb "
+          f"{load_err['rgb']:.2e}, roughness/f0 {load_err['scalar']:.2e}, "
+          f"pose {load_err['pose']:.1e}, normal {load_err['normal']:.4f}, "
+          f"distance relative median {load_err['depth_median']:.2e} / p99 "
+          f"{load_err['depth_p99']:.2e} / max {load_err['depth_max']:.2e}"
+          f", z error over the z range max {load_err['depth_range']:.2e}"
+          f", f0 colour lost {load_err['f0_colour']:.3f}); PNG read ms per "
+          f"file " + ", ".join(f"{k} {v:.1f}" for k, v in read_ms.items())
+          + f" [{smi}]", flush=True)
+    print("phase 19: stages " + "; ".join(
+        f"{k} {v['s']:.1f} s (launches " + ", ".join(
+            f"{n} {c}" for n, c in v["launches"].items() if c) + ")"
+        for k, v in st.items())
+        + f"; render {', '.join(f'{x:.1f}' for x in run['view_ms'])} ms "
+        f"a view at {RUN_SPP} spp ({RUN_SPP_CHUNK} a chunk); train ms per "
+        f"iteration {', '.join(f'{x:.1f}' for x in res['iteration_ms'])}; "
+        f"l1_diffuse {', '.join(f'{x:.6f}' for x in res['l1_diffuse'])}; "
+        f"overflow.json {run['overflow']}; metrics.json "
+        f"{json.dumps(run['metrics'])}; peak {peak_gb:.1f} GB; full run "
+        f"{full_s:.1f} s [{smi}]", flush=True)
+    print(f"phase 19 (b): the pipeline at {RUN_SMALL_SIDE}x{RUN_SMALL_SIDE}"
+          f", room_scene({RUN_SMALL_N}), {RUN_SMALL_FAR} far-field points, "
+          f"render {RUN_SMALL_SPP[0]} spp, novel {RUN_SMALL_NOVEL}, card vs "
+          f"CPU with the same samples: trained PLYs equal, overflow.json "
+          f"equal, PNG values differing {gaps['png_share']:.4%} (by more "
+          f"than a level: {gaps['flip_share']:.4%} of pixels), metrics.json"
+          f" gaps {gaps['metrics']}; {small_s[dev.type]:.1f} s on the card, "
+          f"{small_s['cpu']:.1f} s on the CPU; phase 19 {phase_s:.1f} s "
+          f"[{smi}]", flush=True)
+    return res
+
+
 def main() -> None:
     # the smoke drives one card: only the first visible one is made visible,
     # before CUDA initialises, so the device count it reports is the one used
@@ -2349,6 +2768,7 @@ def main() -> None:
     sort = phase_sort(dev, record, smi)
     phase_bench(dev, record, smi)
     cli = phase_cli(dev, record, smi)
+    run = phase_run(dev, record, smi)
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -2369,6 +2789,9 @@ def main() -> None:
         "library_ms": None,
         # the training CLI's run (phase 18): its report's eval renders
         "cli_launches": cli["launches"]["render_culled"],
+        # the render CLI's run (phase 19): 1 view at 128 spp
+        "eval_cli_launches": run["stages"]["render"]["launches"][
+            "render_culled"],
         "floor_ms": rc_floor["primary"],
         "reflected_ms": kernel_ms_reflected,
         "reflected_plain_ms": phase4["reflected"]["plain_ms"],
@@ -2485,6 +2908,9 @@ def main() -> None:
         "culled_plain_ms": nf_frame["passes"]["primary"]["plain_ms"],
         "culled_bound_ms": nf_frame["passes"]["primary"]["bound_ms"],
         "culled_reflected_ms": nf_frame["passes"]["reflected"]["ms"],
+        # render_novel_views' run (phase 19): 2 views at 16 spp, culled
+        "eval_cli_launches": run["stages"]["render_novel_views"][
+            "launches"]["trace_hits"],
         # registers and blocks per SM of the launched kernel (phase 10)
         "registers": {k: v["registers"] for k, v in
                       record["trace_hits_kernel"].items()},

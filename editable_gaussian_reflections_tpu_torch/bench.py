@@ -144,8 +144,8 @@ def main(argv=None) -> dict:
               "device": name}
     print(json.dumps(result), flush=True)
     # the printed line, and for a caller what it may check it against
-    return dict(result, frames=frames, ms=dt * 1e3, starved=starved,
-                config=fused_kw)
+    return dict(result, frames=frames, ms=dt * 1e3, mrays=mrays,
+                rays=W * H, starved=starved, config=fused_kw)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ frames, 7 buffers per frame (render/diffuse/specular/roughness/normal/depth/f0)
 loaded with an .exr -> .tiff -> .png fallback chain, OpenGL->COLMAP axis flip
 with R stored transposed, area-downsampling to `resolution`.
 
-Pure numpy: cv2 for EXR/resize, imageio for TIFF, PIL for PNG, each
-imported where it is used.
+Pure numpy: cv2 for EXR and for a resize, imageio for TIFF, each imported
+where it is used; PNGs are read by utils/image.read_png, so a dataset of
+PNGs at its native resolution loads with neither installed.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ import numpy as np
 os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
 
 from ..utils.graphics import focal2fov, fov2focal
+from ..utils.image import read_png
 from .camera_info import CameraInfo
+from .image_utils import pil_samples
 
 
 def _read_exr(path):
@@ -40,16 +43,16 @@ def _read_tiff(path):
 
 
 def _read_png(path):
-    from PIL import Image
-    return np.asarray(Image.open(path))
+    return pil_samples(read_png(path))
 
 
 def resize_area(image: np.ndarray, resolution: int) -> np.ndarray:
-    """Area-downsample so height == resolution (blender_dataset.py:112-129)."""
-    import cv2
+    """Area-downsample so height == resolution (blender_dataset.py:112-129);
+    at that height already, the image itself (cv2 is not imported)."""
     h, w = image.shape[:2]
     if h == resolution:
         return image
+    import cv2
     aspect = w / h
     out_w = int(resolution * aspect)
     was_uint = image.dtype == np.uint8

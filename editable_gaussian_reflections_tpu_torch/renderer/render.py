@@ -67,6 +67,18 @@ def default_backend_kwargs(cfg) -> dict:
                 composite_mode=cfg.composite_mode)
 
 
+def nonfused_kwargs(cfg) -> dict:
+    """render_frame's options (render_accumulated's, fused=False) from a
+    Config: default_backend_kwargs' culling options without the fused-path
+    knobs.  split_far and unknown composite modes raise, as in the
+    dispatch; a scan mode has no non-fused form and renders the k-buffer
+    here, as in the JAX package."""
+    bk = default_backend_kwargs(cfg)
+    check_composite_mode(bk["composite_mode"], bk["split_far"])
+    return {k: bk[k] for k in ("use_culling", "cull_tile", "cull_cluster",
+                               "max_clusters") if k in bk}
+
+
 def dispatch_render_frame(scene: GaussianScene, cam: CameraParams,
                           settings: RenderSettings,
                           generator: torch.Generator | None, W: int, H: int,

@@ -1,9 +1,10 @@
 """Scene loading: dataset dispatch, camera materialization, NeRF++ norm.
 
 Twin of the JAX package's scene/dataset_readers.py (reference
-scene/dataset_readers.py:32-140), for the Blender layout.  Image decoding
+scene/dataset_readers.py:32-140): the Blender, Blender-prior and
+COLMAP-prior layouts.  Image decoding
 runs in a thread pool; the NO_WORKERS environment variable turns it off,
-as in the reference.
+as in the reference, and the prior layouts read in order (read_dataset).
 """
 
 from __future__ import annotations
@@ -45,16 +46,20 @@ def getNerfppNorm(cameras: List[Camera]) -> dict:
 
 
 def get_dataset(cfg: Config, data_dir: str, split: str):
-    """The Blender layout (dataset_readers.py:65-89).  A priors/ or sparse/
-    directory marks the COLMAP-prior or Blender-prior layouts, which are not
-    ported yet: they raise rather than load as something else."""
-    for marker, layout, module in (
-            ("priors", "COLMAP prior", "colmap_prior"),
-            ("sparse", "Blender prior", "blender_prior")):
-        if os.path.exists(os.path.join(data_dir, marker)):
-            raise NotImplementedError(
-                f"{data_dir}: the {layout} dataset layout ({marker}/) needs "
-                f"dataset/{module}.py, which is not ported yet")
+    """Dispatch: priors/ -> ColmapPrior, sparse/ -> BlenderPrior, else Blender
+    (dataset_readers.py:65-89)."""
+    if os.path.exists(os.path.join(data_dir, "priors")):
+        from ..dataset.colmap_prior import ColmapPriorDataset
+        return ColmapPriorDataset(
+            data_dir, split=split, resolution=cfg.resolution,
+            max_images=cfg.max_images, clamp_max=cfg.clamp_max,
+        )
+    if os.path.exists(os.path.join(data_dir, "sparse")):
+        from ..dataset.blender_prior import BlenderPriorDataset
+        return BlenderPriorDataset(
+            data_dir, split=split, resolution=cfg.resolution,
+            max_images=cfg.max_images,
+        )
     from ..dataset.blender import BlenderDataset
     return BlenderDataset(
         data_dir, split=split, resolution=cfg.resolution,
@@ -63,8 +68,12 @@ def get_dataset(cfg: Config, data_dir: str, split: str):
 
 
 def read_dataset(dataset, num_workers: int = 16) -> List[Camera]:
+    """Every item of `dataset` as a Camera, decoded in a thread pool; in
+    order, in this thread, under NO_WORKERS and for the prior layouts
+    (whose RANSAC depth fits draw from a shared generator: threads would
+    take its draws in any order, so a seeded run would not repeat)."""
     n = len(dataset)
-    if "NO_WORKERS" in os.environ:
+    if "NO_WORKERS" in os.environ or hasattr(dataset, "rng"):
         infos = [dataset[i] for i in range(n)]
     else:
         workers = max(1, min(num_workers, (os.cpu_count() or 2) // 2 or 1))

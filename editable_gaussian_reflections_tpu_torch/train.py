@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import time
@@ -318,8 +319,12 @@ def train_scene(cfg: Config, scene: Scene, tb_writer=None,
             new = farfield_arrays(cfg, scene.cameras_extent, centers, znears,
                                   rng, device=dev)
             prev_capacity = state.scene.capacity
-            state = append_with_opt_state(state, new,
-                                          pad_multiple=cfg.trace_chunk)
+            # a culled loop keeps its capacity a multiple of the cluster
+            # (the JAX loop pads to trace_chunk alone, and its culled steps
+            # raise where that is not a multiple of cull_cluster)
+            pad = (math.lcm(cfg.trace_chunk, cfg.cull_cluster) if use_culling
+                   else cfg.trace_chunk)
+            state = append_with_opt_state(state, new, pad_multiple=pad)
             print(f"[ITER {iteration}] far-field injection -> capacity "
                   f"{state.scene.capacity}")
             if use_culling:

@@ -151,6 +151,17 @@ def load_gaussian_ply(path):
     )
 
 
+def save_xyzrgb_ply(path, xyz, rgb):
+    """Init point clouds (utils/ply_utils.py schema: x,y,z,red,green,blue)."""
+    write_ply(
+        path,
+        {
+            "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+            "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2],
+        },
+    )
+
+
 def load_xyzrgb_ply(path):
     """Init point clouds (utils/ply_utils.py schema: x,y,z,red,green,blue)."""
     c = read_ply(path)

@@ -116,15 +116,18 @@ def test_ply_codec_is_byte_compatible(model_dir, tmp_path):
 
 
 def test_prior_layouts_raise(model_dir, tmp_path):
+    """A sparse/ directory selects the Blender-prior layout, which loads
+    now (tests/test_torch_prior_datasets.py): without a COLMAP model in it,
+    its COLMAP reader raises, where the Blender layout would not look."""
     _, model = model_dir
     (tmp_path / "sparse").mkdir()
     cfg = dataclasses.replace(load_model_config(str(model), []),
                               source_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="blender_prior.py"):
+    with pytest.raises(FileNotFoundError, match="cameras.txt"):
         Scene(cfg, load_iteration=ITERATION, model_path=str(model),
               device="cpu")
     # initializing from the point cloud reads the dataset first
-    with pytest.raises(NotImplementedError, match="blender_prior.py"):
+    with pytest.raises(FileNotFoundError, match="cameras.txt"):
         Scene(cfg, model_path=str(model), device="cpu")
 
 
