@@ -167,6 +167,35 @@ Phases, one line each (any failure raises and the script exits non-zero):
      and RUN_SMALL_NOVEL): the trained PLYs equal, every PNG within
      RUN_PNG_SHARE / RUN_FLIP_SHARE, overflow.json equal, metrics.json
      within RUN_METRIC_TOL.
+ 20. the viewer from disk: tools/viewer_setup.py writes a model directory
+     (the seed-0 room_scene(175_000) through save_scene_ply, cfg.json at the
+     Config defaults, 768x768, transforms_train.json of phase 18's views,
+     bounding_boxes.json around the room's three spheres: a box, a "cyl"
+     excluding the first, an f0 filter with a zrange) and
+     ViewerState.from_ply reads it; then a scripted client drives
+     RenderService.tick, each tick synchronized and host-timed with its
+     launches of render_culled, render_scan and trace_hits: VIEWER_SETTLED
+     settled RGB ticks (the accumulated frame held to the mean of the
+     ticks' frames, bit for bit), VIEWER_DRAG drag ticks at preview_scale 2
+     (scan, frame_shape still 768), the other render modes (Ellipsoids
+     with and without floaters, Points), compute_selections and a pick at
+     each object's centre (a close-up camera) by the masks and by the
+     raster gid, one edit of each kind on each object (object_centers
+     moving by the translation), remove (the object's mask empty), a
+     duplicate (unpadded: the capacity leaves the cluster multiple and the
+     tick traces brute, as in the JAX package), inspect, goto_camera, and
+     the pipelined _handle with 4 requests on a stand-in socket (12 replies
+     in order); peak GB.  (b) the same session, cut in depth
+     (VIEWER_SMALL_DEPTH: no remove, inspect or handler), at
+     VIEWER_SMALL_SIDE on
+     room_scene(VIEWER_SMALL_N) on the card and on the CPU with the same
+     samples: the kernel-rendered G-buffers equal bit for bit, the raster
+     frames within VIEWER_RASTER_TOL with gid equal but at VIEWER_GID_SHARE
+     of the pixels, the metadata and selection masks equal.  Last, train
+     --viewer: phase 18's set-up for VIEWER_TRAIN_KW's iterations with the
+     service's serve replaced by a stand-in (the machine has no
+     websockets): a stand-in socket ticks the viewer between steps and the
+     viewer shows each iteration's state; peak GB.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -175,7 +204,9 @@ chiprun_out/chip_smoke.json.  Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
+import copy
 import importlib
 import io
 import json
@@ -185,7 +216,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 from unittest import mock
@@ -267,6 +300,7 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
     trace_slots,
     trace_slots_reference,
 )
+from editable_gaussian_reflections_tpu_torch.ops.precision import div
 from editable_gaussian_reflections_tpu_torch.ops.render_grads import (
     new_grad_accumulator,
 )
@@ -304,6 +338,15 @@ from editable_gaussian_reflections_tpu_torch.scene.dataset_readers import (
     get_dataset,
 )
 from editable_gaussian_reflections_tpu_torch.scene.scene import Scene
+from editable_gaussian_reflections_tpu_torch.viewer import service as tservice
+from editable_gaussian_reflections_tpu_torch.viewer import state as tstate
+from editable_gaussian_reflections_tpu_torch.viewer.service import (
+    RenderService,
+)
+from editable_gaussian_reflections_tpu_torch.viewer.state import (
+    RENDER_MODES,
+    ViewerState,
+)
 from editable_gaussian_reflections_tpu_torch.tools import (
     bench_v5,
     bench_vpu_dtype,
@@ -312,6 +355,7 @@ from editable_gaussian_reflections_tpu_torch.tools import prior_setup as tprior
 from editable_gaussian_reflections_tpu_torch.tools import (
     render_novel_views as tnovel,
 )
+from editable_gaussian_reflections_tpu_torch.tools import viewer_setup as tview
 from editable_gaussian_reflections_tpu_torch.tools.cli_setup import (
     cli_config,
     gbuffer_views,
@@ -464,6 +508,45 @@ LOAD_TOL = dict(rgb=0.5 / 255 + 1e-4, scalar=0.5 / 65535 + 1e-6,
 # RUN_METRIC_TOL (4 decimals; psnr in dB)
 RUN_PNG_SHARE, RUN_FLIP_SHARE = 0.01, 0.005
 RUN_METRIC_TOL = dict(psnr=0.01, ssim=2e-4, msssim=2e-4, lpips_rand=2e-4)
+# phase 20: the viewer on a model directory (tools/viewer_setup.py) at the
+# Config defaults (768x768, 2 bounces); (b) at VIEWER_SMALL_SIDE card vs
+# CPU: raster frames within VIEWER_RASTER_TOL where gid agrees, gid unequal
+# at no more than VIEWER_GID_SHARE of the pixels (the CPU test's rule:
+# tests/test_torch_ellipsoid_raster.py); display images within one 8-bit
+# level (the tonemap's pow is not correctly rounded on either device)
+VIEWER_N, VIEWER_VIEWS = 175_000, 5
+VIEWER_SETTLED, VIEWER_DRAG = 4, 4
+VIEWER_SMALL_SIDE, VIEWER_SMALL_N = 64, 4096
+VIEWER_RASTER_TOL, VIEWER_GID_SHARE = 1e-5, 0.002
+VIEWER_EDITS = (
+    ("roughness", {"roughness_shift": 0.1, "roughness_mult": 1.2}),
+    ("roughness override", {"use_roughness_override": True,
+                            "roughness_override": 0.3}),
+    ("diffuse", {"diffuse_override": [0.8, 0.2, 0.1, 0.5],
+                 "diffuse_hue_shift": 0.5, "diffuse_saturation_mult": 1.2,
+                 "diffuse_value_mult": 0.9}),
+    ("specular", {"specular_override": [0.9, 0.9, 0.2, 0.3],
+                  "specular_hue_shift": -0.4,
+                  "specular_saturation_shift": 0.1,
+                  "specular_value_shift": 0.05}),
+    ("translate", {"translate_x": 0.2, "translate_y": -0.1,
+                   "translate_z": 0.05}),
+    ("scale", {"scale": 1.2}),
+    ("rotate", {"rotate_x": 10.0, "rotate_y": 20.0, "rotate_z": 30.0}),
+)
+# (b) runs the session cut in depth (the CPU runs the plain versions, ~2.7
+# s a 64x64 frame on the card's host): 2 settled ticks and 1 drag tick, the
+# raster modes, the picks at the first object, every edit kind in one
+# tick, the duplicate; not remove, inspect or the handler (more brute
+# frames of the kind the duplicate's tick compares)
+VIEWER_SMALL_DEPTH = dict(
+    settled=2, drag=1, modes=("Ellipsoids",), picks=1, tail=False,
+    edits=(("every kind", {k: v for _, fields in VIEWER_EDITS
+                           for k, v in fields.items()}),))
+VIEWER_TRAIN_KW = dict(CLI_KW, iterations=3, no_bounces_until_iter=2,
+                       test_iterations=[], save_iterations=[], viewer=True)
+VIEWER_COUNTERS = {"render_culled": render_culled,
+                   "render_scan": render_scan, "trace_hits": trace_hits}
 
 
 def first_tiles(call, n_tiles: int, ray_pos=(0, 1), cand_pos=(3, 4)):
@@ -2311,6 +2394,435 @@ def phase_run(dev, record, smi) -> dict:
     return res
 
 
+def viewer_counts() -> dict:
+    return {k: c.launches for k, c in VIEWER_COUNTERS.items()}
+
+
+class StandInSocket:
+    """A websocket client for RenderService._handle: sends `requests`, then
+    hangs up; keeps what the service sends."""
+
+    def __init__(self, requests):
+        self.requests = [json.dumps(r) for r in requests]
+        self.sent = []
+
+    async def recv(self):
+        if not self.requests:
+            raise ConnectionError("client done")
+        return self.requests.pop(0)
+
+    async def send(self, payload):
+        self.sent.append(payload)
+
+    async def close(self):
+        pass
+
+
+def check_replies(sent, n, side) -> list:
+    """What is wrong with _handle's replies to n requests."""
+    failed = []
+    if len(sent) != 3 * n:
+        return [f"{len(sent)} replies to {n} requests"]
+    for i in range(n):
+        meta, kind, frame = sent[3 * i:3 * i + 3]
+        if not (isinstance(meta, str) and "viewer" in json.loads(meta)
+                and json.loads(kind) == ["viewer"]
+                and isinstance(frame, (bytes, bytearray))
+                and len(frame) == side * side * 3):
+            failed.append(f"reply {i} out of order")
+    return failed
+
+
+def cpu_viewer_samples(dev):
+    """A ViewerState.samples hook: each frame's samples drawn from a CPU
+    generator seeded as the frame's own, moved to `dev`."""
+    def hook(seed, width, height, num_steps, fused, tile, jitter):
+        gen = torch.Generator().manual_seed(seed)
+        s = (draw_samples(gen, width, height, num_steps, jitter) if fused
+             else draw_tile_samples(gen, width, height, tile, num_steps,
+                                    jitter))
+        return type(s)(*(None if a is None else a.to(dev) for a in s))
+    return hook
+
+
+def viewer_session(dev, model: Path, objects: dict, samples=None,
+                   keep=False, settled=VIEWER_SETTLED, drag=VIEWER_DRAG,
+                   modes=tuple(RENDER_MODES[1:]), picks=None,
+                   edits=VIEWER_EDITS, tail=True) -> dict:
+    """Phase 20's scripted client on ViewerState.from_ply(model) on `dev`:
+    each step's tick synchronized and timed with its kernels' launches;
+    returns dict(steps, failed, load_s, state, masks).  With `keep`, each
+    step also keeps its G-buffers, display image and metadata on the
+    host."""
+    t0 = time.perf_counter()
+    st = ViewerState.from_ply(str(model), device=dev)
+    load_s = time.perf_counter() - t0
+    st.samples = samples
+    svc = RenderService(st)
+    side = st.width
+    mid = [side // 2, side // 2]
+    room = tview.room_view()
+    steps, failed = [], []
+    ell = RENDER_MODES.index("Ellipsoids")
+
+    def tick(label, request, camera=room):
+        req = dict(request, camera=camera)
+        sync(dev)
+        before, t1 = viewer_counts(), time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            meta, rgb8 = svc.tick(req)
+        sync(dev)
+        rec = dict(label=label, ms=(time.perf_counter() - t1) * 1e3,
+                   launches={k: v - before[k] for k, v in
+                             viewer_counts().items()},
+                   warned=[str(w.message)[:60] for w in caught])
+        img = np.frombuffer(rgb8, np.uint8).reshape(side, side, 3)
+        if meta["frame_shape"] != [side, side, 3]:
+            failed.append(f"{label}: frame_shape {meta['frame_shape']}")
+        if keep:
+            meta = dict(meta)
+            meta.pop("perf")
+            rec.update(meta=meta, image=img.copy(), frame={
+                k: v.cpu() for k, v in st._last_frame.items()})
+        steps.append(rec)
+        return meta, img
+
+    # settled RGB ticks accumulate; the average against the ticks' frames
+    frames = []
+    real_dispatch = tstate.dispatch_render_frame
+
+    def dispatch(*args, **kwargs):
+        out = real_dispatch(*args, **kwargs)
+        frames.append(out[1].clone())
+        return out
+
+    with mock.patch.object(tstate, "dispatch_render_frame", dispatch):
+        for k in range(settled):
+            tick(f"settled {k + 1}", {"viewer": {
+                "render_mode": 0, "num_bounces": 2, "preview_scale": 1,
+                "accumulate_samples": True}})
+            if st._accum_count != k + 1:
+                failed.append(f"settled {k + 1}: count {st._accum_count}")
+    total = frames[0]
+    for f in frames[1:]:
+        total = total + f
+    mean = div(total, float(len(frames))).reshape(side, side, 3)
+    if len(frames) != settled or not torch.equal(
+            st._last_frame["rgb"], mean) or torch.equal(frames[0],
+                                                        frames[1]):
+        failed.append("the accumulated frame is not the ticks' mean")
+    # drag ticks: the camera moves, the preview renders scan at half size
+    eye, target = np.asarray(room["camera_center"]), np.array(
+        [0.0, 0.0, 2.25])
+    for k in range(drag):
+        a = 0.02 * (k + 1)
+        rz = np.array([[math.cos(a), -math.sin(a), 0.0],
+                       [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]])
+        _, img = tick(f"drag {k + 1}", {"viewer": {"preview_scale": 2}},
+                      camera=tview.look_at(rz @ eye, target))
+        if not np.array_equal(img[0::2, 0::2], img[1::2, 1::2]):
+            failed.append(f"drag {k + 1}: not a 2x nearest upscale")
+    for name in modes:
+        _, img = tick(name, {"viewer": {
+            "render_mode": RENDER_MODES.index(name), "preview_scale": 1}})
+        if name != "Points" and not img.any():
+            failed.append(f"{name} rendered black")
+    tick("Ellipsoids with floaters", {"viewer": {"render_mode": ell,
+                                                 "render_floaters": True}})
+    tick("Points x8", {"viewer": {"render_mode": RENDER_MODES.index(
+        "Points"), "render_floaters": False, "scaling_modifier": 8.0}})
+    # selections: a pick at each object's centre, by the masks and the gid
+    for name, (c, r) in list(objects.items())[:picks]:
+        cam = tview.object_view(c, r)
+        meta, _ = tick(f"select {name}", {"viewer": {
+            "render_mode": 0, "scaling_modifier": 1.0},
+            "compute_selections": True, "pick": mid}, camera=cam)
+        if meta["picked_object"] != name:
+            failed.append(f"mask pick at {name}: {meta['picked_object']}")
+        meta, _ = tick(f"raster pick {name}", {"viewer": {
+            "render_mode": ell}, "pick": mid}, camera=cam)
+        if meta["picked_object"] != name:
+            failed.append(f"gid pick at {name}: {meta['picked_object']}")
+    masks = {k: v.cpu() for k, v in st.selection_masks.items()}
+    # one edit of each kind on every object; object_centers follow the
+    # translation
+    edited = {name: {} for name in objects}
+    before = st.get_state()["object_centers"]
+    for kind, fields in edits:
+        for name in edited:
+            edited[name].update(fields)
+        meta, _ = tick(f"edit {kind}", {"viewer": {
+            "render_mode": 0, "edits": copy.deepcopy(edited)}})
+        if "translate_x" in fields:
+            t = [fields["translate_x"], fields["translate_y"],
+                 fields["translate_z"]]
+            moved = {k: np.subtract(meta["object_centers"][k], before[k])
+                     for k in objects}
+            if not all(np.allclose(v, t, rtol=0, atol=1e-6)
+                       for v in moved.values()):
+                failed.append(f"object_centers moved {moved}, not {t}")
+    if tail:  # remove: the object's mask comes back empty
+        gone = list(objects)[-1]
+        st.gaussians.remove_object(gone)
+        meta, _ = tick(f"remove {gone}", {"viewer": {},
+                                          "compute_selections": True,
+                                          "pick": mid},
+                       camera=tview.object_view(*objects[gone]))
+        if meta["picked_object"] == gone or bool(
+                st.selection_masks[gone].any()):
+            failed.append(f"{gone} still visible after remove_object")
+    # duplicate: the copies are appended unpadded, as in the JAX package
+    cap = st.gaussians.base.capacity
+    dup = list(objects)[0]
+    n_dup = int(st.gaussians.selections[dup].sum())
+    meta, _ = tick(f"duplicate {dup}", {"viewer": {}, "duplicate": dup})
+    if (st.gaussians.base.capacity != cap + n_dup
+            or meta["objects"] != list(objects) + [dup + "_copy"]):
+        failed.append(f"duplicate: capacity {cap} -> "
+                      f"{st.gaussians.base.capacity}, {meta['objects']}")
+    if tail:
+        meta, _ = tick("inspect + goto_camera", {
+            "viewer": {}, "inspect": mid, "goto_camera": 1})
+        if not (meta["inspect"] and "depth" in meta["inspect"]
+                and meta["camera_jump"] == st.dataset_cameras[1]):
+            failed.append(f"inspect {meta.get('inspect')}, jump "
+                          f"{meta.get('camera_jump')}")
+        # the pipelined handler: 4 requests, 12 replies in order
+        sock = StandInSocket([{"viewer": {"render_mode": 0},
+                               "camera": room} for _ in range(4)])
+        sync(dev)
+        before_h, t1 = viewer_counts(), time.perf_counter()
+        asyncio.run(svc._handle(sock))
+        sync(dev)
+        steps.append(dict(label="_handle x4",
+                          ms=(time.perf_counter() - t1) * 1e3,
+                          launches={k: v - before_h[k] for k, v in
+                                    viewer_counts().items()}, warned=[]))
+        failed += check_replies(sock.sent, 4, side)
+    return dict(steps=steps, failed=failed, load_s=load_s, state=st,
+                masks=masks)
+
+
+def compare_sessions(a: dict, b: dict) -> dict:
+    """Phase 20 (b): the card's session against the CPU's."""
+    worst = dict(raster=0.0, gid_share=0.0, display_levels=0)
+    failed = []
+    for x, y in zip(a["steps"], b["steps"]):
+        if "frame" not in x:
+            continue
+        where = x["label"]
+        raster = "gid" in y["frame"]
+        for k, ref in y["frame"].items():
+            got = x["frame"][k]
+            if raster and k == "gid":
+                share = float((got != ref).float().mean())
+                worst["gid_share"] = max(worst["gid_share"], share)
+                if share > VIEWER_GID_SHARE:
+                    failed.append(f"{where}: gid differs at {share:.4%}")
+            elif raster:
+                same = (x["frame"]["gid"] == y["frame"]["gid"])[..., 0]
+                d = (got - ref).abs()[same]
+                err = float(d.max()) if d.numel() else 0.0
+                worst["raster"] = max(worst["raster"], err)
+                if err > VIEWER_RASTER_TOL:
+                    failed.append(f"{where}: {k} off by {err}")
+            elif not torch.equal(got, ref):
+                failed.append(f"{where}: {k} not bit-equal")
+        levels = int(np.abs(x["image"].astype(np.int16)
+                            - y["image"]).max())
+        worst["display_levels"] = max(worst["display_levels"], levels)
+        if levels > 1:
+            failed.append(f"{where}: display off by {levels} levels")
+        mx, my = json.dumps(x["meta"], sort_keys=True), json.dumps(
+            y["meta"], sort_keys=True)
+        if mx != my:
+            cx = x["meta"].pop("object_centers")
+            cy = y["meta"].pop("object_centers")
+            if json.dumps(x["meta"], sort_keys=True) != json.dumps(
+                    y["meta"], sort_keys=True) or not all(
+                        np.allclose(cx[k], cy[k], rtol=1e-6, atol=1e-6)
+                        for k in cy):
+                failed.append(f"{where}: metadata differs")
+    for k, m in b["masks"].items():
+        if not torch.equal(a["masks"][k], m):
+            failed.append(f"selection mask {k} differs")
+    if failed:
+        raise RuntimeError(f"phase 20 (b): the card's and the CPU's "
+                           f"sessions differ: {failed}")
+    return worst
+
+
+def phase_viewer_train(dev) -> dict:
+    """Phase 20's train --viewer: phase 18's set-up for VIEWER_TRAIN_KW's
+    iterations; the service's serve is a stand-in (this machine has no
+    websockets) and a stand-in socket ticks the viewer between steps."""
+    out_dir = ROOT / "build" / "viewer_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n_train, n_test = CLI_VIEWS
+    views = gbuffer_views(CLI_N, CLI_SIDE, n_train, n_test, dev)
+    info = scene_info(CLI_N, *views)
+    cfg = cli_config(str(out_dir / "model"), CLI_SIDE, **VIEWER_TRAIN_KW)
+    services, started = [], threading.Event()
+    shown, ticks = [], []
+    real_step = ttrain.train_step
+
+    def serve(self, *args, **kwargs):  # the viewer's thread
+        services.append(self)
+        started.set()
+
+    def step(state, *args, **kw):
+        if not started.wait(60):
+            raise RuntimeError("phase 20: the viewer thread did not start")
+        svc = services[0]
+        shown.append(svc.state.gaussians.base is state.scene)
+        sock = StandInSocket([{"viewer": {"render_mode": 0}}])
+        sync(dev)
+        t0 = time.perf_counter()
+        asyncio.run(svc._handle(sock))
+        sync(dev)
+        ticks.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          failed=check_replies(sock.sent, 1,
+                                               svc.state.width)))
+        return real_step(state, *args, **kw)
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(tservice, "require_websockets", lambda: None), \
+            mock.patch.object(RenderService, "serve", serve), \
+            mock.patch.object(ttrain, "train_step", step):
+        state, _ = train_cli(cfg, info, dev)
+    sync(dev)
+    s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == "cuda" else 0.0)
+    failed = [f for t in ticks for f in t["failed"]]
+    if shown != [True] * cfg.iterations or not (
+            services and services[0].state.gaussians.base is state.scene):
+        failed.append(f"the viewer did not show each iteration: {shown}")
+    if not state_finite(state):
+        failed.append("a non-finite state")
+    if failed:
+        raise RuntimeError(f"phase 20 train --viewer: {failed}")
+    return dict(s=s, tick_ms=[t["ms"] for t in ticks], peak_gb=peak_gb,
+                side=services[0].state.width)
+
+
+def phase_viewer(dev, record, smi) -> dict:
+    """Phase 20: the viewer from disk at the Config defaults; (b) at
+    VIEWER_SMALL_SIDE card vs CPU; train --viewer."""
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "viewer_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    made = tview.write_viewer_model(str(out_dir / "model"), VIEWER_N,
+                                    CLI_SIDE, VIEWER_VIEWS, dev)
+    write_s = time.perf_counter() - t0
+    objects = {k: (c, r) for k, c, r in zip(tview.OBJECTS, made["centers"],
+                                            made["radii"])}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for c in VIEWER_COUNTERS.values():
+        c.launches = 0
+    run = viewer_session(dev, out_dir / "model", objects)
+    launches = viewer_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == "cuda" else 0.0)
+    st, failed = run.pop("state"), run["failed"]
+    sels = {k: int(v.sum()) for k, v in st.gaussians.selections.items()}
+    if st.width != CLI_SIDE or len(st.dataset_cameras) != VIEWER_VIEWS \
+            or not all(sels[k] for k in objects):
+        failed.append(f"the model read back: {st.width}, "
+                      f"{len(st.dataset_cameras)} cameras, selections {sels}")
+    by = {s["label"]: s for s in run["steps"]}
+
+    def expect(label, **counts):
+        got = by[label]["launches"]
+        if dev.type == "cuda" and any(got[k] != counts.get(k, 0)
+                                      for k in got):
+            failed.append(f"{label}: launches {got}, expected {counts}")
+
+    for k in range(VIEWER_SETTLED):
+        expect(f"settled {k + 1}", render_culled=3)
+    for k in range(VIEWER_DRAG):
+        expect(f"drag {k + 1}", render_scan=3)
+    for mode in RENDER_MODES[1:5]:
+        expect(mode, render_culled=3)
+    for mode in RENDER_MODES[5:] + ["Ellipsoids with floaters", "Points x8"]:
+        expect(mode)
+    for name in objects:
+        expect(f"select {name}", render_culled=3, trace_hits=len(objects))
+        expect(f"raster pick {name}")
+    dup = f"duplicate {tview.OBJECTS[0]}"
+    expect(dup, trace_hits=3)
+    if not any("culling disabled" in w for w in by[dup]["warned"]):
+        failed.append(f"{dup}: no brute-path warning")
+    if failed:
+        raise RuntimeError(f"phase 20: {failed}")
+    del st, run["masks"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    full_s = time.perf_counter() - t_phase
+
+    # (b) the card against the CPU, the same samples
+    t0 = time.perf_counter()
+    small = out_dir / "small"
+    made_s = tview.write_viewer_model(str(small), VIEWER_SMALL_N,
+                                      VIEWER_SMALL_SIDE, VIEWER_VIEWS, dev)
+    objects_s = {k: (c, r) for k, c, r in zip(
+        tview.OBJECTS, made_s["centers"], made_s["radii"])}
+    sessions, small_s = {}, {}
+    for d in (dev, torch.device("cpu")):
+        t1 = time.perf_counter()
+        sessions[d.type] = viewer_session(d, small, objects_s,
+                                          cpu_viewer_samples(d), keep=True,
+                                          **VIEWER_SMALL_DEPTH)
+        small_s[d.type] = time.perf_counter() - t1
+        if sessions[d.type]["failed"]:
+            raise RuntimeError(f"phase 20 (b) on {d.type}: "
+                               f"{sessions[d.type]['failed']}")
+    gaps = compare_sessions(sessions[dev.type], sessions["cpu"])
+    small_total = time.perf_counter() - t0
+    del sessions
+
+    train = phase_viewer_train(dev)
+    phase_s = time.perf_counter() - t_phase
+    res = dict(write_s=write_s, load_s=run["load_s"], steps=run["steps"],
+               launches=launches, peak_gb=peak_gb, selections=sels,
+               full_s=full_s, small=dict(s=small_s, gaps=gaps,
+                                         total_s=small_total),
+               train=train, phase_s=phase_s)
+    record["phase20_viewer"] = res
+    print(f"phase 20: viewer from disk at {CLI_SIDE}x{CLI_SIDE}, "
+          f"room_scene({VIEWER_N}) (model written in {write_s:.1f} s, "
+          f"from_ply {run['load_s']:.1f} s; selections {sels}); ms a tick "
+          f"(render_culled/render_scan/trace_hits launches): " + "; ".join(
+              f"{s['label']} {s['ms']:.1f} ("
+              + "/".join(str(s["launches"][k]) for k in VIEWER_COUNTERS)
+              + ")" for s in run["steps"])
+          + f"; launches in all {launches}; peak {peak_gb:.1f} GB; "
+          f"{full_s:.1f} s [{smi}]", flush=True)
+    print(f"phase 20 (b): the session at {VIEWER_SMALL_SIDE}x"
+          f"{VIEWER_SMALL_SIDE}, room_scene({VIEWER_SMALL_N}), card vs CPU "
+          f"with the same samples: kernel G-buffers, metadata and selection "
+          f"masks equal, raster frames within {gaps['raster']:.2e} where "
+          f"gid agrees, gid unequal at {gaps['gid_share']:.4%} of pixels, "
+          f"display images within {gaps['display_levels']} level(s); "
+          f"{small_s[dev.type]:.1f} s on the card, {small_s['cpu']:.1f} s on "
+          f"the CPU", flush=True)
+    print(f"phase 20: train --viewer, phase 18's set-up for "
+          f"{VIEWER_TRAIN_KW['iterations']} iterations, the viewer at "
+          f"{train['side']}x{train['side']} ticked between steps in "
+          f"{', '.join(f'{x:.1f}' for x in train['tick_ms'])} ms, the viewer "
+          f"showing each iteration's state; {train['s']:.1f} s, peak "
+          f"{train['peak_gb']:.1f} GB; phase 20 {phase_s:.1f} s [{smi}]",
+          flush=True)
+    return res
+
+
 def main() -> None:
     # the smoke drives one card: only the first visible one is made visible,
     # before CUDA initialises, so the device count it reports is the one used
@@ -2769,6 +3281,7 @@ def main() -> None:
     phase_bench(dev, record, smi)
     cli = phase_cli(dev, record, smi)
     run = phase_run(dev, record, smi)
+    viewer = phase_viewer(dev, record, smi)
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -2792,6 +3305,8 @@ def main() -> None:
         # the render CLI's run (phase 19): 1 view at 128 spp
         "eval_cli_launches": run["stages"]["render"]["launches"][
             "render_culled"],
+        # the viewer's session (phase 20): settled ticks and selection ticks
+        "viewer_launches": viewer["launches"]["render_culled"],
         "floor_ms": rc_floor["primary"],
         "reflected_ms": kernel_ms_reflected,
         "reflected_plain_ms": phase4["reflected"]["plain_ms"],
@@ -2877,6 +3392,8 @@ def main() -> None:
         "bench_reflected_ms": fast["bench"]["scanq"]["reflected_ms"],
         "direct_ms": fast["bench"]["scan"]["primary_ms"],
         "direct_reflected_ms": fast["bench"]["scan"]["reflected_ms"],
+        # the viewer's session (phase 20): its drag-time preview ticks
+        "viewer_launches": viewer["launches"]["render_scan"],
         # registers and blocks per SM of the launched kernel (phase 9b)
         "registers": {k: v["registers"]
                       for k, v in fast["fps_kernel"].items()},
@@ -2911,6 +3428,9 @@ def main() -> None:
         # render_novel_views' run (phase 19): 2 views at 16 spp, culled
         "eval_cli_launches": run["stages"]["render_novel_views"][
             "launches"]["trace_hits"],
+        # the viewer's session (phase 20): selection masks (brute, 0
+        # bounces) and every tick after the duplicate (brute)
+        "viewer_launches": viewer["launches"]["trace_hits"],
         # registers and blocks per SM of the launched kernel (phase 10)
         "registers": {k: v["registers"] for k, v in
                       record["trace_hits_kernel"].items()},

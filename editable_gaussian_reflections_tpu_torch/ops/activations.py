@@ -5,13 +5,15 @@ The backward twins follow the reference's hand-written backward
 (activations.cu): they take the *activated* value, which is why the
 loss-fused backward leaves the relu/clipped-relu gradients as a pass-through
 (ops/render_grads.py calls no backward for them, as the reference does).
+The softplus, exp, identity and normalize pairs are kept for parity with
+the JAX module; no render or training path calls them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .precision import dot, norm
+from .precision import dot, norm, rounded
 
 
 def sigmoid_act(x: torch.Tensor) -> torch.Tensor:
@@ -28,12 +30,55 @@ def inverse_sigmoid(y: torch.Tensor) -> torch.Tensor:
     return torch.log(y / (1.0 - y))
 
 
+def softplus_act(x: torch.Tensor) -> torch.Tensor:
+    return (rounded(torch.log1p, rounded(torch.exp, -torch.abs(x)))
+            + torch.clamp(x, min=0.0))
+
+
+def backward_softplus_act(dL_dy: torch.Tensor, x: torch.Tensor,
+                          y: torch.Tensor | None = None) -> torch.Tensor:
+    return dL_dy / (1.0 + rounded(torch.exp, -x))
+
+
 def relu_act(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0.0)
 
 
+def backward_relu_act(dL_dy: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return dL_dy * (y >= 0.0).to(dL_dy.dtype)
+
+
 def clipped_relu_act(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 1.0)
+
+
+def backward_clipped_relu_act(dL_dy: torch.Tensor, y: torch.Tensor
+                              ) -> torch.Tensor:
+    inside = (y >= 0.0) & (y <= 1.0)
+    return dL_dy * inside.to(dL_dy.dtype)
+
+
+def exp_act(x: torch.Tensor) -> torch.Tensor:
+    return rounded(torch.exp, x)
+
+
+def backward_exp_act(dL_dy: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y is the activated value: d/dx exp(x) = exp(x) = y."""
+    return dL_dy * y
+
+
+def normalize_act(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """x / (|x| + eps) over the last axis."""
+    return x / (norm(x, keepdim=True) + eps)
+
+
+def identity_act(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def backward_identity_act(dL_dy: torch.Tensor, y: torch.Tensor
+                          ) -> torch.Tensor:
+    return dL_dy
 
 
 def backward_normalize_act(dL_dy: torch.Tensor, x: torch.Tensor,

@@ -223,6 +223,18 @@ def select_candidates(rays_o: torch.Tensor, rays_d: torch.Tensor,
     return candidates, cand_near, num, overflow, t_drop
 
 
+def cull_clusters(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                  frames: GaussianFrames, near, far, tile: int = 256,
+                  cluster: int = 256, max_clusters: int = 64):
+    """cluster_bounds + select_candidates in one call; returns
+    (candidates, num, overflow)."""
+    bounds = cluster_bounds(frames, cluster)
+    candidates, _cand_near, num, overflow, _t_drop = select_candidates(
+        rays_o, rays_d, bounds, near, far, tile=tile,
+        max_clusters=max_clusters)
+    return candidates, num, overflow
+
+
 def tile_pixel_order(height: int, width: int, th: int = 8, tw: int = 8):
     """Permutation grouping pixels into th x tw screen tiles (square tiles
     give tight cones).  Returns (perm, inv_perm) numpy int32 arrays:

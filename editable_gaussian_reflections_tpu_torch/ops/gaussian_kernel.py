@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .precision import div, dot, rounded
+
 # flags.h:8 - "Essential for stability, can't remove"
 MAX_ALPHA = 0.9999
 # flags.h:16-19 - the most GGX reflection bounces a frame traces
@@ -29,3 +31,22 @@ def compute_scaling_factor(opacity: torch.Tensor, alpha_threshold: float,
     safe_ratio = torch.clamp(opacity / alpha_threshold, min=RATIO_FLOOR)
     sf = torch.pow(k * torch.log(safe_ratio), 1.0 / k)
     return torch.where(opacity <= alpha_threshold, torch.zeros_like(sf), sf)
+
+
+def eval_gaussian_sq(sq_dist: torch.Tensor, exp_power: float
+                     ) -> torch.Tensor:
+    """G from the squared distance in the Gaussian's frame (kernel.cu:8-12),
+    exp and pow rounded once (ops/precision.py)."""
+    k = 2.0 * exp_power
+    return rounded(torch.exp, div(-rounded(torch.pow, sq_dist, exp_power),
+                                  k))
+
+
+def eval_gaussian(local_hit: torch.Tensor, exp_power: float) -> torch.Tensor:
+    """kernel.cu:8-12 (vector form; reduces over the last axis)."""
+    return eval_gaussian_sq(dot(local_hit, local_hit), exp_power)
+
+
+def compute_alpha(gaussval, opacity, alpha_threshold=None):
+    """kernel.cu:14-16 (alpha_threshold unused there too)."""
+    return MAX_ALPHA * gaussval * opacity

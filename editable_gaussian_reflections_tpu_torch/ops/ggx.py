@@ -1,8 +1,10 @@
 """GGX / Cook-Torrance importance sampling and throughput weight.
 
 Twin of the JAX ops/ggx.py (reference ggx_brdf.h).  Shape-polymorphic over
-leading batch dims with the vector axis last.  The closed-form derivatives
-belong to training and are not ported yet.
+leading batch dims with the vector axis last.  D_GGX and cook_torrance_brdf
+are differentiable through autograd, as the JAX functions are through
+jax.grad; the reference's closed-form derivatives are checked against them
+in tests/test_torch_math_extra.py.
 """
 
 from __future__ import annotations
@@ -21,6 +23,14 @@ def _normalize(v, eps=0.0):
     return v / (norm(v, keepdim=True) + eps)
 
 
+def D_GGX(N, H, alpha):
+    """ggx_brdf.h:8-13 (normal distribution function)."""
+    NdotH = torch.clamp(_dot(N, H), min=0.0)
+    a2 = alpha * alpha
+    denom = NdotH * NdotH * (a2 - 1.0) + 1.0
+    return a2 / (math.pi * (denom * denom) + BRDF_EPS)
+
+
 def G1(N, W, alpha):
     """ggx_brdf.h:32-37 (Schlick-GGX masking, k = alpha^2/2)."""
     NdotW = torch.clamp(_dot(N, W), min=0.0)
@@ -37,6 +47,22 @@ def fresnel_schlick(f0, cos_theta):
     """ggx_brdf.h:84. ``cos_theta`` broadcasts against f0's last axis."""
     c = cos_theta[..., None]
     return f0 + (1.0 - f0) * rounded(torch.pow, 1.0 - c, 5.0)
+
+
+def cook_torrance_brdf(N, V, L, roughness, f0):
+    """ggx_brdf.h:113-132. Returns 0 where f0 == 0 (all channels)."""
+    H = _normalize(V + L)
+    alpha = roughness * roughness
+    D = D_GGX(N, H, alpha)
+    G = G_Smith(N, V, L, alpha)
+    cos_theta = torch.clamp(_dot(L, H), min=0.0)
+    F = fresnel_schlick(f0, cos_theta)
+    NdotL = torch.clamp(_dot(N, L), min=0.0)
+    NdotV = torch.clamp(_dot(N, V), min=0.0)
+    denom = 4.0 * NdotL * NdotV + BRDF_EPS
+    brdf = (D * G / denom)[..., None] * F
+    zero_f0 = torch.all(f0 == 0.0, dim=-1, keepdim=True)
+    return torch.where(zero_f0, torch.zeros_like(brdf), brdf)
 
 
 def cook_torrance_weight(N, V, L, roughness, f0):

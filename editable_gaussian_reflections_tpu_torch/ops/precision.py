@@ -64,3 +64,13 @@ def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]],
                        dim=-1)
+
+
+def mean_last(vals: torch.Tensor) -> torch.Tensor:
+    """numpy's float32 mean over a short last axis: summed left to right in
+    float32, then divided by the count in float64 (numpy divides by an intp
+    count) and rounded once."""
+    s = vals[..., 0]
+    for i in range(1, vals.shape[-1]):
+        s = s + vals[..., i]
+    return (s.to(WIDE) / vals.shape[-1]).to(vals.dtype)

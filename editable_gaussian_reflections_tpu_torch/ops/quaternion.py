@@ -7,6 +7,22 @@ import torch
 from .precision import norm, rounded
 
 
+def normalize(q: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    return q / (norm(q, keepdim=True) + eps)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b, scalar-first."""
+    ar, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    br, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        ar * br - ax * bx - ay * by - az * bz,
+        ar * bx + ax * br + ay * bz - az * by,
+        ar * by - ax * bz + ay * br + az * bx,
+        ar * bz + ax * by - ay * bx + az * br,
+    ], dim=-1)
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) normalized quaternion -> (..., 3, 3) rotation matrix.
 
@@ -52,4 +68,4 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
         (tr > 0.0)[..., None], case0,
         torch.where(((m00 >= m11) & (m00 >= m22))[..., None], case1,
                     torch.where((m11 >= m22)[..., None], case2, case3)))
-    return q / norm(q, keepdim=True)
+    return normalize(q)

@@ -1,7 +1,7 @@
 """Camera with G-buffer supervision targets.
 
 Twin of the JAX package's scene/cameras.py (reference scene/cameras.py:
-22-177), without the viewer's MiniCam.  Targets are stored as
+22-177), with the viewer's pose-only MiniCam.  Targets are stored as
 float16 numpy on host (the IMAGE_HOLDING_DEVICE=cpu default), promoted to
 float32 lazily via properties; uint8 render/diffuse/specular inputs are
 untonemapped to HDR exactly like cameras.py:56-70.
@@ -163,6 +163,37 @@ class Camera:
         Rc2w[:, 0] = -Rc2w[:, 0]
         zn = float(os.getenv("ZNEAR", znear))
         zf = float(os.getenv("ZFAR", zfar))
+        return (
+            np.asarray(self.camera_center, np.float32),
+            Rc2w,
+            np.float32(self.FoVy),
+            np.float32(zn),
+            np.float32(zf),
+        )
+
+
+class MiniCam:
+    """Pose-only camera for the viewer (cameras.py:155-177)."""
+
+    def __init__(self, width, height, fovy, fovx, znear, zfar,
+                 world_view_transform, full_proj_transform):
+        self.image_width = width
+        self.image_height = height
+        self.FoVy = fovy
+        self.FoVx = fovx
+        self.znear = znear
+        self.zfar = zfar
+        self.world_view_transform = np.asarray(world_view_transform)
+        self.full_proj_transform = np.asarray(full_proj_transform)
+        view_inv = np.linalg.inv(self.world_view_transform)
+        self.camera_center = view_inv[3][:3]
+        self.R = self.world_view_transform[:3, :3]
+
+    def render_pose(self, znear=None, zfar=None):
+        Rc2w = -np.asarray(self.R, np.float32)
+        Rc2w[:, 0] = -Rc2w[:, 0]
+        zn = float(os.getenv("ZNEAR", self.znear if znear is None else znear))
+        zf = float(os.getenv("ZFAR", self.zfar if zfar is None else zfar))
         return (
             np.asarray(self.camera_center, np.float32),
             Rc2w,

@@ -164,11 +164,25 @@ def training_report(cfg, scene, state, tb_writer, iteration, start_time,
             f.write(f"{iteration}, {scores[0]:02.2f}, {scores[1]:02.2f}, {scores[2]:02.2f}\n")
 
 
-def _no_viewer(cfg: Config):
-    if cfg.viewer:
-        raise NotImplementedError(
-            "--viewer: the live training viewer (viewer/service.py, "
-            "viewer/state.py, scene/editable.py) is not ported yet")
+def start_viewer(state, cfg: Config, width: int, height: int, fovy: float,
+                 settings):
+    """The live training viewer (train.py:221-240): a ViewerState over the
+    training scene and the websocket RenderService in a daemon thread.  A
+    missing `websockets` raises here, in the caller's thread, before the
+    first step."""
+    from threading import Thread
+
+    from .scene.editable import EditableGaussianScene
+    from .viewer.service import RenderService, require_websockets
+    from .viewer.state import ViewerState
+
+    require_websockets()
+    viewer_state = ViewerState(
+        EditableGaussianScene(state.scene), cfg,
+        width=min(width, 512), height=min(height, 512), fovy=fovy,
+        settings=settings)
+    Thread(target=RenderService(viewer_state).serve, daemon=True).start()
+    return viewer_state
 
 
 def grown_budget(max_clusters: int, capacity: int, before: int) -> int:
@@ -183,8 +197,8 @@ def train_scene(cfg: Config, scene: Scene, tb_writer=None,
     """The training loop (train.py:172-365) on `scene`, on its Gaussians'
     device; writes into cfg.model_path (prepare_output_and_logger's).  With
     `resume`, continues from the latest checkpoints/step_N.  Returns the
-    final TrainState."""
-    _no_viewer(cfg)
+    final TrainState.  With cfg.viewer the websocket viewer shows the
+    state after each iteration (start_viewer)."""
     dev = scene.gaussians.xyz.device
     generator = torch.Generator(device=dev).manual_seed(seed)
     first_iter = 1
@@ -243,6 +257,8 @@ def train_scene(cfg: Config, scene: Scene, tb_writer=None,
     rng = np.random.default_rng(seed)
     hyper = dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
                  scale_decay=cfg.scale_decay, apply_grads=1.0)
+    viewer_state = (start_viewer(state, cfg, W, H, cameras[0].FoVy, settings)
+                    if cfg.viewer else None)
 
     for iteration in range(first_iter, cfg.iterations + 1):
         if not viewpoint_stack:
@@ -339,6 +355,13 @@ def train_scene(cfg: Config, scene: Scene, tb_writer=None,
                     print(f"[ITER {iteration}] candidate budget "
                           f"max_clusters {cfg.max_clusters} -> {mc}")
 
+        if viewer_state is not None:
+            # the viewer renders this iteration's Gaussians from here on
+            # (train_step writes no tensor in place, so the swap is safe)
+            viewer_state.gaussians.base = state.scene
+            viewer_state.gaussians.is_dirty = True
+            viewer_state.gaussians._cached = None
+
     print("\nTraining complete.")
     return state
 
@@ -347,7 +370,6 @@ def main(cfg: Config, resume: bool = False, device: str = "cuda"):
     """Train cfg.source_path's scene into cfg.model_path on `device` (the
     card unless "cpu"; without a card "cuda" raises)."""
     dev = resolve_device(device)
-    _no_viewer(cfg)
     seed = set_seeds()
     tb_writer = prepare_output_and_logger(cfg)
     scene = Scene(cfg, device=dev)
@@ -362,6 +384,8 @@ def cli(argv=None):
                    help="cuda (the kernels) or cpu (their plain versions)")
     extra, rest = p.parse_known_args(argv)
     cfg = parse_config(rest, prog="train")
+    if cfg.viewer:
+        cfg.test_iterations = []
     return main(cfg, resume=extra.resume, device=extra.device)
 
 

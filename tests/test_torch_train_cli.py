@@ -664,10 +664,18 @@ def test_cli_needs_a_card_or_the_cpu(dataset, tmp_path):
 
 
 def test_viewer_raises(dataset, tmp_path):
+    """--viewer starts the websocket service (tests/test_torch_viewer.py);
+    without the `websockets` package it raises in the caller's thread,
+    before the first step."""
     cfg = Config(source_path=dataset, model_path=str(tmp_path / "m"),
                  viewer=True)
-    with pytest.raises(NotImplementedError, match="viewer/service.py"):
-        ttrain.main(cfg, device="cpu")
+    steps = []
+    with mock.patch.dict(sys.modules, websockets=None), \
+            mock.patch.object(ttrain, "train_step",
+                              lambda *a, **k: steps.append(a)):
+        with pytest.raises(ImportError, match="'websockets'"):
+            ttrain.main(cfg, device="cpu")
+    assert not steps
 
 
 if __name__ == "__main__":
