@@ -196,6 +196,41 @@ Phases, one line each (any failure raises and the script exits non-zero):
      service's serve replaced by a stand-in (the machine has no
      websockets): a stand-in socket ticks the viewer between steps and the
      viewer shows each iteration's state; peak GB.
+ 21. the parallel modes (parallel/), ranks started by mesh.spawn, all on
+     the card over gloo unless said otherwise; every rank's ms, peak GB
+     and kernel launches, counted in the ranks from 0.  (a) sharded_train_
+     step on 2 ranks at train.py's Config defaults on phase 7's scene
+     (768x768, 36 tiles of 8192 a rank), against train_step on the same
+     samples (bit-equal expected; the largest delta per field printed,
+     fails beyond PAR_STATE_RTOL/PAR_STATE_ATOL on any element), with the
+     gradient all-reduce's ms and bytes.  (b) sharded_render_fused on 2
+     ranks, the 800x800 eval frame (100k room, rays_per_call 64,000),
+     against render_frame_fused: the share equal where neither starved,
+     tonemapped PSNR over the rest (fails under PAR_FRAME_PSNR over all);
+     that frame and the same at each of PAR_FRAME_THRESHOLDS: where
+     neither starved the share within PAR_FRAME_TOL, the step at which the
+     others first part and how far apart the steps before it are; fails
+     unless step 0 (the same tiles in both) is within on every ray and, at
+     threshold 0 (no ray saturates, so no tile's early exit moves one),
+     PAR_FRAME_MIN_SHARE of the final frame is; sharded_render(use_pallas,
+     use_culling) on phase 11's 1365x768 frame at 1 bounce on 3 ranks,
+     equal to render_frame.  (c) tools/demo_5m.py at its defaults: 5M
+     Gaussians padded by shard_scene on 4 ranks, one step, one trace of
+     each kind; bytes per rank against the replicated footprint.  (d) the
+     rays 2 x gauss 2 mesh on 4 ranks at 64x64 on the 175k room: the
+     gradients against train_step(use_pallas=False, tile R/2)'s (fails
+     under 99% in the 1e-4 band, as tests/test_gaussian_sharded.py), and
+     gaussian_sharded_trace(use_pallas) against trace_rays (fails under
+     demo_5m.MIN_RAYS_EQUAL of rays with the same hits - hits at the clip
+     radius flip between the two float32 formulas - or where depths on
+     those rays part beyond demo_5m.T_RTOL/T_ATOL).  In (c) and (d) every
+     rank's slots-kernel call (rows 4 and 3) also runs against its plain
+     version on the same shard inputs, by phase 5's rule: ids and counters
+     equal on every ray, t, alpha, payload and log T within compare_slots'
+     band.  (e) one rank over
+     NCCL: bit-equal
+     to train_step.  (f) a DP step and a 2D-mesh step at 32x32 on card
+     ranks and on CPU ranks: equal.  No failure is caught.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -300,7 +335,23 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
     trace_slots,
     trace_slots_reference,
 )
+from editable_gaussian_reflections_tpu_torch.ops.camera_rays import (
+    primary_ray_directions,
+)
 from editable_gaussian_reflections_tpu_torch.ops.precision import div
+from editable_gaussian_reflections_tpu_torch.ops.trace import trace_rays
+from editable_gaussian_reflections_tpu_torch.parallel.gaussian_sharded import (
+    shard_scene,
+)
+from editable_gaussian_reflections_tpu_torch.parallel.mesh import spawn
+from editable_gaussian_reflections_tpu_torch.parallel.ranks import (
+    host_inputs,
+    moved,
+    random_targets,
+    run_jobs,
+    same_hits,
+    to_numpy,
+)
 from editable_gaussian_reflections_tpu_torch.ops.render_grads import (
     new_grad_accumulator,
 )
@@ -332,6 +383,7 @@ from editable_gaussian_reflections_tpu_torch.renderer.render import (
 )
 from editable_gaussian_reflections_tpu_torch.scene import init as tinit
 from editable_gaussian_reflections_tpu_torch.scene.gaussian_scene import (
+    build_frames,
     num_live,
 )
 from editable_gaussian_reflections_tpu_torch.scene.dataset_readers import (
@@ -350,6 +402,7 @@ from editable_gaussian_reflections_tpu_torch.viewer.state import (
 from editable_gaussian_reflections_tpu_torch.tools import (
     bench_v5,
     bench_vpu_dtype,
+    demo_5m,
 )
 from editable_gaussian_reflections_tpu_torch.tools import prior_setup as tprior
 from editable_gaussian_reflections_tpu_torch.tools import (
@@ -388,6 +441,8 @@ from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
     NF_RENDER_N,
     NF_W,
     TRAIN_N,
+    ZFAR,
+    ZNEAR,
     eval_render,
     first_trace_calls,
     render_trace_calls,
@@ -547,6 +602,39 @@ VIEWER_TRAIN_KW = dict(CLI_KW, iterations=3, no_bounces_until_iter=2,
                        test_iterations=[], save_iterations=[], viewer=True)
 VIEWER_COUNTERS = {"render_culled": render_culled,
                    "render_scan": render_scan, "trace_hits": trace_hits}
+# phase 21: the parallel modes.  (a) the DP step at train.py's Config
+# defaults on phase 7's scene (2 ranks); (b) the fused eval frame (2 ranks)
+# and phase 11's culled frame at PAR_NF_BOUNCES bounces (PAR_NF_RANKS ranks:
+# 1365x768 splits into whole 256-ray cull tiles 3 ways, not 2); (c)
+# tools/demo_5m.py at DEMO_ARGV (its defaults); (d) the rays 2 x gauss 2
+# step and the kernel's shard trace at PAR_MESH_SIDE; (f) card against CPU
+# ranks at PAR_SMALL_SIDE
+PAR_STEP_SIDE, PAR_STEP_N = TRAIN_W, TRAIN_N
+PAR_FRAME_SIDE, PAR_FRAME_N, PAR_RPC = 800, 100_000, 64_000
+PAR_FRAME_PSNR = 30.0        # dB, sharded against single-process frame
+# the frame again at these transmittance thresholds, against the single
+# process within PAR_FRAME_TOL (rtol and atol; the CPU test's rule,
+# tests/test_torch_sharding.py) where neither starved.  The primary pass
+# (step 0) runs the same tiles in both and must be within on every ray.
+# The reflected passes' tiles are re-sorted per shard, and which rays
+# share a tile moves a ray (tools/shard_tiling.py replays them): a tile
+# votes to exit once all its rays are saturated, a saturated ray is not
+# flagged starved when the cap cut its list, and the tile-cone cull drops
+# clusters a ray of the tile sees (ROADMAP Queue 3).  The Config's
+# threshold and 1e-8 are printed; at 0 no ray saturates, and at least
+# PAR_FRAME_MIN_SHARE of the rays must be within (99.9846% measured on
+# an H100 80GB HBM3 at 700 W)
+PAR_FRAME_THRESHOLDS, PAR_FRAME_TOL = (1e-8, 0.0), 1e-5
+PAR_FRAME_MIN_SHARE = 0.9995
+# the DP state against train_step's, per element (float32 resolution)
+PAR_STATE_RTOL, PAR_STATE_ATOL = 1e-6, 1e-12
+PAR_NF_RANKS, PAR_NF_BOUNCES = 3, 1
+PAR_MESH_SIDE, PAR_MESH_N = 64, TRAIN_N
+PAR_SMALL_SIDE, PAR_SMALL_N = 32, 4096
+DEMO_ARGV = []
+# the kernels the parallel modes launch (rows 1, 3, 4, 10, 11)
+PAR_KERNELS = ("render_culled", "trace_slots_mode0", "trace_slots_mode1",
+               "trace_hits", "scatter_add")
 
 
 def first_tiles(call, n_tiles: int, ray_pos=(0, 1), cand_pos=(3, 4)):
@@ -2823,6 +2911,610 @@ def phase_viewer(dev, record, smi) -> dict:
     return res
 
 
+# -- phase 21: the parallel modes --------------------------------------------
+
+
+def fmt_list(xs, spec: str) -> str:
+    return ", ".join(format(x, spec) for x in xs)
+
+
+def rank_table(ranks: list, key: str = "ms") -> str:
+    return fmt_list([r[key] for r in ranks], ".1f")
+
+
+def peak_list(ranks: list) -> str:
+    return ", ".join("n/a" if r["peak_gb"] is None else f"{r['peak_gb']:.2f}"
+                     for r in ranks)
+
+
+def rank_launches(ranks: list, *names) -> list:
+    return [{n: r["launches"][n] for n in names} for r in ranks]
+
+
+def total_launches(*runs) -> dict:
+    """Every rank's launches over the runs, summed per kernel."""
+    out = {}
+    for ranks in runs:
+        for r in ranks:
+            for k, v in r["launches"].items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def np_state_delta(a: dict, b) -> dict:
+    """Largest |a - b| per field of a numpy TrainState dict `a` against a
+    TrainState `b`."""
+    out = {}
+    for tree in ("scene", "mu", "nu"):
+        for f in tr.PARAM_FIELDS:
+            d = np.abs(a[tree][f].astype(np.float64)
+                       - getattr(getattr(b, tree), f).cpu().numpy())
+            out[f"{tree}.{f}"] = float(d.max(initial=0.0))
+    out["total_weight"] = float(np.abs(
+        a["total_weight"].astype(np.float64)
+        - b.total_weight.cpu().numpy()).max(initial=0.0))
+    return out
+
+
+def why_not_equal(delta: dict) -> str:
+    """np_state_delta's largest delta, its fields, and why a DP step may
+    part from train_step by it."""
+    top = max(delta.values())
+    fields = ", ".join(k for k, v in delta.items() if v == top)
+    return (f" (largest delta {top:.3g} in {fields}: the scatter's float64 "
+            "atomics add in no fixed order, so a near-zero sum may round to "
+            "another float32)")
+
+
+def state_outside(a: dict, b) -> dict:
+    """Per field of a numpy TrainState dict `a` against a TrainState `b`,
+    the elements beyond PAR_STATE_RTOL * |b| + PAR_STATE_ATOL (fields with
+    none left out)."""
+    out = {}
+    for tree in ("scene", "mu", "nu"):
+        for f in tr.PARAM_FIELDS:
+            ref = getattr(getattr(b, tree), f).cpu().numpy().astype(np.float64)
+            d = np.abs(a[tree][f].astype(np.float64) - ref)
+            n = int((d > PAR_STATE_RTOL * np.abs(ref) + PAR_STATE_ATOL).sum())
+            if n:
+                out[f"{tree}.{f}"] = n
+    return out
+
+
+def check_shard_calls(where: str, plain: list) -> list:
+    """Each rank's slots-kernel call of gaussian_sharded_trace against its
+    plain version on the same shard inputs (ranks.gauss_trace's `plain`),
+    by phase 5's rule; per rank the comparison and the plain ms."""
+    out = []
+    for r, p in enumerate(plain):
+        cmp = compare_slots(p["slots"], p["acc"], p["ref_slots"],
+                            p["ref_acc"], p["K"])
+        print_differing(f"{where} rank {r}", cmp)
+        check_lanes(f"{where} rank {r}", cmp)
+        if cmp["counters_equal"] < 1.0:
+            raise RuntimeError(f"{where} rank {r}: ids or counters differ "
+                               "from the plain version's on "
+                               f"{1.0 - cmp['counters_equal']:.6%} of rays")
+        out.append(dict(cmp, **{k: p[k] for k in (
+            "plain_ms", "exit_mode", "candidates", "rows", "K")}))
+    return out
+
+
+def shard_calls_line(checks: list) -> str:
+    c = checks[0]
+    return (f"each rank's shard call (exit mode {c['exit_mode']}, "
+            f"{c['rows']} rows, {c['candidates']} candidates) = plain "
+            f"version (ids and counters equal on every ray, max abs err "
+            f"{max(x['max_abs_err'] for x in checks):.3g}; plain ms per rank "
+            f"{fmt_list([x['plain_ms'] for x in checks], '.0f')})")
+
+
+def frame_parts(sharded: dict, steps, final, settings) -> dict:
+    """A sharded fused frame (numpy, from the ranks) against the single
+    process's (StepOutputs, final) on the same samples, where neither
+    starved: the share of rays whose final is within PAR_FRAME_TOL, bit
+    for bit, the largest error; and per step (bounce) the share within
+    PAR_FRAME_TOL on every output, and for the rays outside, the step at
+    which they first part ("final" if no step does) and the largest
+    difference of any output in the steps before it."""
+    dev = final.device
+    sf = torch.tensor(sharded["final"], device=dev)
+    s_steps = {k: torch.tensor(v, device=dev)
+               for k, v in sharded["steps"].items()}
+    ok = ((s_steps["overflow"] == 0) & (steps.overflow == 0)).all(dim=0)
+
+    def diff(a, b):  # per ray, the largest |a - b| (equal infinities: 0)
+        d = torch.where(a == b, 0.0, (a - b).abs().float())
+        return d.reshape(d.shape[0], -1).amax(dim=1)
+
+    def within(a, b):
+        e = (a == b) | ((a - b).abs() <= PAR_FRAME_TOL * b.abs()
+                        + PAR_FRAME_TOL)
+        return e.reshape(e.shape[0], -1).all(dim=1)
+
+    inside = within(sf, final)
+    S = steps.rgb.shape[0]
+    fields = steps._fields
+    step_in = torch.stack([torch.stack([
+        within(s_steps[f][k], getattr(steps, f)[k]) for f in fields
+    ]).all(dim=0) for k in range(S)])                          # [S, R]
+    step_d = torch.stack([torch.stack([
+        diff(s_steps[f][k], getattr(steps, f)[k]) for f in fields
+    ]).amax(dim=0) for k in range(S)])                         # [S, R]
+    out_rays = ok & ~inside
+    parted = ~step_in[:, out_rays]
+    first = torch.where(parted.any(dim=0), parted.float().argmax(dim=0),
+                        torch.full_like(parted[0], S, dtype=torch.int64))
+    before = (torch.arange(S, device=dev)[:, None] < first[None]).float()
+    prior = (step_d[:, out_rays] * before).amax(dim=0)
+    err = (sf - final).abs()[ok]
+    n_ok = max(1, int(ok.sum()))
+
+    def share(mask) -> float:  # of the rays not starved, counted exactly
+        return int((mask & ok).sum()) / n_ok
+
+    return dict(
+        threshold=settings.transmittance_threshold,
+        share_not_starved=int(ok.sum()) / ok.numel(),
+        within_tol=share(inside),
+        equal=share((sf == final).all(dim=1)),
+        max_abs_err=float(err.max()) if err.numel() else 0.0,
+        finite=bool(torch.isfinite(sf).all()),
+        first_step_outside=int((ok & ~step_in[0]).sum()),
+        first_step_equal=share(step_d[0] == 0),
+        outside=int(out_rays.sum()),
+        outside_first_parting={
+            ("final" if k == S else f"step {k}"): int((first == k).sum())
+            for k in range(S + 1) if int((first == k).sum())},
+        outside_prior_max_diff=float(prior.max()) if prior.numel() else 0.0,
+        outside_prior_equal=int((prior == 0).sum()))
+
+
+def parts_line(x: dict) -> str:
+    return (f"at transmittance_threshold {x['threshold']:g} "
+            f"({x['share_not_starved']:.4%} of rays not starved): within "
+            f"{PAR_FRAME_TOL:g} on {x['within_tol']:.4%}, bit-equal on "
+            f"{x['equal']:.4%}, max abs err {x['max_abs_err']:.3g}; step 0 "
+            f"outside on {x['first_step_outside']} rays (bit-equal on "
+            f"{x['first_step_equal']:.4%}); the {x['outside']} rays outside "
+            f"first part at {x['outside_first_parting']}, the steps before "
+            f"it at most {x['outside_prior_max_diff']:.3g} apart (bit-equal "
+            f"for {x['outside_prior_equal']})")
+
+
+def small_jobs(cfg, settings) -> tuple:
+    """(f)'s two steps at PAR_SMALL_SIDE on room_scene(PAR_SMALL_N): a DP
+    step (fused, 4 ray shards) and a rays 2 x gauss 2 step."""
+    side = PAR_SMALL_SIDE
+    R = side * side
+    scene, camera = room(PAR_SMALL_N, "cpu", seed=1)
+    tg = random_targets(R, "cpu")
+    lrs = tr.lr_tree(cfg, 1, 1.0)
+    hyper = dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
+                 scale_decay=cfg.scale_decay, apply_grads=1.0)
+    dp_samples = draw_tile_samples(torch.Generator().manual_seed(11), side,
+                                   side, R // 4, 3)
+    mesh_samples = draw_tile_samples(torch.Generator().manual_seed(12), side,
+                                     side, R // 2, 3)
+    common = dict(camera=camera, targets=tg, settings=settings, lrs=lrs,
+                  hyper=hyper)
+    dp = ("dp_step", host_inputs(state=tr.init_train_state(scene),
+                                 samples=dp_samples, **common),
+          dict(mesh={"rays": 4}, width=side, height=side, tile=R // 4,
+               num_bounces=2, max_hits=cfg.max_hits, chunk=cfg.trace_chunk,
+               use_pallas=True, use_culling=True, cull_tile=cfg.cull_tile,
+               cull_cluster=cfg.cull_cluster,
+               max_clusters=cfg.max_clusters))
+    mesh2d = ("gauss_step", host_inputs(room=(PAR_SMALL_N, 2048, 1),
+                                        samples=mesh_samples, **common),
+              dict(mesh={"rays": 2, "gauss": 2}, width=side, height=side,
+                   num_bounces=2, max_hits=cfg.max_hits, chunk=2048,
+                   ray_axis="rays"))
+    return dp, mesh2d
+
+
+def phase_parallel(dev, record, smi) -> dict:
+    """Phase 21: the parallel modes, ranks spawned on the card (all on
+    cuda:0 over gloo, one rank over NCCL in (e)); module docstring."""
+    t_phase = time.perf_counter()
+    cfg = Config()
+    settings = tr.settings_from_config(cfg)
+    cpu = torch.device("cpu")
+    res = {}
+    t_part = [t_phase]
+
+    def lap() -> str:
+        now = time.perf_counter()
+        took, t_part[0] = now - t_part[0], now
+        return f"{took:.1f} s"
+
+    # (a) the DP step and (b) the fused render, 2 ranks
+    side = PAR_STEP_SIDE
+    R = side * side
+    tile = tr.pick_tile_size(R, cfg.ray_tile)
+    step_kw = dict(num_bounces=2, max_hits=cfg.max_hits,
+                   chunk=cfg.trace_chunk, tile=tile, use_pallas=True,
+                   exp_power_static=float(cfg.exp_power), use_culling=True,
+                   cull_tile=cfg.cull_tile, cull_cluster=cfg.cull_cluster,
+                   max_clusters=cfg.max_clusters)
+    scene_t, camera = room(PAR_STEP_N, dev, seed=0)
+    gb, _ = render_frame_fused(scene_t, camera, settings,
+                               torch.Generator(device=dev).manual_seed(3),
+                               side, side, num_bounces=2, **FRAME_KW)
+    targets = RayTargets(diffuse=gb.rgb[0], specular=gb.rgb[1] + gb.rgb[2],
+                         depth=gb.depth[0], normal=gb.normal[0],
+                         roughness=gb.roughness[0], f0=gb.f0[0])
+    del scene_t, gb
+    state = tr.init_train_state(room(PAR_STEP_N, dev, seed=1)[0])
+    lrs = tr.lr_tree(cfg, 1, 1.0)
+    hyper = dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
+                 scale_decay=cfg.scale_decay, apply_grads=1.0)
+    samples = draw_tile_samples(torch.Generator().manual_seed(4), side, side,
+                                tile, 3)
+    step_in = host_inputs(state=state, camera=camera, targets=targets,
+                          settings=settings, lrs=lrs, hyper=hyper,
+                          samples=samples)
+    fside = PAR_FRAME_SIDE
+    frame_scene, frame_cam = room(PAR_FRAME_N, dev)
+    frame_samples = draw_samples(torch.Generator().manual_seed(5), fside,
+                                 fside, 3)
+    frame_kw = dict(num_bounces=2, rays_per_call=PAR_RPC, **FRAME_KW)
+    frame_in = host_inputs(room=(PAR_FRAME_N, 2048, 0), camera=frame_cam,
+                           settings=settings, samples=frame_samples)
+    settings_lo = [settings._replace(transmittance_threshold=thr)
+                   for thr in PAR_FRAME_THRESHOLDS]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dp, fused, *fused_lo = spawn(run_jobs, 2, "gloo", dev, {"rays": 2}, [
+        ("dp_step", step_in, dict(width=side, height=side, repeat=2,
+                                  **step_kw)),
+        ("render_fused", frame_in, dict(width=fside, height=fside, repeat=2,
+                                        **frame_kw))] + [
+        ("render_fused", dict(frame_in, settings=st),
+         dict(width=fside, height=fside, **frame_kw)) for st in settings_lo])
+    spawn_ab_s = time.perf_counter() - t0
+    del step_in, frame_in
+    one = tr.train_step(state, camera, targets, settings, lrs, hyper, None,
+                        side, side, samples=moved(samples, dev), **step_kw)
+    sync(dev)
+    t0 = time.perf_counter()
+    tr.train_step(state, camera, targets, settings, lrs, hyper, None, side,
+                  side, samples=moved(samples, dev), **step_kw)
+    sync(dev)
+    single_ms = (time.perf_counter() - t0) * 1e3
+    delta = np_state_delta(dp["state"], one[0])
+    l1_single = one[1]["l1_diffuse"].item()
+    if not state_finite(one[0]) or not all(
+            np.isfinite(dp["state"][t][f]).all()
+            for t in ("scene", "mu", "nu") for f in tr.PARAM_FIELDS):
+        raise RuntimeError("phase 21 (a): non-finite state")
+    if abs(float(dp["metrics"]["l1_diffuse"]) - l1_single) > 1e-6 * max(
+            1e-30, abs(l1_single)):
+        raise RuntimeError(f"phase 21 (a): l1 {dp['metrics']} against the "
+                           f"single-process step's {l1_single}")
+    outside = state_outside(dp["state"], one[0])
+    if outside:
+        raise RuntimeError(f"phase 21 (a): the DP state parts from "
+                           f"train_step's beyond {PAR_STATE_RTOL:g} relative "
+                           f"+ {PAR_STATE_ATOL:g} (elements per field "
+                           f"{outside}; largest delta per field {delta})")
+    ar = [r["collectives"]["all_reduce"] for r in dp["ranks"]]
+    res["a"] = dict(ranks=dp["ranks"], single_ms=single_ms,
+                    bit_equal=max(delta.values()) == 0.0,
+                    max_delta=delta, l1=float(dp["metrics"]["l1_diffuse"]),
+                    l1_single=l1_single, spawn_s=spawn_ab_s,
+                    tiles_per_rank=R // tile // 2)
+    del state, targets, one
+    print(f"phase 21 (a): DP train step {side}x{side}, room_scene("
+          f"{PAR_STEP_N}), Config defaults (K {cfg.max_hits}, cluster "
+          f"{cfg.cull_cluster}, {cfg.max_clusters} candidates, tile {tile}: "
+          f"{R // tile // 2} tiles a rank), 2 ranks on one card (gloo): ms a "
+          f"step per rank {rank_table(dp['ranks'])} (single process "
+          f"{single_ms:.1f}); all-reduce ms per rank "
+          f"{fmt_list([a['ms'] for a in ar], '.1f')}, "
+          f"{ar[0]['bytes'] / 1e6:.2f} MB a rank; peak GB per rank "
+          f"{peak_list(dp['ranks'])}; launches per rank "
+          f"{rank_launches(dp['ranks'], 'trace_slots_mode0', 'scatter_add')}"
+          f"; against train_step: bit-equal {res['a']['bit_equal']}"
+          f"{'' if res['a']['bit_equal'] else why_not_equal(delta)}, l1 "
+          f"{res['a']['l1']:.6f}; (a) "
+          f"and the fused frame's ranks {lap()} [{smi}]", flush=True)
+
+    steps1, final1 = render_frame_fused(
+        frame_scene, frame_cam, settings, None, fside, fside,
+        samples=moved(frame_samples, dev), **frame_kw)
+    sync(dev)
+    t0 = time.perf_counter()
+    render_frame_fused(frame_scene, frame_cam, settings, None, fside, fside,
+                       samples=moved(frame_samples, dev), **frame_kw)
+    sync(dev)
+    frame_single_ms = (time.perf_counter() - t0) * 1e3
+    sf = torch.tensor(fused["final"], device=dev)
+    s_over = torch.tensor(fused["steps"]["overflow"], device=dev)
+    ok = ((s_over == 0) & (steps1.overflow == 0)).all(dim=0)
+    psnr_all = psnr_tonemapped(sf, final1)
+    psnr_rest = psnr_tonemapped(sf, final1, ~ok) if (~ok).any() else math.inf
+    if not bool(torch.isfinite(sf).all()) or psnr_all < PAR_FRAME_PSNR:
+        raise RuntimeError(f"phase 21 (b): the sharded frame reads "
+                           f"{psnr_all:.1f} dB against the single-process "
+                           "frame")
+    starved = [float((s_over > 0).float().mean()),
+               float((steps1.overflow > 0).float().mean())]
+    res["b_fused"] = dict(
+        ranks=fused["ranks"], single_ms=frame_single_ms,
+        psnr_all=psnr_all, psnr_starved=psnr_rest,
+        starved_sharded=starved[0], starved_single=starved[1],
+        thresholds=[frame_parts(fused, steps1, final1, settings)])
+    for st, sharded in zip(settings_lo, fused_lo):
+        steps_lo, final_lo = render_frame_fused(
+            frame_scene, frame_cam, st, None, fside, fside,
+            samples=moved(frame_samples, dev), **frame_kw)
+        res["b_fused"]["thresholds"].append(
+            frame_parts(sharded, steps_lo, final_lo, st))
+        del steps_lo, final_lo
+    parts = res["b_fused"]["thresholds"]
+    bad = [x for x in parts if not x["finite"] or x["first_step_outside"]
+           or (x["threshold"] == 0.0
+               and x["within_tol"] < PAR_FRAME_MIN_SHARE)]
+    if bad:
+        raise RuntimeError(
+            f"phase 21 (b): the sharded frame parts from render_frame_fused's "
+            f"beyond {PAR_FRAME_TOL:g} where neither starved: {bad}")
+    del steps1, final1, sf, s_over, frame_scene
+    print(f"phase 21 (b): sharded_render_fused {fside}x{fside}, room_scene("
+          f"{PAR_FRAME_N}), k-buffer, Config defaults, rays_per_call "
+          f"{PAR_RPC}, 2 ranks: ms a frame per rank "
+          f"{rank_table(fused['ranks'])} (single process "
+          f"{frame_single_ms:.1f}); starved (slots) sharded {starved[0]:.4%}"
+          f", single {starved[1]:.4%}; tonemapped PSNR {psnr_all:.1f} dB "
+          f"over all, {psnr_rest:.1f} dB over the starved; against the "
+          f"single process where neither starved, "
+          + "; ".join(parts_line(x) for x in parts)
+          + f"; all-gather ms per rank "
+          f"{fmt_list([r['collectives']['all_gather']['ms'] for r in fused['ranks']], '.1f')}"
+          f" ({fused['ranks'][0]['collectives']['all_gather']['bytes'] / 1e6:.1f}"
+          f" MB a rank); peak GB per rank {peak_list(fused['ranks'])}; "
+          f"render_culled "
+          f"launches per rank "
+          f"{[r['launches']['render_culled'] for r in fused['ranks']]}; "
+          f"{lap()} [{smi}]", flush=True)
+
+    # (b) the non-fused culled render, PAR_NF_RANKS ranks
+    nw, nh = NF_W, NF_H
+    nR = nw * nh
+    nf_scene, nf_cam = room(NF_RENDER_N, dev)
+    nf_samples = draw_tile_samples(torch.Generator().manual_seed(6), nw, nh,
+                                   nR // PAR_NF_RANKS, PAR_NF_BOUNCES + 1)
+    nf_kw = dict(num_bounces=PAR_NF_BOUNCES, use_pallas=True,
+                 use_culling=True, cull_tile=256, jitter=True, **FRAME_KW)
+    nf = spawn(run_jobs, PAR_NF_RANKS, "gloo", dev,
+               {"rays": PAR_NF_RANKS}, [
+                   ("render", host_inputs(room=(NF_RENDER_N, 2048, 0),
+                                          camera=nf_cam, samples=nf_samples),
+                    dict(width=nw, height=nh, **nf_kw))])[0]
+    _, nf_final = render_frame(nf_scene, nf_cam, settings, None, nw, nh,
+                               tile=nR // PAR_NF_RANKS,
+                               samples=moved(nf_samples, dev), **nf_kw)
+    nf_equal = bool(np.array_equal(nf["final"], nf_final.cpu().numpy()))
+    if not nf_equal:
+        raise RuntimeError(f"phase 21 (b): sharded_render differs from "
+                           f"render_frame, max abs err "
+                           f"{np.abs(nf['final'] - nf_final.cpu().numpy()).max()}")
+    res["b_nonfused"] = dict(ranks=nf["ranks"], equal=nf_equal)
+    del nf_scene, nf_final
+    print(f"phase 21 (b): sharded_render(use_pallas, use_culling) {nw}x{nh}, "
+          f"room_scene({NF_RENDER_N}), {PAR_NF_BOUNCES} bounce (reduced from "
+          f"phase 11's 2), {PAR_NF_RANKS} ranks of {nR // PAR_NF_RANKS} rays: "
+          f"equal to render_frame; ms per rank {rank_table(nf['ranks'])}; "
+          f"peak GB per rank {peak_list(nf['ranks'])}; trace_hits launches "
+          f"per rank {[r['launches']['trace_hits'] for r in nf['ranks']]}; "
+          f"{lap()} [{smi}]", flush=True)
+
+    # (c) demo_5m at its defaults, 4 ranks on "gauss"
+    out_dir = ROOT / "chiprun_out"
+    t0 = time.perf_counter()
+    demo, demo_plain = demo_5m.run(
+        DEMO_ARGV + ["--device", dev.type, "--out",
+                     str(out_dir / "demo_5m_torch.json")], check_plain=True)
+    c_checks = check_shard_calls("phase 21 (c) trace_slots", demo_plain)
+    del demo_plain
+    res["c"] = dict(demo, wall_s=time.perf_counter() - t0,
+                    shard_calls=c_checks)
+    replicated = demo["train_state_bytes_total"]
+    print(f"phase 21 (c): demo_5m, {demo['n_gaussians']} Gaussians on "
+          f"{demo['n_ranks']} ranks (gloo, one card), {demo['rays']} rays, K "
+          f"{demo['max_hits']}: parameter bytes per rank "
+          f"{demo['param_bytes_per_rank']}, optimizer bytes per rank "
+          f"{demo['opt_bytes_per_rank']}, state "
+          f"{demo['train_state_bytes_max_per_rank'] / 1e9:.3f} GB at most a "
+          f"rank against {replicated / 1e9:.3f} GB replicated (ratio "
+          f"{demo['sharding_ratio']:.2f}); step ms per rank "
+          f"{fmt_list(demo['step_ms_per_rank'], '.0f')}, peak "
+          f"GB {demo['step_peak_gb_per_rank']}; traces ms per rank xla "
+          f"{fmt_list(demo['trace_ms_per_rank']['xla'], '.0f')}"
+          f", kernel "
+          f"{fmt_list(demo['trace_ms_per_rank']['pallas'], '.0f')}"
+          f", same hits on {demo['trace_rays_equal']:.2%} of rays (t max abs "
+          f"err on those {demo['trace_t_max_abs_err_same_hits']:.3g}, full_T "
+          f"{demo['trace_full_T_max_abs_err_same_hits']:.3g}); "
+          f"{shard_calls_line(c_checks)}; launches per rank: scatter_grads "
+          f"{[x['scatter_add'] for x in demo['step_launches_per_rank']]}, "
+          f"trace_slots mode 1 "
+          f"{[x['trace_slots_mode1'] for x in demo['trace_launches_per_rank']['pallas']]}"
+          f"; {lap()} [{smi}]", flush=True)
+
+    # (d) the 2D mesh and (f)'s card half, 4 ranks
+    mside = PAR_MESH_SIDE
+    mR = mside * mside
+    m_scene, m_cam = room(PAR_MESH_N, dev, seed=1)
+    m_scene = shard_scene(m_scene, 2)
+    m_tg = random_targets(mR, dev)
+    m_samples = moved(draw_tile_samples(torch.Generator().manual_seed(7),
+                                        mside, mside, mR // 2, 3), dev)
+    m_lrs = tr.lr_tree(cfg, 10, 3.0)
+    m_hyper = dict(beta_1=0.9, beta_2=0.999, scale_decay=0.9999,
+                   apply_grads=1.0)
+    m_in = host_inputs(room=(PAR_MESH_N, 2048, 1), camera=m_cam,
+                       targets=m_tg, settings=settings, lrs=m_lrs,
+                       hyper=m_hyper, samples=m_samples)
+    dirs = primary_ray_directions(mside, mside, m_cam.fov_y, m_cam.c2w
+                                  ).reshape(-1, 3)
+    t_in = host_inputs(room=(PAR_MESH_N, 2048, 1), camera=m_cam,
+                       rays_o=m_cam.origin.expand(mR, 3), rays_d=dirs)
+    mc_all = m_scene.capacity // 2 // 256
+    small_dp, small_mesh = small_jobs(cfg, settings)
+    mesh2d = {"rays": 2, "gauss": 2}
+    card4 = spawn(run_jobs, 4, "gloo", dev, mesh2d, [
+        ("gauss_step", m_in, dict(width=mside, height=mside, num_bounces=2,
+                                  max_hits=cfg.max_hits, chunk=2048,
+                                  ray_axis="rays")),
+        ("gauss_trace", t_in, dict(exp_power=3.0, near=ZNEAR, far=ZFAR,
+                                   max_hits=cfg.max_hits, chunk=2048,
+                                   use_pallas=True, cull_cluster=256,
+                                   cull_tile=256, max_clusters=mc_all,
+                                   plain=True)),
+        small_dp, small_mesh])
+    m_step, m_trace = card4[0], card4[1]
+    ref_state = tr.init_train_state(m_scene)
+    prep = tr.prepare_step(ref_state, m_cam, m_tg, settings, None, mside,
+                           mside, 2, mR // 2, samples=m_samples)
+    ref_grads, ref_l1, _ = tr.grads_over_tiles(
+        m_cam.origin, prep["dirs_t"], prep["targets_t"], settings, m_cam,
+        prep["us_t"], 2, cfg.max_hits, 3.0, None, None, m_scene.capacity,
+        frames=prep["frames"], attrs=prep["attrs"],
+        scene_for_bwd=prep["scene_for_bwd"], use_pallas=False, chunk=2048)
+    del prep
+    grad_cmp = {}
+    for f in ref_grads._fields:
+        a, b = m_step["grads"][f], getattr(ref_grads, f).cpu().numpy()
+        scale = max(1e-6, float(np.abs(b).max()))
+        band = np.abs(a - b) <= 1e-4 * np.abs(b) + 1e-5 * scale
+        grad_cmp[f] = dict(equal=float((a == b).mean()),
+                           in_band=float(band.mean()),
+                           max_abs_err=float(np.abs(a - b).max()))
+    l1_ref = float(ref_l1) / mR
+    if (min(v["in_band"] for v in grad_cmp.values()) < 0.99
+            or abs(float(m_step["metrics"]["l1_diffuse"]) - l1_ref)
+            > 1e-5 * abs(l1_ref)):
+        raise RuntimeError(f"phase 21 (d): the 2D-mesh step parts from the "
+                           f"single-process step: {grad_cmp}, l1 "
+                           f"{m_step['metrics']} vs {l1_ref}")
+    frames_ref, _ = build_frames(m_scene, settings.alpha_threshold, 3.0)
+    h1 = trace_rays(m_cam.origin.expand(mR, 3), dirs, frames_ref, 3.0,
+                    ZNEAR, ZFAR, max_hits=cfg.max_hits, chunk=2048)
+    h, h1 = m_trace["hits"], to_numpy(h1)
+    d_checks = check_shard_calls("phase 21 (d) trace_slots", m_trace["plain"])
+    rays_same = same_hits(h, h1)
+    kept = h1["valid"] & rays_same[:, None]
+    t_err = float(np.abs(h["t"] - h1["t"])[kept].max(initial=0.0))
+    t_ok = bool((np.abs(h["t"] - h1["t"])[kept]
+                 <= demo_5m.T_RTOL * np.abs(h1["t"][kept])
+                 + demo_5m.T_ATOL).all())
+    if rays_same.mean() < demo_5m.MIN_RAYS_EQUAL or not t_ok:
+        raise RuntimeError(f"phase 21 (d): the kernel trace keeps other hits "
+                           f"than trace_rays on {1 - rays_same.mean():.2%} "
+                           f"of rays, or their depths part (t max abs err "
+                           f"{t_err:.3g} on the rays with the same hits)")
+    res["d"] = dict(step_ranks=m_step["ranks"], trace_ranks=m_trace["ranks"],
+                    grads=grad_cmp, l1=float(m_step["metrics"]["l1_diffuse"]),
+                    l1_single=l1_ref, trace_rays_equal=float(rays_same.mean()),
+                    shard_calls=d_checks,
+                    trace_t_max_abs_err=t_err,
+                    trace_full_T_max_abs_err=float(np.abs(
+                        h["full_T"] - h1["full_T"])[rays_same].max(
+                            initial=0.0)))
+    print(f"phase 21 (d): 2D mesh rays 2 x gauss 2 on 4 ranks, room_scene("
+          f"{PAR_MESH_N}) at {mside}x{mside}, 2 bounces, K {cfg.max_hits}: "
+          f"gradients against train_step(use_pallas=False, tile {mR // 2})'s "
+          f"bit-equal on "
+          f"{min(v['equal'] for v in grad_cmp.values()):.4%} of entries "
+          f"(worst field), in the 1e-4 band on "
+          f"{min(v['in_band'] for v in grad_cmp.values()):.4%}; l1 "
+          f"{res['d']['l1']:.6f} vs {l1_ref:.6f}; step ms per rank "
+          f"{rank_table(m_step['ranks'])}, peak GB {peak_list(m_step['ranks'])}"
+          f", scatter_grads launches "
+          f"{[r['launches']['scatter_add'] for r in m_step['ranks']]}; "
+          f"gaussian_sharded_trace(use_pallas) vs trace_rays: same hits on "
+          f"{rays_same.mean():.4%} of rays (t max abs err on those "
+          f"{t_err:.3g}, full_T {res['d']['trace_full_T_max_abs_err']:.3g}); "
+          f"{shard_calls_line(d_checks)}; ms "
+          f"per rank {rank_table(m_trace['ranks'])}, trace_slots mode 0 "
+          f"launches "
+          f"{[r['launches']['trace_slots_mode0'] for r in m_trace['ranks']]}"
+          f"; (d) and (f)'s card ranks {lap()} [{smi}]", flush=True)
+
+    # (e) one rank over NCCL
+    e_scene, e_cam = room(4096, dev, seed=1)
+    e_tg = random_targets(64 * 64, dev, seed=2)
+    e_samples = draw_tile_samples(torch.Generator().manual_seed(13), 64, 64,
+                                  1024, 3)
+    e_kw = dict(step_kw, tile=1024)
+    backend_e = "nccl" if dev.type == "cuda" else "gloo"
+    e = spawn(run_jobs, 1, backend_e, dev, {"rays": 1}, [
+        ("dp_step", host_inputs(state=tr.init_train_state(e_scene),
+                                camera=e_cam, targets=e_tg,
+                                settings=settings, lrs=lrs, hyper=hyper,
+                                samples=e_samples),
+         dict(width=64, height=64, **e_kw))])[0]
+    e_one = tr.train_step(tr.init_train_state(e_scene), e_cam, e_tg,
+                          settings, lrs, hyper, None, 64, 64,
+                          samples=moved(e_samples, dev), **e_kw)
+    e_delta = np_state_delta(e["state"], e_one[0])
+    if max(e_delta.values()) != 0.0:
+        raise RuntimeError(f"phase 21 (e): the {backend_e} rank's step "
+                           f"differs from train_step: {e_delta}")
+    res["e"] = dict(backend=backend_e, ranks=e["ranks"], bit_equal=True)
+    print(f"phase 21 (e): sharded_train_step on 1 rank over {backend_e} "
+          f"(64x64, room_scene(4096), tile 1024): bit-equal to train_step; "
+          f"ms {rank_table(e['ranks'])}; {lap()} [{smi}]", flush=True)
+
+    # (f) card against CPU ranks at PAR_SMALL_SIDE
+    cpu4 = spawn(run_jobs, 4, "gloo", cpu, mesh2d, [small_dp, small_mesh])
+    f_cmp = {}
+    for name, c, k in (("dp", card4[2], cpu4[0]),
+                       ("mesh2d", card4[3], cpu4[1])):
+        diff = []
+        for tree in ("scene", "mu", "nu"):
+            for f in tr.PARAM_FIELDS:
+                if not np.array_equal(c["state"][tree][f], k["state"][tree][f]):
+                    diff.append(f"{tree}.{f}")
+        if not np.array_equal(c["state"]["total_weight"],
+                              k["state"]["total_weight"]):
+            diff.append("total_weight")
+        f_cmp[name] = dict(differ=diff,
+                           l1=[float(c["metrics"]["l1_diffuse"]),
+                               float(k["metrics"]["l1_diffuse"])])
+    res["f"] = f_cmp
+    bad = {k: v for k, v in f_cmp.items() if v["differ"]
+           or v["l1"][0] != v["l1"][1]}
+    if bad:
+        raise RuntimeError(f"phase 21 (f): card and CPU ranks differ: {bad}")
+    phase_s = time.perf_counter() - t_phase
+    res["phase_s"] = phase_s
+    demo_ranks = [{"launches": x} for x in (
+        demo["step_launches_per_rank"]
+        + demo["trace_launches_per_rank"]["xla"]
+        + demo["trace_launches_per_rank"]["pallas"])]
+    res["launches"] = launches = total_launches(
+        dp["ranks"], fused["ranks"], nf["ranks"], m_step["ranks"],
+        m_trace["ranks"], e["ranks"], card4[2]["ranks"], card4[3]["ranks"],
+        demo_ranks)
+    record["phase21_parallel"] = res
+    if dev.type == "cuda":
+        idle = [k for k in PAR_KERNELS if launches[k] == 0]
+        if idle:
+            raise RuntimeError(f"phase 21: {idle} never launched in the "
+                               f"parallel modes: {launches}")
+    print(f"phase 21 (f): {PAR_SMALL_SIDE}x{PAR_SMALL_SIDE} DP step (4 ray "
+          f"shards, fused) and rays 2 x gauss 2 step on card ranks and on CPU "
+          f"ranks: states and l1 equal (CPU ranks {lap()}); phase 21 "
+          f"{phase_s:.1f} s; launches "
+          f"over the phase (every rank) {res['launches']} [{smi}]",
+          flush=True)
+    return res
+
+
 def main() -> None:
     # the smoke drives one card: only the first visible one is made visible,
     # before CUDA initialises, so the device count it reports is the one used
@@ -3282,6 +3974,8 @@ def main() -> None:
     cli = phase_cli(dev, record, smi)
     run = phase_run(dev, record, smi)
     viewer = phase_viewer(dev, record, smi)
+    par = phase_parallel(dev, record, smi)
+    par_l = par["launches"]
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -3307,6 +4001,8 @@ def main() -> None:
             "render_culled"],
         # the viewer's session (phase 20): settled ticks and selection ticks
         "viewer_launches": viewer["launches"]["render_culled"],
+        # the parallel modes (phase 21): the sharded fused frame's ranks
+        "parallel_launches": par_l["render_culled"],
         "floor_ms": rc_floor["primary"],
         "reflected_ms": kernel_ms_reflected,
         "reflected_plain_ms": phase4["reflected"]["plain_ms"],
@@ -3340,6 +4036,13 @@ def main() -> None:
         "library_ms": None,
         # the training CLI's run (phase 18): its culled steps
         "cli_launches": cli["launches"]["trace_slots"],
+        # the parallel modes (phase 21), every rank: exit mode 0 (row 3:
+        # the DP steps and the 2D mesh's shard trace) and exit mode 1 (row
+        # 4: demo_5m's 1.25M-row shards)
+        "parallel_launches": par_l["trace_slots_mode0"]
+        + par_l["trace_slots_mode1"],
+        "parallel_launches_mode0": par_l["trace_slots_mode0"],
+        "parallel_launches_mode1": par_l["trace_slots_mode1"],
         "floor_ms": phase5["primary"]["floor_ms"],
         "reflected_ms": phase5["reflected"]["ms"],
         "reflected_plain_ms": phase5["reflected"]["plain_ms"],
@@ -3367,6 +4070,9 @@ def main() -> None:
         "library_ms": sc_lib_ms,
         # the training CLI's run (phase 18): one a step
         "cli_launches": cli["launches"]["scatter_grads"],
+        # the parallel modes (phase 21), every rank: DP and
+        # Gaussian-sharded steps
+        "parallel_launches": par_l["scatter_add"],
         "registers": phase5["scatter"]["kernel_info"]["registers"],
         "blocks_per_sm": phase5["scatter"]["kernel_info"]["blocks_per_sm"],
     }, {
@@ -3431,6 +4137,9 @@ def main() -> None:
         # the viewer's session (phase 20): selection masks (brute, 0
         # bounces) and every tick after the duplicate (brute)
         "viewer_launches": viewer["launches"]["trace_hits"],
+        # the parallel modes (phase 21): sharded_render's culled ranks (row
+        # 10)
+        "parallel_launches": par_l["trace_hits"],
         # registers and blocks per SM of the launched kernel (phase 10)
         "registers": {k: v["registers"] for k, v in
                       record["trace_hits_kernel"].items()},

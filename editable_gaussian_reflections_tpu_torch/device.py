@@ -22,3 +22,22 @@ def resolve_device(device: torch.device | str) -> torch.device:
             f"device {str(device)!r}: no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+# how many processes share this process's card (parallel/mesh.py spawn sets
+# it in each rank): memory budgets take the card over this many
+_RANKS_PER_CARD = 1
+
+
+def share_card(ranks: int) -> None:
+    """Declare that `ranks` processes (this one included) share its card."""
+    global _RANKS_PER_CARD
+    if ranks < 1:
+        raise ValueError(f"ranks={ranks}: at least 1 process uses the card")
+    _RANKS_PER_CARD = ranks
+
+
+def ranks_per_card() -> int:
+    """How many processes share this process's card (1 unless a spawn of
+    parallel/mesh.py placed several ranks on it)."""
+    return _RANKS_PER_CARD

@@ -14,7 +14,11 @@ from .precision import div, dot, rounded
 
 # flags.h:8 - "Essential for stability, can't remove"
 MAX_ALPHA = 0.9999
-# flags.h:16-19 - the most GGX reflection bounces a frame traces
+# flags.h:16-19 - performance flags: the reference's k-buffer depth and its
+# PPLL rescan cap (the hit cap K plays their part here), and the most GGX
+# reflection bounces a frame traces
+BUFFER_SIZE = 16
+MAX_ITERATIONS = 99
 MAX_BOUNCES = 2
 # flags.h (ROUGHNESS_DOWNWEIGHT_GRAD, on): the specular loss gradient of
 # bounce b >= 1 is scaled by (1 - roughness of bounce b-1)^POWER

@@ -26,11 +26,15 @@ render_tile_with_grads) is the JAX renderer's path for frames the fused one
 cannot take: per bounce one trace_hits launch (ops/cuda/trace_hits.py; brute
 or culled, the K nearest hits of each ray with their payload), then the
 composite (ops/composite.py) and the GGX epilogue on the [R, K] hits, rays
-in the frame's own order, no re-sort between bounces.
+in the frame's own order, no re-sort between bounces.  With
+use_pallas=False the same functions trace unculled through the XLA
+tracer's twin (ops/trace.py trace_rays, plain PyTorch) and gather the
+attributes by id, as the JAX use_pallas=False path does.  Their default
+is use_pallas=True (the kernels), so a caller takes the plain tracer only
+by asking for it; the JAX package's default is False.
 
 Not ported yet, and raising instead of falling back: split_far=True (the
-two-pass bounce).  The JAX package's XLA tracer (its use_pallas=False
-path) is not ported: the port's kernels are its only tracer.
+two-pass bounce).
 
 Randomness: the JAX package draws jitter and GGX uniforms from a key; the
 port draws the same quantities (FrameSamples for a fused frame; TileSamples,
@@ -48,7 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, ranks_per_card, resolve_device
 from ..ops import ggx
 from ..ops.camera_rays import primary_ray_directions
 from ..ops.composite import composite
@@ -73,6 +77,7 @@ from ..ops.cuda.scan_kernel import ATTR_PRECISIONS, render_scan, scan_fits
 from ..ops.cuda.scatter import scatter_add
 from ..ops.cuda.trace_slots import exit_mode_for, trace_slots
 from ..ops.gaussian_kernel import ROUGHNESS_DOWNWEIGHT_GRAD_POWER
+from ..ops.intersect import GaussianFrames
 from ..ops.precision import WIDE, dot, norm, rounded
 from ..ops.render_grads import (
     SCATTER_COLS,
@@ -85,6 +90,7 @@ from ..ops.render_grads import (
 from ..ops.trace import (
     RayHits,
     gather_frames,
+    trace_rays,
     trace_rays_brute,
     trace_rays_culled,
 )
@@ -742,9 +748,11 @@ BYTES_PER_RAY_HIT = 640
 def tiles_per_launch_for(num_tiles: int, tile: int, num_steps: int,
                          max_hits: int, device: torch.device) -> int:
     """How many ray tiles one launch per bounce takes: as many as fit in
-    half the card's total memory, 1 GiB on the CPU."""
+    half of this process's share of the card's total memory (the card over
+    the ranks that share it, device.ranks_per_card), 1 GiB on the CPU."""
     if device.type == "cuda":
-        budget = torch.cuda.get_device_properties(device).total_memory // 2
+        budget = (torch.cuda.get_device_properties(device).total_memory
+                  // (2 * ranks_per_card()))
     else:
         budget = 1 << 30
     per_tile = tile * num_steps * max_hits * BYTES_PER_RAY_HIT
@@ -764,13 +772,18 @@ def render_tile(rays_o, rays_d, gpack, attrs: SceneAttributes,
                 settings: RenderSettings, znear: float, zfar: float,
                 us: torch.Tensor, num_bounces: int, max_hits: int, *,
                 exp_power_static: float = 3.0, culling: dict | None = None,
-                keep_residuals: bool = False):
+                keep_residuals: bool = False, use_pallas: bool = True,
+                frames: GaussianFrames | None = None, chunk: int = 2048):
     """Forward bounce loop of a batch of rays (raytracer.py:143-285): per
     bounce the trace (culled through culling.select_candidates on the rays'
     own order when `culling` = {bounds, cull_tile, cluster, mc} is given,
     else brute), dead rays' hits masked, attributes gathered by id, the
     composite, and the GGX epilogue.  No secondary throughput cutoff, as
     the JAX non-fused loop has none.
+
+    use_pallas=False traces through trace_rays (the XLA tracer's twin) on
+    `frames`, in chunks of `chunk` Gaussians at settings.exp_power, never
+    culled; gpack and `culling` are not read.
 
     The JAX renderer runs this per ray tile; the rays here may hold several
     tiles back to back, since nothing in it spans rays beyond a cull tile
@@ -791,7 +804,12 @@ def render_tile(rays_o, rays_d, gpack, attrs: SceneAttributes,
     for step in range(num_bounces + 1):
         near = znear if step == 0 else 0.0
         secondary = 1.0 if step > 0 else 0.0
-        if culling is not None:
+        if not use_pallas:
+            hits = trace_rays(rays_o, rays_d, frames, settings.exp_power,
+                              near, zfar, max_hits=max_hits, chunk=chunk,
+                              secondary=step > 0, **bf)
+            tdrop_ray = torch.full((R,), float("inf"), device=dev)
+        elif culling is not None:
             cands, cnear, _num, _ovf, tdrop = select_candidates(
                 rays_o, rays_d, culling["bounds"], near, zfar,
                 tile=culling["cull_tile"], max_clusters=culling["mc"])
@@ -849,6 +867,7 @@ def render_frame(
     cull_cluster: int = 256,
     max_clusters: int = 192,
     samples: TileSamples | None = None,
+    use_pallas: bool = True,
 ):
     """Full-frame non-fused render (raytracer.py:685-795).  Returns
     (StepOutputs [S, H*W, ...], final [H*W, 3]) in linear pixel order.
@@ -863,12 +882,15 @@ def render_frame(
     `samples` (TileSamples, us [T, S, tile, 2]) is drawn from `generator`
     when None.  As many tiles as tiles_per_launch_for allows go through one
     trace launch per bounce: each tile keeps its own samples and rays, so
-    this equals tile by tile.  `chunk` (the JAX brute trace's Gaussian
-    chunk) is not read: the kernel blocks the Gaussians its own way, which
-    does not change the result.  The port has no XLA tracer (the JAX
-    use_pallas=False path): its kernels, on the CPU their plain versions,
-    always trace."""
-    del chunk
+    this equals tile by tile.
+
+    use_pallas=True (the default) traces with the kernels (on the CPU their
+    plain versions); `chunk` is then not read, as the kernel blocks the
+    Gaussians its own way, which does not change the result.
+    use_pallas=False is the JAX use_pallas=False path: never culled (the
+    shape warning still comes where culling was asked for and the shapes do
+    not divide), the scene in its own order, traced by trace_rays in chunks
+    of `chunk` Gaussians (the capacity a multiple of it)."""
     full_f32_matmuls()
     R = width * height
     cull_tile = min(cull_tile, 256)
@@ -886,8 +908,8 @@ def render_frame(
                                  settings.exp_power,
                                  settings.global_scale_factor)
     dev = scene.xyz.device
-    culling = ray_perm = ray_inv = None
-    if use_culling:
+    culling = ray_perm = ray_inv = gpack = None
+    if use_culling and use_pallas:
         perm = morton_order(frames)
         frames, attrs = frames.take(perm), attrs.take(perm)
         culling = dict(bounds=cluster_bounds(frames, cull_cluster),
@@ -900,7 +922,8 @@ def render_frame(
             perm_np, inv_np = tile_pixel_order(height, width, th, tw)
             ray_perm = torch.as_tensor(perm_np, dtype=torch.int64, device=dev)
             ray_inv = torch.as_tensor(inv_np, dtype=torch.int64, device=dev)
-    gpack = pack_frames(frames, attrs).contiguous()
+    if use_pallas:
+        gpack = pack_frames(frames, attrs).contiguous()
 
     tile = min(tile, R)
     T = -(-R // tile)
@@ -932,7 +955,8 @@ def render_frame(
         steps, final, _ = render_tile(
             camera.origin.expand(n, 3), dirs_t[b0:b1].reshape(n, 3), gpack,
             attrs, settings, camera.znear, camera.zfar, us, num_bounces,
-            max_hits, exp_power_static=exp_power_static, culling=culling)
+            max_hits, exp_power_static=exp_power_static, culling=culling,
+            use_pallas=use_pallas, frames=frames, chunk=chunk)
         parts.append((steps, final))
     steps = StepOutputs(*(torch.cat([p[0][i] for p in parts], dim=1)[:, :R]
                           for i in range(len(StepOutputs._fields))))
@@ -959,7 +983,8 @@ def render_accumulated(
     """Mean of `spp` render_frame samples (raytracer.py:1531-1589); sample
     i draws from a generator seeded with fold_in(seed, key_offset + i), so
     host-side chunking (render_accumulated_chunked with fused=False)
-    reproduces the single-call stream.  The fused-path knobs
+    reproduces the single-call stream.  `use_pallas` and the other frame
+    options go to render_frame.  The fused-path knobs
     max_clusters_secondary and cull_tile_secondary are accepted, so one
     option set splats into either path, and ignored: the non-fused renderer
     culls every bounce with one cull tile and candidate budget."""
@@ -1224,10 +1249,13 @@ def render_tile_with_grads(
     targets: RayTargets, settings: RenderSettings, znear: float, zfar: float,
     us: torch.Tensor, num_bounces: int, max_hits: int, *, gpack,
     culling: dict | None = None, exp_power_static: float = 3.0,
-    grad_acc: torch.Tensor | None = None,
+    grad_acc: torch.Tensor | None = None, use_pallas: bool = True,
+    chunk: int = 2048,
 ):
     """Forward + loss-fused backward of a batch of rays on the non-fused
-    path (raytracer.py:335-376): render_tile keeping its residuals, then
+    path (raytracer.py:335-376): render_tile keeping its residuals (traced
+    by the kernels, or with use_pallas=False by trace_rays in chunks of
+    `chunk` Gaussians, gpack unread), then
     per bounce the hits' frames gathered by id (with the raw scene's
     rotation and activated scaling) and backward_step, and one scatter_add
     launch adding every bounce's per-hit gradients into the float64
@@ -1245,7 +1273,8 @@ def render_tile_with_grads(
     steps, final, residuals = render_tile(
         rays_o, rays_d, gpack, attrs, settings, znear, zfar, us, num_bounces,
         max_hits, exp_power_static=exp_power_static, culling=culling,
-        keep_residuals=True)
+        keep_residuals=True, use_pallas=use_pallas, frames=frames,
+        chunk=chunk)
     n = raw_scene.capacity
     scaling_act = rounded(torch.exp, raw_scene.scaling)
     for step, (hits, comp, attrs_d) in enumerate(residuals):

@@ -12,6 +12,9 @@
     a multiple of the cull tile, or with cfg.cull off) the non-fused step:
     the scene in its own order, one brute trace_hits launch per bounce and
     one gradient-scatter launch per batch of tiles (render_tile_with_grads);
+  * with use_pallas=False (the JAX step's default, its XLA tracer) the same
+    non-fused step traced by ops/trace.py trace_rays in plain PyTorch,
+    never culled, the scatter still one launch per batch of tiles;
   * pruning by accumulated total_weight clears live_mask and zeroes the
     pruned slots' Adam moments; on prune iterations the reference zeroes
     all gradients before the Adam step (apply_grads=0).
@@ -29,9 +32,7 @@ Randomness: the JAX step draws its jitter and GGX uniforms from a key; the
 port draws the same quantities (TileSamples) from a torch.Generator, or
 takes them from the caller, as the tests do to hand both the same numbers.
 
-Not ported yet, and raising: split_far, and use_pallas=False (the JAX
-package's XLA tracer; the port traces with its kernels, on the CPU with
-their plain versions).
+Not ported yet, and raising: split_far.
 """
 
 from __future__ import annotations
@@ -151,12 +152,10 @@ def prepare_render_inputs(scene: GaussianScene, settings: RenderSettings,
     the slots kernel's tables, all in the sorted layout.  Without culling
     the scene keeps its order: culling and gauss_perm are None.
 
+    use_pallas=False (the XLA tracer) needs no packed table and never
+    culls: (frames, attrs, None, None, scene, None), as in JAX.
+
     Returns (frames, attrs, gpack, culling, scene_for_bwd, gauss_perm)."""
-    if not use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False: the JAX package's XLA tracer (ops/trace.py "
-            "trace_rays) is not ported; the port traces with its kernels "
-            "(plain PyTorch versions on the CPU)")
     if split_far:
         raise NotImplementedError(
             "split_far=True: the two-pass near/far bounce (merge_slots and "
@@ -164,6 +163,8 @@ def prepare_render_inputs(scene: GaussianScene, settings: RenderSettings,
     frames, attrs = build_frames(scene, settings.alpha_threshold,
                                  settings.exp_power,
                                  settings.global_scale_factor)
+    if not use_pallas:
+        return frames, attrs, None, None, scene, None
     if not use_culling:
         return (frames, attrs, pack_frames(frames, attrs).contiguous(), None,
                 scene, None)
@@ -214,21 +215,18 @@ def tile_batch(origin, dirs_t, targets_t: RayTargets, us_t, b0: int,
     return origin.expand(B * tile, 3), rays_d, targets, us
 
 
-def grads_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
-                     camera: CameraParams, us_t, num_bounces: int,
-                     max_hits: int, exp_power_static: float, gpack,
-                     culling: dict | None, n_capacity: int,
-                     tiles_per_launch: int | None = None, *, frames=None,
-                     attrs=None, scene_for_bwd: GaussianScene | None = None):
-    """The forward + backward over [T, tile, ...] ray tiles, in batches of
-    `tiles_per_launch` tiles (module docstring; None: tiles_per_launch_for's
-    count): the fused path (render_tile_with_grads_fused) with `culling`,
-    else the non-fused brute path (render_tile_with_grads), which reads
-    `frames`, `attrs` and `scene_for_bwd` (prepare_render_inputs').
-
-    us_t [T, S, tile, 2] are each tile's GGX uniforms.  Returns (ParamGrads
-    summed over tiles, rounded once; l1_diffuse summed over rays; the sum
-    of the starved flags over bounces and rays)."""
+def accumulate_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
+                          camera: CameraParams, us_t, num_bounces: int,
+                          max_hits: int, exp_power_static: float, gpack,
+                          culling: dict | None, n_capacity: int,
+                          tiles_per_launch: int | None = None, *,
+                          frames=None, attrs=None,
+                          scene_for_bwd: GaussianScene | None = None,
+                          use_pallas: bool = True, chunk: int = 2048):
+    """grads_over_tiles before its rounding: (the [N, SCATTER_COLS] float64
+    gradient sums, the per-tile l1_diffuse sums [T] float64, the starved
+    flags' sum).  The ray-sharded step reduces these across its ranks and
+    rounds once, as one process does."""
     T, tile = dirs_t.shape[:2]
     dev = dirs_t.device
     if tiles_per_launch is None:
@@ -245,7 +243,7 @@ def grads_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
                 rays_o, rays_d, frames, attrs, scene_for_bwd, targets,
                 settings, camera.znear, camera.zfar, us, num_bounces,
                 max_hits, gpack=gpack, exp_power_static=exp_power_static,
-                grad_acc=acc)
+                grad_acc=acc, use_pallas=use_pallas, chunk=chunk)
         else:
             steps, _final, _ = render_tile_with_grads_fused(
                 rays_o, rays_d, targets, settings, camera.znear, camera.zfar,
@@ -260,8 +258,32 @@ def grads_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
         l1_tiles.append(per_ray.reshape(b1 - b0, tile).to(torch.float64)
                         .sum(1))
         starved.append(steps.overflow.to(torch.float64).sum())
-    l1 = torch.cat(l1_tiles).sum()
-    return grads_from_accumulator(acc), l1, torch.stack(starved).sum()
+    return acc, torch.cat(l1_tiles), torch.stack(starved).sum()
+
+
+def grads_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
+                     camera: CameraParams, us_t, num_bounces: int,
+                     max_hits: int, exp_power_static: float, gpack,
+                     culling: dict | None, n_capacity: int,
+                     tiles_per_launch: int | None = None, *, frames=None,
+                     attrs=None, scene_for_bwd: GaussianScene | None = None,
+                     use_pallas: bool = True, chunk: int = 2048):
+    """The forward + backward over [T, tile, ...] ray tiles, in batches of
+    `tiles_per_launch` tiles (module docstring; None: tiles_per_launch_for's
+    count): the fused path (render_tile_with_grads_fused) with `culling`,
+    else the non-fused path (render_tile_with_grads: the brute kernel, or
+    with use_pallas=False trace_rays in chunks of `chunk` Gaussians), which
+    reads `frames`, `attrs` and `scene_for_bwd` (prepare_render_inputs').
+
+    us_t [T, S, tile, 2] are each tile's GGX uniforms.  Returns (ParamGrads
+    summed over tiles, rounded once; l1_diffuse summed over rays; the sum
+    of the starved flags over bounces and rays)."""
+    acc, l1_tiles, starved = accumulate_over_tiles(
+        origin, dirs_t, targets_t, settings, camera, us_t, num_bounces,
+        max_hits, exp_power_static, gpack, culling, n_capacity,
+        tiles_per_launch, frames=frames, attrs=attrs,
+        scene_for_bwd=scene_for_bwd, use_pallas=use_pallas, chunk=chunk)
+    return grads_from_accumulator(acc), l1_tiles.sum(), starved
 
 
 def apply_updates(state: TrainState, grads: ParamGrads, lrs: dict,
@@ -327,9 +349,11 @@ def prepare_step(state: TrainState, camera: CameraParams,
     """Everything a step computes before its ray tiles: the scene's sorted
     tables, the samples, the primary rays and targets in pixel-tile order
     cut into [T, tile, ...] ray tiles.  Returns a dict of grads_over_tiles'
-    inputs plus gauss_perm (None when not culling)."""
+    inputs plus gauss_perm (None when not culling).  Culling needs
+    use_pallas, as in JAX."""
     scene = state.scene
     cull_tile = min(cull_tile, 256)
+    use_culling = use_culling and use_pallas
     frames, attrs, gpack, culling, scene_s, gauss_perm = (
         prepare_render_inputs(scene, settings, use_pallas, use_culling,
                               cull_tile, cull_cluster, max_clusters,
@@ -385,17 +409,17 @@ def train_step(
 ):
     """One training iteration (the JAX train_step's contract).
 
-    use_culling selects the fused kernel path (the JAX package's Pallas
-    culled backend), else the non-fused brute path (module docstring);
-    use_pallas=False (the XLA tracer) raises.  `chunk` (the JAX brute
-    trace's Gaussian chunk) is not read: the kernel blocks the Gaussians its
-    own way.  The step's randomness is `samples`, or drawn from `generator`
-    when that is None.
+    With use_pallas, use_culling selects the fused kernel path (the JAX
+    package's Pallas culled backend), else the non-fused brute path
+    (module docstring), whose kernel blocks the Gaussians its own way and
+    so does not read `chunk`.  use_pallas=False (the default, as in JAX) is
+    the JAX XLA tracer's step: never culled, traced by trace_rays in chunks
+    of `chunk` Gaussians.  The step's randomness is `samples`, or drawn
+    from `generator` when that is None.
 
     Returns (new TrainState, metrics) with metrics l1_diffuse (mean over
     rays) and starved (share of bounce x ray slots whose candidate list
     overflowed while the ray was still accumulating), 0-d tensors."""
-    del chunk
     prep = prepare_step(state, camera, targets, settings, generator, width,
                         height, num_bounces, tile, jitter, use_pallas,
                         use_culling, cull_tile, cull_cluster, max_clusters,
@@ -404,7 +428,8 @@ def train_step(
         camera.origin, prep["dirs_t"], prep["targets_t"], settings, camera,
         prep["us_t"], num_bounces, max_hits, exp_power_static, prep["gpack"],
         prep["culling"], state.scene.capacity, frames=prep["frames"],
-        attrs=prep["attrs"], scene_for_bwd=prep["scene_for_bwd"])
+        attrs=prep["attrs"], scene_for_bwd=prep["scene_for_bwd"],
+        use_pallas=use_pallas, chunk=chunk)
     if prep["gauss_perm"] is not None:
         # grads are in the Morton-sorted layout; back to the scene's slots
         grads = grads.take(torch.argsort(prep["gauss_perm"]))
@@ -435,10 +460,14 @@ def prune_step(state: TrainState, kill: torch.Tensor) -> TrainState:
 
 def use_pallas_backend(cfg: Config) -> bool:
     """Whether the step traces with the kernels (the JAX package's Pallas
-    backend; JAX training.py:395-403): True for every cfg.backend.  The
-    port never selects use_pallas=False, the JAX package's XLA tracer,
-    which it does not have; `step_culls` says which kernel path runs, as
-    default_backend_kwargs does for frames (renderer/render.py)."""
+    backend; JAX training.py:395-403): True for every cfg.backend.  A
+    Config never selects use_pallas=False, the XLA tracer's twin
+    (ops/trace.py trace_rays): backend "xla" runs the brute trace_hits
+    kernel instead, which traces every Gaussian as JAX's XLA tracer does
+    (`step_culls` says which kernel path runs, as default_backend_kwargs
+    does for frames, renderer/render.py).  The plain tracer runs where a
+    caller passes use_pallas=False and in the Gaussian-sharded modes
+    (parallel/gaussian_sharded.py)."""
     del cfg
     return True
 

@@ -387,7 +387,7 @@ def test_psnr_and_image_grid_match_jax(jax_ref, tmp_path):
     ("auto", False, False), ("pallas", False, False)])
 def test_use_pallas_backend_mapping(backend, cull, culls):
     cfg = Config(backend=backend, cull=cull)
-    # the kernels trace on every backend: never the XLA tracer, which raises
+    # the kernels trace on every backend: a Config never picks the XLA tracer
     assert ttr.use_pallas_backend(cfg) is True
     assert ttr.step_culls(cfg) is culls
 

@@ -529,16 +529,16 @@ def test_settings_from_config():
 
 
 def test_unported_paths_raise(jax_ref):
-    """The XLA tracer (use_pallas=False) and split_far raise; the non-fused
-    step (use_culling=False, ported since: tests/test_torch_render_tile.py
-    holds it against JAX) steps."""
-    with pytest.raises(NotImplementedError, match="XLA tracer"):
-        _port_step(jax_ref, use_pallas=False)
+    """split_far raises; the non-fused step (use_culling=False, ported
+    since: tests/test_torch_render_tile.py holds it against JAX) and the
+    XLA tracer's step (use_pallas=False, ported since:
+    tests/test_torch_trace_rays.py holds it against JAX) step."""
     with pytest.raises(NotImplementedError, match="split_far"):
         _port_step(jax_ref, split_far=True)
-    new, metrics = _port_step(jax_ref, use_culling=False)
-    assert new.count == 1 and np.isfinite(metrics["l1_diffuse"].item())
-    assert (new.total_weight > 0).any()
+    for kw in (dict(use_culling=False), dict(use_pallas=False)):
+        new, metrics = _port_step(jax_ref, **kw)
+        assert new.count == 1 and np.isfinite(metrics["l1_diffuse"].item())
+        assert (new.total_weight > 0).any()
 
 
 def test_entry_points_default_to_the_card():
