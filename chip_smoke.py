@@ -212,7 +212,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
      others first part and how far apart the steps before it are; fails
      unless step 0 (the same tiles in both) is within on every ray and, at
      threshold 0 (no ray saturates, so no tile's early exit moves one),
-     PAR_FRAME_MIN_SHARE of the final frame is; sharded_render(use_pallas,
+     every ray is that neither frame capped at K; sharded_render(use_pallas,
      use_culling) on phase 11's 1365x768 frame at 1 bounce on 3 ranks,
      equal to render_frame.  (c) tools/demo_5m.py at its defaults: 5M
      Gaussians padded by shard_scene on 4 ranks, one step, one trace of
@@ -231,6 +231,34 @@ Phases, one line each (any failure raises and the script exits non-zero):
      NCCL: bit-equal
      to train_step.  (f) a DP step and a 2D-mesh step at 32x32 on card
      ranks and on CPU ranks: equal.  No failure is caught.
+ 22. split-far (two passes a bounce: hits before each ray's exit from the
+     split sphere, then those beyond it), on scenes carrying train.py's
+     far-field shell (with_shell: Config init_num_pts_farfield appended as
+     phase 18's injection appends it).  (a) the fused training step at
+     768x768 on the 175k room + shell, Config defaults (the candidate
+     budget grown as train.py grows it at the injection), split_far with
+     mc_far 32 and K_far 16: ms a step beside one pass (both timed with
+     nothing patched), starved, peak GB, finite state, the slots kernel's
+     launches by window and the scatter's (K + K_far slots a ray); on the
+     step's first batch, starved near / far / whole (fused_forward's
+     SplitCalls), every bounce's per-ray outputs against one pass within
+     SPLIT_RTOL / SPLIT_ATOL where they are equal by construction
+     (split_mask: neither starved, no pass's slots all full,
+     unsaturated), and scatter_grads on its 48-slot payload against its
+     plain version by phase 5's rule.  (b) the 800x800 eval frame of
+     bench.py's room + shell, k-buffer and scanq, split and not: ms,
+     starved by pass (split_bounce's per-pass flags, from an untimed
+     frame), launches by window, the same per-ray check (required for the
+     k-buffer; the scan composites in streaming order, so scanq's is
+     reported) and PSNR.  (c) trace_slots, render_culled and render_scan
+     in window modes 1 and 2 (the near and far passes of bounces 0 and 1
+     of (a) and (b)) against their plain versions on each pass's
+     CHECK_TILES tiles that walked the most pairs (at least
+     WINDOW_MIN_PAIRS): trace_slots by phase 5's rule with max abs err 0,
+     the render kernels bit for bit.  (d) the DP split step on 2
+     ranks at SPLIT_DP_SIDE against train_step, by phase 21 (a)'s rule.
+     (e) tools/probe_cand_stats.py at its defaults: candidates a tile by
+     tile size, repaired and parent cull.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -286,6 +314,7 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.layout import (
     SLOT_ID,
     SLOT_T,
     TABLE_A,
+    unpack_composite,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.bench_dtype import (
     DTYPES,
@@ -332,9 +361,11 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_hits import (
     trace_hits_reference,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.trace_slots import (
+    slots_resident_fits,
     trace_slots,
     trace_slots_reference,
 )
+from editable_gaussian_reflections_tpu_torch.ops import culling
 from editable_gaussian_reflections_tpu_torch.ops.camera_rays import (
     primary_ray_directions,
 )
@@ -345,6 +376,7 @@ from editable_gaussian_reflections_tpu_torch.parallel.gaussian_sharded import (
 )
 from editable_gaussian_reflections_tpu_torch.parallel.mesh import spawn
 from editable_gaussian_reflections_tpu_torch.parallel.ranks import (
+    capped_flags,
     host_inputs,
     moved,
     random_targets,
@@ -388,6 +420,7 @@ from editable_gaussian_reflections_tpu_torch.scene.gaussian_scene import (
 )
 from editable_gaussian_reflections_tpu_torch.scene.dataset_readers import (
     get_dataset,
+    getNerfppNorm,
 )
 from editable_gaussian_reflections_tpu_torch.scene.scene import Scene
 from editable_gaussian_reflections_tpu_torch.viewer import service as tservice
@@ -403,6 +436,9 @@ from editable_gaussian_reflections_tpu_torch.tools import (
     bench_v5,
     bench_vpu_dtype,
     demo_5m,
+)
+from editable_gaussian_reflections_tpu_torch.tools import (
+    probe_cand_stats as tprobe,
 )
 from editable_gaussian_reflections_tpu_torch.tools import prior_setup as tprior
 from editable_gaussian_reflections_tpu_torch.tools import (
@@ -425,6 +461,7 @@ from editable_gaussian_reflections_tpu_torch.tools.fused_setup import (
     eval_frame,
     fast_path,
     first_two_passes,
+    orbit_views,
     profile_device,
     time_frames,
     time_steps,
@@ -620,12 +657,13 @@ PAR_FRAME_PSNR = 30.0        # dB, sharded against single-process frame
 # share a tile moves a ray (tools/shard_tiling.py replays them): a tile
 # votes to exit once all its rays are saturated, a saturated ray is not
 # flagged starved when the cap cut its list, and the tile-cone cull drops
-# clusters a ray of the tile sees (ROADMAP Queue 3).  The Config's
-# threshold and 1e-8 are printed; at 0 no ray saturates, and at least
-# PAR_FRAME_MIN_SHARE of the rays must be within (99.9846% measured on
-# an H100 80GB HBM3 at 700 W)
+# clusters a ray of the tile sees (repaired: ops/culling.py).  The
+# Config's threshold and 1e-8 are printed; at 0 no ray saturates, and
+# every ray must be within that neither frame capped at K: a ray whose K
+# slots filled composites a truncated tail from full_T, which counts hits
+# up to where its tile's walk stops, and its tile's members decide that
+# (ranks.capped_flags marks them)
 PAR_FRAME_THRESHOLDS, PAR_FRAME_TOL = (1e-8, 0.0), 1e-5
-PAR_FRAME_MIN_SHARE = 0.9995
 # the DP state against train_step's, per element (float32 resolution)
 PAR_STATE_RTOL, PAR_STATE_ATOL = 1e-6, 1e-12
 PAR_NF_RANKS, PAR_NF_BOUNCES = 3, 1
@@ -753,6 +791,41 @@ def scan_flops(rays_o, pairs_per_ray, tile: int, mode: str) -> float:
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if isinstance(t, torch.Tensor))
+
+
+def scatter_numbers(where: str, payload, ids, cap: int, dev) -> dict:
+    """scatter_add on (payload, ids) against scatter_add_reference: max abs
+    err within 1e-6 of the reference's largest value, the same zeros,
+    finite (fails otherwise); the kernel's, the plain version's and
+    index_add_'s ms, and the bound."""
+    acc_k = scatter_add(new_grad_accumulator(cap, dev), payload, ids)
+    acc_r = scatter_add_reference(new_grad_accumulator(cap, dev), payload,
+                                  ids)
+    a32, r32 = acc_k.to(torch.float32), acc_r.to(torch.float32)
+    scale = max(1e-30, r32.abs().max().item())
+    err = (a32 - r32).abs().max().item()
+    if not (err <= 1e-6 * scale and torch.equal(a32 == 0, r32 == 0)
+            and bool(torch.isfinite(a32).all())):
+        raise RuntimeError(f"{where}: scatter_grads disagrees with its plain "
+                           f"version: max abs err {err}, scale {scale}")
+    ms = cuda_ms(lambda: scatter_add(acc_k, payload, ids), reps=3)
+    plain_ms = cuda_ms(lambda: scatter_add_reference(acc_r, payload, ids),
+                       reps=1, warmup=0)
+    keep = ids >= 0
+    idx, vals = ids[keep].to(torch.int64), payload[keep].to(torch.float64)
+    lib_ms = cuda_ms(lambda: acc_r.index_add_(0, idx, vals), reps=3)
+    nnz = int(((payload != 0) & keep[:, None]).sum().item())
+    # the bytes the function needs: every id, the payload of the rows with
+    # a valid id only (the kernel skips the others unread), the float64
+    # accumulator read and written
+    n_hits = int(keep.sum().item())
+    bound_ms, bound_by = bound(
+        nnz, PEAK_FP64, n_hits * payload.shape[1] * payload.element_size()
+        + nbytes(ids) + 2 * nbytes(acc_k))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                max_abs_err=err, scale=scale, hits=n_hits,
+                rows=ids.shape[0], nonzero_values=nnz, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def compare_slots(slots, acc, ref_slots, ref_acc, K) -> dict:
@@ -3009,14 +3082,17 @@ def shard_calls_line(checks: list) -> str:
             f"{fmt_list([x['plain_ms'] for x in checks], '.0f')})")
 
 
-def frame_parts(sharded: dict, steps, final, settings) -> dict:
+def frame_parts(sharded: dict, steps, final, settings,
+                capped=None) -> dict:
     """A sharded fused frame (numpy, from the ranks) against the single
     process's (StepOutputs, final) on the same samples, where neither
     starved: the share of rays whose final is within PAR_FRAME_TOL, bit
     for bit, the largest error; and per step (bounce) the share within
     PAR_FRAME_TOL on every output, and for the rays outside, the step at
     which they first part ("final" if no step does) and the largest
-    difference of any output in the steps before it."""
+    difference of any output in the steps before it.  With `capped` [R]
+    (the rays either frame capped at K: capped_flags), the rays outside
+    that neither capped."""
     dev = final.device
     sf = torch.tensor(sharded["final"], device=dev)
     s_steps = {k: torch.tensor(v, device=dev)
@@ -3067,7 +3143,10 @@ def frame_parts(sharded: dict, steps, final, settings) -> dict:
             ("final" if k == S else f"step {k}"): int((first == k).sum())
             for k in range(S + 1) if int((first == k).sum())},
         outside_prior_max_diff=float(prior.max()) if prior.numel() else 0.0,
-        outside_prior_equal=int((prior == 0).sum()))
+        outside_prior_equal=int((prior == 0).sum()),
+        capped=None if capped is None else int((ok & capped).sum()),
+        outside_uncapped=(None if capped is None
+                          else int((out_rays & ~capped).sum())))
 
 
 def parts_line(x: dict) -> str:
@@ -3079,7 +3158,10 @@ def parts_line(x: dict) -> str:
             f"{x['first_step_equal']:.4%}); the {x['outside']} rays outside "
             f"first part at {x['outside_first_parting']}, the steps before "
             f"it at most {x['outside_prior_max_diff']:.3g} apart (bit-equal "
-            f"for {x['outside_prior_equal']})")
+            f"for {x['outside_prior_equal']})"
+            + ("" if x["capped"] is None else
+               f"; {x['capped']} rays not starved kept K hits in either "
+               f"frame, {x['outside_uncapped']} outside among the others"))
 
 
 def small_jobs(cfg, settings) -> tuple:
@@ -3172,7 +3254,10 @@ def phase_parallel(dev, record, smi) -> dict:
         ("render_fused", frame_in, dict(width=fside, height=fside, repeat=2,
                                         **frame_kw))] + [
         ("render_fused", dict(frame_in, settings=st),
-         dict(width=fside, height=fside, **frame_kw)) for st in settings_lo])
+         dict(width=fside, height=fside, **frame_kw,
+              **({"capped_at": frame_kw["max_hits"]}
+                 if st.transmittance_threshold == 0.0 else {})))
+        for st in settings_lo])
     spawn_ab_s = time.perf_counter() - t0
     del step_in, frame_in
     one = tr.train_step(state, camera, targets, settings, lrs, hyper, None,
@@ -3246,17 +3331,28 @@ def phase_parallel(dev, record, smi) -> dict:
         psnr_all=psnr_all, psnr_starved=psnr_rest,
         starved_sharded=starved[0], starved_single=starved[1],
         thresholds=[frame_parts(fused, steps1, final1, settings)])
+    ray_inv = torch.as_tensor(culling.tile_pixel_order(fside, fside, 16,
+                                                       16)[1],
+                              dtype=torch.int64, device=dev)
     for st, sharded in zip(settings_lo, fused_lo):
-        steps_lo, final_lo = render_frame_fused(
-            frame_scene, frame_cam, st, None, fside, fside,
-            samples=moved(frame_samples, dev), **frame_kw)
+        capped = None
+        (steps_lo, final_lo), caps = capped_flags(
+            lambda: render_frame_fused(
+                frame_scene, frame_cam, st, None, fside, fside,
+                samples=moved(frame_samples, dev), **frame_kw),
+            frame_kw["max_hits"])
+        if "capped" in sharded:
+            # the rays either frame capped at K, in linear pixel order
+            n = fside * fside
+            caps = caps[:, :n] | torch.tensor(
+                np.concatenate(sharded["capped"], axis=1)[:, :n], device=dev)
+            capped = caps.any(dim=0)[ray_inv]
         res["b_fused"]["thresholds"].append(
-            frame_parts(sharded, steps_lo, final_lo, st))
-        del steps_lo, final_lo
+            frame_parts(sharded, steps_lo, final_lo, st, capped))
+        del steps_lo, final_lo, caps
     parts = res["b_fused"]["thresholds"]
     bad = [x for x in parts if not x["finite"] or x["first_step_outside"]
-           or (x["threshold"] == 0.0
-               and x["within_tol"] < PAR_FRAME_MIN_SHARE)]
+           or (x["threshold"] == 0.0 and x["outside_uncapped"])]
     if bad:
         raise RuntimeError(
             f"phase 21 (b): the sharded frame parts from render_frame_fused's "
@@ -3512,6 +3608,513 @@ def phase_parallel(dev, record, smi) -> dict:
           f"{phase_s:.1f} s; launches "
           f"over the phase (every rank) {res['launches']} [{smi}]",
           flush=True)
+    return res
+
+
+# -- phase 22: split-far ----------------------------------------------------
+
+# the scenes carry train.py's far-field shell (Config init_num_pts_farfield,
+# appended as phase 18's injection appends it); the step at TRAIN_W, the
+# eval frame at SPLIT_FRAME_SIDE; split-far at the far pass's Config budget
+# (mc_far 32, max_hits_far 0: K 16 a far pass of the step, the near K a
+# far pass of the frame)
+SPLIT_FRAME_SIDE, SPLIT_FRAME_N = 800, 100_000
+N_TIMED_SPLIT = 2
+# the per-ray check of split against one pass: rtol, atol, and the fewest
+# rays it must compare (split_mask) for the check to count
+SPLIT_RTOL, SPLIT_ATOL = 1e-5, 1e-6
+SPLIT_MIN_RAYS = 1000
+# the fields of StepOutputs it compares (each bounce) beside the final
+SPLIT_FIELDS = ("rgb", "normal", "f0", "roughness", "depth", "transmittance",
+                "total_transmittance")
+# (c): the fewest (ray, Gaussian) pairs the checked tiles of a windowed
+# pass must walk (the busiest CHECK_TILES tiles of every pass walk 5.4e8
+# (far) to 5.4e9 (near, bounce 1) on H100 80GB HBM3, 700 W)
+WINDOW_MIN_PAIRS = 2.5e8
+# (d): the DP split step on 2 ranks at this side
+SPLIT_DP_SIDE = 256
+
+
+def with_shell(scene, cfg: Config, dev, seed: int = 0):
+    """`scene` with train.py's far-field shell appended: farfield_arrays on
+    the orbit views (4 train + 1 test at TRAIN_W, phase 18's), their extent
+    and znears, padded to lcm(trace_chunk, cull_cluster) as the culled loop
+    pads it.  Returns (scene, shell rows)."""
+    views = orbit_views(5, TRAIN_W, TRAIN_H)
+    extent = float(getNerfppNorm(views)["radius"])
+    centers = [v.camera_center for v in views[:4]]
+    znears = [v.znear for v in views[:4]]
+    new = tinit.farfield_arrays(cfg, extent, centers, znears,
+                                np.random.default_rng(seed), device=dev)
+    pad = math.lcm(cfg.trace_chunk, cfg.cull_cluster)
+    return tinit.append_points(scene, new, pad_multiple=pad), len(new["xyz"])
+
+
+def split_mask(single, split, capped, thr) -> torch.Tensor:
+    """[R] the rays on which the split equals the single pass by
+    construction: neither starved at any bounce, no pass kept as many hits
+    as it has slots (`capped`: a pass dropped hits the other kept), and the
+    single pass unsaturated at every bounce it ran (a saturated ray stops
+    compositing at the combined transmittance in one pass and at the far
+    pass's own in two, and its full_T counts hits up to its tile's exit)."""
+    ok = ((single.overflow == 0) & (split.overflow == 0)).all(dim=0)
+    ok &= ~capped
+    live = single.alive > 0
+    ok &= ((single.transmittance > thr) | ~live).all(dim=0)
+    return ok
+
+
+def split_parts(single, split, final_1, final_2, mask) -> dict:
+    """The share of rays compared (`mask`), and on them every field of
+    every bounce and the final within SPLIT_RTOL / SPLIT_ATOL: the rays
+    outside (at most 10 listed) and the largest difference."""
+    bad = torch.zeros_like(mask)
+    worst = 0.0
+    for f in SPLIT_FIELDS:
+        a, b = getattr(split, f), getattr(single, f)
+        d = (a - b).abs()
+        far = d > SPLIT_ATOL + SPLIT_RTOL * b.abs()
+        bad |= far.reshape(far.shape[0], far.shape[1], -1).any(dim=2).any(0)
+        worst = max(worst, float(d[:, mask].max()) if mask.any() else 0.0)
+    d = (final_2 - final_1).abs()
+    bad |= (d > SPLIT_ATOL + SPLIT_RTOL * final_1.abs()).any(dim=1)
+    bad &= mask
+    return dict(compared=float(mask.float().mean()),
+                compared_rays=int(mask.sum()), outside=int(bad.sum()),
+                outside_rays=torch.nonzero(bad).flatten()[:10].tolist(),
+                max_abs_diff=worst)
+
+
+def timed(fn, n: int) -> tuple:
+    """(ms per call over n calls after one warm-up, the last result, peak
+    GB), synchronized."""
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = fn()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / n * 1e3, out,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def window_counts() -> list:
+    """[trace_slots, render_culled, render_scan] launches by window mode."""
+    return [k.launches_by_window[:]
+            for k in (trace_slots, render_culled, render_scan)]
+
+
+def reset_window_counts() -> None:
+    for k in (trace_slots, render_culled, render_scan):
+        k.launches_by_window[:] = [0, 0, 0]
+
+
+def busiest_tiles(call, n_tiles: int, work, cand_pos=(3, 4)):
+    """(args, kwargs) of a kernel call cut to the `n_tiles` ray tiles with
+    the most `work` [tiles] (in call order), and the tiles kept: the kernels
+    treat tiles independently, so the rows of the cut call equal those
+    tiles' rows of the whole one."""
+    tile = call.kwargs["tile"]
+    keep = torch.topk(work, min(n_tiles, work.numel())).indices.sort().values
+    rows = (keep[:, None] * tile
+            + torch.arange(tile, device=keep.device)).flatten()
+    args = list(call.args)
+    for i in (0, 1):
+        args[i] = args[i][rows]
+    for i in cand_pos:
+        args[i] = args[i][keep]
+    kwargs = dict(call.kwargs)
+    for k in ("alive", "t_split"):
+        if kwargs.get(k) is not None:
+            kwargs[k] = kwargs[k][rows]
+    return args, kwargs, keep
+
+
+def check_window_pass(kernel, reference, call, what, K=None) -> dict:
+    """A windowed pass's kernel against its plain version on the
+    CHECK_TILES tiles of the pass that walked the most (ray, Gaussian)
+    pairs (phase 5's rule for trace_slots: ids and counters equal on every
+    ray, max abs err 0; bit for bit for the render kernels), with the
+    whole pass timed.  Fails unless those tiles walked WINDOW_MIN_PAIRS."""
+    ms = cuda_ms(lambda: kernel(*call.args, **call.kwargs), reps=2)
+    tile = call.kwargs["tile"]
+    is_slots = kernel is trace_slots
+    whole = kernel(*call.args, **call.kwargs)
+    trav = whole[1][:, 1] if is_slots else whole[:, OUT_TRAV]
+    work = trav.reshape(-1, tile).sum(dim=1)
+    del whole, trav
+    args, kw, keep = busiest_tiles(call, CHECK_TILES, work,
+                                   cand_pos=(5, 6) if is_slots else (3, 4))
+    pairs = float(work[keep].sum())
+    out = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = reference(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if is_slots:
+        cmp = compare_slots(out[0], out[1], ref[0], ref[1], K)
+        print_differing(f"phase 22 (c) {what}", cmp)
+        if cmp["counters_equal"] < 1.0 or cmp["max_abs_err"] != 0.0:
+            raise RuntimeError(f"phase 22 (c) {what}: the kernel parts "
+                               f"from its plain version: {cmp}")
+    else:
+        cmp = compare_lanes(out, ref)
+        if cmp["bit_equal"] < 1.0:
+            for line in differing_lanes(out, ref):
+                print(f"phase 22 (c) {what}: {line}", flush=True)
+            raise RuntimeError(f"phase 22 (c) {what}: the kernel parts "
+                               f"from its plain version: {cmp}")
+    if pairs < WINDOW_MIN_PAIRS:
+        raise RuntimeError(f"phase 22 (c) {what}: the checked tiles walked "
+                           f"{pairs:.4g} pairs, under {WINDOW_MIN_PAIRS:g}")
+    return dict(cmp, ms=ms, plain_ms=plain_ms, plain_rays=len(keep) * tile,
+                window=kw["window_mode"], rays=call.args[0].shape[0],
+                checked_pairs=pairs, pass_pairs=float(work.sum()))
+
+
+def phase_split(dev, record, smi) -> dict:
+    """Phase 22: split-far on the card (module docstring)."""
+    t_phase = time.perf_counter()
+    cfg = Config()
+    settings = tr.settings_from_config(cfg)
+    thr = settings.transmittance_threshold
+    res = {}
+
+    # (a) the fused training step on the 175k room with the shell
+    side = TRAIN_W
+    R = side * side
+    tile = tr.pick_tile_size(R, cfg.ray_tile)
+    scene_t, camera = room(TRAIN_N, dev, seed=0)
+    gb, _ = render_frame_fused(scene_t, camera, settings,
+                               torch.Generator(device=dev).manual_seed(3),
+                               side, side, num_bounces=2, **FRAME_KW)
+    targets = RayTargets(diffuse=gb.rgb[0], specular=gb.rgb[1] + gb.rgb[2],
+                         depth=gb.depth[0], normal=gb.normal[0],
+                         roughness=gb.roughness[0], f0=gb.f0[0])
+    del scene_t, gb
+    base = room(TRAIN_N, dev, seed=1)[0]
+    scene0, n_shell = with_shell(base, cfg, dev)
+    cap = scene0.capacity
+    if not slots_resident_fits(cap):
+        raise RuntimeError(f"phase 22: capacity {cap} is not resident: the "
+                           "step would not split")
+    mc = ttrain.grown_budget(cfg.max_clusters, cap, base.capacity)
+    del base
+    state = tr.init_train_state(scene0)
+    lrs = tr.lr_tree(cfg, 1, 1.0)
+    hyper = dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
+                 scale_decay=cfg.scale_decay, apply_grads=1.0)
+    K = cfg.max_hits
+    Kf = rt.far_hits(K, cfg.max_hits_far)
+    split_kw = dict(split_far=True, mc_far=cfg.mc_far,
+                    max_hits_far=cfg.max_hits_far,
+                    split_radius_scale=cfg.split_radius_scale)
+    step_kw = dict(num_bounces=2, max_hits=K, chunk=cfg.trace_chunk,
+                   tile=tile, use_pallas=True,
+                   exp_power_static=float(cfg.exp_power), use_culling=True,
+                   cull_tile=cfg.cull_tile, cull_cluster=cfg.cull_cluster,
+                   max_clusters=mc)
+    samples = draw_tile_samples(torch.Generator().manual_seed(4), side, side,
+                                tile, 3)
+    s_dev = moved(samples, dev)
+
+    def step(**kw):
+        return tr.train_step(state, camera, targets, settings, lrs, hyper,
+                             None, side, side, samples=s_dev,
+                             **dict(step_kw, **kw))
+
+    reset_window_counts()
+    trace_slots.launches = scatter_add.launches = 0
+    split_ms, (st2, m2), split_peak = timed(lambda: step(**split_kw),
+                                            N_TIMED_SPLIT)
+    counts = window_counts()
+    sc_launches = scatter_add.launches
+    if counts[0][1] == 0 or counts[0][2] == 0 or counts[0][0] or \
+            sc_launches == 0:
+        raise RuntimeError(f"phase 22 (a): the split step launched "
+                           f"trace_slots by window {counts[0]}, "
+                           f"scatter_grads {sc_launches} times")
+    single_ms, (st1, m1), single_peak = timed(lambda: step(), N_TIMED_SPLIT)
+    if not (state_finite(st2) and state_finite(st1)):
+        raise RuntimeError("phase 22 (a): non-finite state")
+
+    # the per-ray check on the step's first batch of tiles (the main path's
+    # own launch): fused_forward split and not, on the same rays
+    prep = tr.prepare_step(state, camera, targets, settings, None, side,
+                           side, 2, tile, True, True, True, cfg.cull_tile,
+                           cfg.cull_cluster, mc, samples=s_dev, **split_kw)
+    n_tiles = prep["dirs_t"].shape[0]
+    tpl = tr.tiles_per_launch_for(n_tiles, tile, 3, K + Kf, dev)
+    rays_o, rays_d, tg, us = tr.tile_batch(
+        camera.origin, prep["dirs_t"], prep["targets_t"], prep["us_t"], 0,
+        tpl)
+    cull = prep["culling"]
+    fkw = dict(gpack=prep["gpack"], table=cull["table"],
+               ftable=cull["ftable"], bounds=cull["bounds"],
+               cull_tile=cfg.cull_tile, cull_cluster=cfg.cull_cluster,
+               max_clusters=mc, n_capacity=cap,
+               exp_power_static=float(cfg.exp_power), tile_rays=tile)
+    s1, f1, r1, _c1 = rt.fused_forward(rays_o, rays_d, settings, ZNEAR, ZFAR,
+                                       us, 2, K, **fkw)
+    s2, f2, r2, calls2 = rt.fused_forward(rays_o, rays_d, settings, ZNEAR,
+                                          ZFAR, us, 2, K, **fkw, **split_kw)
+    # each pass's starved share on this batch, over its bounces
+    by_pass = dict(
+        near=float(np.mean([float(c.starved_near.float().mean())
+                            for c in calls2])),
+        far=float(np.mean([float(c.starved_far.float().mean())
+                           for c in calls2])),
+        whole=float(s2.overflow.float().mean()))
+    capped = torch.zeros(rays_o.shape[0], dtype=torch.bool, device=dev)
+    for (h1, *_), (h2, *_) in zip(r1, r2):
+        capped |= h1.valid[:, :K].all(dim=1)
+        capped |= h2.valid[:, :K].all(dim=1) | h2.valid[:, K:].all(dim=1)
+    del r1
+    parts_a = split_parts(s1, s2, f1, f2, split_mask(s1, s2, capped, thr))
+    if parts_a["outside"] or parts_a["compared_rays"] < SPLIT_MIN_RAYS:
+        raise RuntimeError(f"phase 22 (a): the split step parts from the "
+                           f"single pass: {parts_a}")
+    # the scatter on this batch's split payload (K + K_far slots a ray)
+    # against its plain version, by phase 5's rule
+    payload, ids = rt.hit_grads(s2, r2, tg, settings, 2, cap)
+    sc = scatter_numbers("phase 22 (a)", payload, ids, cap, dev)
+    del payload, ids, r2
+    res["a"] = dict(
+        ms=split_ms, single_ms=single_ms, peak_gb=split_peak,
+        single_peak_gb=single_peak, starved=float(m2["starved"]),
+        single_starved=float(m1["starved"]),
+        batch_starved_near=by_pass["near"], batch_starved_far=by_pass["far"],
+        batch_starved=by_pass["whole"], l1=float(m2["l1_diffuse"]),
+        l1_single=float(m1["l1_diffuse"]), capacity=cap, shell=n_shell,
+        max_clusters=mc, K=K, K_far=Kf, launches_near=counts[0][1],
+        launches_far=counts[0][2], scatter_launches=sc_launches,
+        batch_rays=rays_o.shape[0], scatter=sc, **parts_a)
+    print(f"phase 22 (a): split-far training step {side}x{side}, "
+          f"room_scene({TRAIN_N}) + the far-field shell ({n_shell} rows, "
+          f"capacity {cap}), Config defaults, candidates {mc} (grown as "
+          f"train.py grows them at the injection), mc_far {cfg.mc_far}, K "
+          f"{K} + K_far {Kf}: {split_ms:.1f} ms/step (one pass "
+          f"{single_ms:.1f}); starved {float(m2['starved']):.4%} (one pass "
+          f"{float(m1['starved']):.4%}); peak {split_peak:.1f} GB (one pass "
+          f"{single_peak:.1f}); state finite; launches trace_slots near "
+          f"{counts[0][1]}, far {counts[0][2]}, scatter_grads {sc_launches}"
+          f" (K + K_far = {K + Kf} slots a ray); on the first batch "
+          f"({rays_o.shape[0]} rays) starved near {by_pass['near']:.4%}, far "
+          f"{by_pass['far']:.4%}, whole {by_pass['whole']:.4%}; against one "
+          f"pass there: {parts_a['compared']:.2%} compared (not starved, no "
+          f"pass full, unsaturated), {parts_a['outside']} outside "
+          f"{SPLIT_RTOL:g} rel + {SPLIT_ATOL:g}, largest difference "
+          f"{parts_a['max_abs_diff']:.3g}; scatter_grads on its "
+          f"{sc['rows']} slots ({sc['hits']} hits) {sc['ms']:.3f} ms (plain "
+          f"{sc['plain_ms']:.3f}, index_add_ {sc['library_ms']:.3f}, bound "
+          f"{sc['bound_ms']:.3f} by {sc['bound_by']}), max abs err "
+          f"{sc['max_abs_err']:.3g} of scale {sc['scale']:.3g}, zeros "
+          f"equal [{smi}]", flush=True)
+
+    # (c) trace_slots in window modes 1 and 2 against its plain version:
+    # the near and far pass of bounces 0 and 1 of that batch
+    res["c"] = {}
+    for b in (0, 1):
+        for call, name in ((calls2[b].near, "near"), (calls2[b].far, "far")):
+            k = call.kwargs["max_hits"]
+            res["c"][f"trace_slots {name} {b}"] = check_window_pass(
+                trace_slots, trace_slots_reference, call,
+                f"trace_slots {name} pass, bounce {b}", K=k)
+    del s1, s2, f1, f2, calls2, prep, state, st1, st2, targets
+    torch.cuda.empty_cache()
+
+    # (b) the eval frame (bench.py's room + the shell), k-buffer and scanq
+    fside = SPLIT_FRAME_SIDE
+    fscene, fcam = room(SPLIT_FRAME_N, dev)
+    fscene, fshell = with_shell(fscene, cfg, dev)
+    fsamples = draw_samples(torch.Generator(device=dev).manual_seed(5),
+                            fside, fside, 3)
+    ray_inv = torch.as_tensor(culling.tile_pixel_order(fside, fside, 16,
+                                                       16)[1],
+                              dtype=torch.int64, device=dev)
+    res["b"] = {}
+    frame_calls = {}
+    for mode in ("kbuffer", "scanq"):
+        kw = dict(num_bounces=2, samples=fsamples, composite_mode=mode,
+                  **FRAME_KW)
+        kernel = render_culled if mode == "kbuffer" else render_scan
+        Kp = FRAME_KW["max_hits"]
+        single_caps, split_caps, pass_starved = [], [], []
+        real_epi, real_split = rt.bounce_epilogue, rt.split_bounce
+
+        def epi(out, call, *a, **k):
+            comp = unpack_composite(rt.canonical(out, call))
+            single_caps.append(comp["num_accumulated"] >= Kp)
+            return real_epi(out, call, *a, **k)
+
+        def spl(*a, **k):
+            comp, starved, (cn, cf) = real_split(*a, **k)
+            split_caps.append((cn["num_accumulated"] >= Kp)
+                              | (cf["num_accumulated"] >= Kp))
+            pass_starved.append((float(cn["starved"].float().mean()),
+                                 float(cf["starved"].float().mean())))
+            return comp, starved, (cn, cf)
+
+        def calls_of(fn):
+            seen, real = [], rt.kernel_call
+
+            def rec(*a, **k):
+                c = real(*a, **k)
+                seen.append(c)
+                return c
+            with mock.patch.object(rt, "kernel_call", rec):
+                out = fn()
+            return out, seen
+
+        ms1, (fs1, ff1), _ = timed(lambda: dispatch_render_frame(
+            fscene, fcam, settings, None, fside, fside, **kw), N_TIMED_SPLIT)
+        reset_window_counts()
+        kernel.launches = 0
+        ms2, (fs2, ff2), fpeak = timed(lambda: dispatch_render_frame(
+            fscene, fcam, settings, None, fside, fside, split_far=True,
+            mc_far=cfg.mc_far, max_hits_far=cfg.max_hits_far,
+            split_radius_scale=cfg.split_radius_scale, **kw),
+            N_TIMED_SPLIT)
+        wc = window_counts()[1 if mode == "kbuffer" else 2]
+        if wc[1] == 0 or wc[2] == 0 or wc[0]:
+            raise RuntimeError(f"phase 22 (b) {mode}: the split frame "
+                               f"launched its kernel by window {wc}")
+        with mock.patch.object(rt, "bounce_epilogue", epi):
+            rt_single = dispatch_render_frame(fscene, fcam, settings, None,
+                                              fside, fside, **kw)
+        with mock.patch.object(rt, "split_bounce", spl):
+            (fs2b, ff2b), seen = calls_of(lambda: dispatch_render_frame(
+                fscene, fcam, settings, None, fside, fside, split_far=True,
+                mc_far=cfg.mc_far, max_hits_far=cfg.max_hits_far,
+                split_radius_scale=cfg.split_radius_scale, **kw))
+        del rt_single
+        frame_calls[mode] = seen
+        capped = torch.zeros(fside * fside, dtype=torch.bool, device=dev)
+        for c in single_caps + split_caps:
+            capped |= c[:fside * fside][ray_inv]
+        # each pass's starved share, over the frame's split bounces
+        by = dict(near=float(np.mean([n for n, _ in pass_starved])),
+                  far=float(np.mean([f for _, f in pass_starved])))
+        parts_b = split_parts(fs1, fs2, ff1, ff2,
+                              split_mask(fs1, fs2, capped, thr))
+        psnr = psnr_tonemapped(ff2, ff1)
+        res["b"][mode] = dict(
+            ms=ms2, single_ms=ms1, peak_gb=fpeak,
+            starved=float(fs2.overflow.mean()),
+            single_starved=float(fs1.overflow.mean()),
+            starved_near=by["near"], starved_far=by["far"], psnr=psnr,
+            launches_near=wc[1], launches_far=wc[2], **parts_b)
+        if mode == "kbuffer" and (parts_b["outside"] or
+                                  parts_b["compared_rays"] < SPLIT_MIN_RAYS):
+            raise RuntimeError(f"phase 22 (b) {mode}: the split frame "
+                               f"parts from the single pass: {parts_b}")
+        print(f"phase 22 (b): split-far eval frame {fside}x{fside} {mode}, "
+              f"room_scene({SPLIT_FRAME_N}) + the shell ({fshell} rows, "
+              f"capacity {fscene.capacity}), K {Kp}, cluster "
+              f"{FRAME_KW['cull_cluster']}, {FRAME_KW['max_clusters']} "
+              f"candidates, mc_far {cfg.mc_far}: {ms2:.1f} ms/frame (one "
+              f"pass {ms1:.1f}); starved near {by['near']:.4%}, far "
+              f"{by['far']:.4%}, whole {float(fs2.overflow.mean()):.4%} (one "
+              f"pass {float(fs1.overflow.mean()):.4%}); peak {fpeak:.1f} GB; "
+              f"{kernel.__name__} launches near {wc[1]}, far {wc[2]}; "
+              f"against one pass: {parts_b['compared']:.2%} compared, "
+              f"{parts_b['outside']} outside {SPLIT_RTOL:g} rel + "
+              f"{SPLIT_ATOL:g}"
+              + (" (the scan composites in streaming order: reported, not "
+                 "required)" if mode == "scanq" else "")
+              + f", tonemapped PSNR {psnr:.1f} dB [{smi}]", flush=True)
+        del fs1, fs2, ff1, ff2, fs2b, ff2b
+
+    # (c) the render kernels in window modes 1 and 2 against their plain
+    # versions: each frame's near and far pass of bounces 0 and 1
+    for mode, seen in frame_calls.items():
+        kernel, reference = ((render_culled, render_culled_reference)
+                             if mode == "kbuffer" else
+                             (render_scan, render_scan_reference))
+        for i, call in enumerate(seen[:4]):
+            name = ("one", "near", "far")[call.kwargs["window_mode"]]
+            res["c"][f"{kernel.__name__} {name} {i // 2}"] = \
+                check_window_pass(kernel, reference, call,
+                                  f"{kernel.__name__} {name} pass, bounce "
+                                  f"{i // 2}")
+    del frame_calls, fscene
+    torch.cuda.empty_cache()
+    print("phase 22 (c): window modes 1/2 against the plain versions on "
+          f"each pass's {CHECK_TILES} busiest tiles, ms a whole pass (the "
+          "plain version's ms on those tiles; the pairs they walked of the "
+          "pass's): "
+          + "; ".join(f"{k} {v['ms']:.2f} ({v['plain_ms']:.0f}; "
+                      f"{v['checked_pairs']:.3g} of {v['pass_pairs']:.3g}) "
+                      f"max abs err {v['max_abs_err']:g}"
+                      for k, v in res["c"].items())
+          + f" [{smi}]", flush=True)
+
+    # (d) the DP split step on 2 ranks against one process
+    dside = SPLIT_DP_SIDE
+    # tiles that divide a rank's shard
+    dtile = tr.pick_tile_size(dside * dside // 2, cfg.ray_tile)
+    dscene, _ = with_shell(room(TRAIN_N, dev, seed=1)[0], cfg, dev)
+    dstate = tr.init_train_state(dscene)
+    gb, _ = render_frame_fused(room(TRAIN_N, dev, seed=0)[0], camera,
+                               settings,
+                               torch.Generator(device=dev).manual_seed(3),
+                               dside, dside, num_bounces=2, **FRAME_KW)
+    dtargets = RayTargets(diffuse=gb.rgb[0], specular=gb.rgb[1] + gb.rgb[2],
+                          depth=gb.depth[0], normal=gb.normal[0],
+                          roughness=gb.roughness[0], f0=gb.f0[0])
+    del gb
+    dsamples = draw_tile_samples(torch.Generator().manual_seed(6), dside,
+                                 dside, dtile, 3)
+    dkw = dict(step_kw, tile=dtile, **split_kw)
+    d_in = host_inputs(state=dstate, camera=camera, targets=dtargets,
+                       settings=settings, lrs=lrs, hyper=hyper,
+                       samples=dsamples)
+    torch.cuda.empty_cache()
+    (dp,) = spawn(run_jobs, 2, "gloo", dev, {"rays": 2}, [
+        ("dp_step", d_in, dict(width=dside, height=dside, **dkw))])
+    one = tr.train_step(dstate, camera, dtargets, settings, lrs, hyper, None,
+                        dside, dside, samples=moved(dsamples, dev), **dkw)
+    outside = state_outside(dp["state"], one[0])
+    delta = np_state_delta(dp["state"], one[0])
+    if dev.type == "cuda" and not all(
+            r["launches"]["trace_slots_near"] and r["launches"][
+                "trace_slots_far"] for r in dp["ranks"]):
+        raise RuntimeError(f"phase 22 (d): a rank launched no windowed "
+                           f"slots pass: {dp['ranks']}")
+    if outside:
+        raise RuntimeError(f"phase 22 (d): the DP split state parts from "
+                           f"train_step's beyond {PAR_STATE_RTOL:g} relative"
+                           f" + {PAR_STATE_ATOL:g}: {outside}; {delta}")
+    res["d"] = dict(ranks=dp["ranks"], bit_equal=max(delta.values()) == 0.0,
+                    max_delta=delta)
+    print(f"phase 22 (d): DP split-far step {dside}x{dside} on 2 ranks "
+          f"(gloo, one card) against train_step: bit-equal "
+          f"{res['d']['bit_equal']}"
+          f"{'' if res['d']['bit_equal'] else why_not_equal(delta)}; ms a "
+          f"step per rank {rank_table(dp['ranks'])}; launches per rank "
+          f"{rank_launches(dp['ranks'], 'trace_slots_near', 'trace_slots_far', 'scatter_add')}"
+          f" [{smi}]", flush=True)
+    del dstate, dscene, dtargets, one, d_in
+    torch.cuda.empty_cache()
+
+    # (e) the probe_cand_stats twin at its defaults
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        probe = tprobe.main([])
+    res["e"] = probe
+    print("phase 22 (e): probe_cand_stats (100k room, 800x800, cluster "
+          "128, lists uncapped): mean candidates a tile, repaired / parent "
+          "cull: " + "; ".join(
+              f"{p} " + ", ".join(
+                  f"{t}-ray {r['mean']:.1f} / {r['parent']['mean']:.1f}"
+                  for t, r in rows.items())
+              for p, rows in probe.items())
+          + f" [{smi}]", flush=True)
+    res["s"] = time.perf_counter() - t_phase
+    record["phase22"] = res
+    print(f"phase 22: {res['s']:.1f} s", flush=True)
     return res
 
 
@@ -3825,37 +4428,13 @@ def main() -> None:
     payload, ids = hit_grads(t.steps, t.residuals, t.targets_b, settings,
                              num_bounces, cap)
     t.steps = t.residuals = t.targets_b = None
-    acc_k = scatter_add(new_grad_accumulator(cap, dev), payload, ids)
-    acc_r = scatter_add_reference(new_grad_accumulator(cap, dev), payload,
-                                  ids)
-    a32, r32 = acc_k.to(torch.float32), acc_r.to(torch.float32)
-    sc_scale = max(1e-30, r32.abs().max().item())
-    sc_err = (a32 - r32).abs().max().item()
-    if not (sc_err <= 1e-6 * sc_scale and torch.equal(a32 == 0, r32 == 0)
-            and bool(torch.isfinite(a32).all())):
-        raise RuntimeError(f"phase 5: scatter_grads disagrees with its plain "
-                           f"version: max abs err {sc_err}, scale {sc_scale}")
-    sc_ms = cuda_ms(lambda: scatter_add(acc_k, payload, ids), reps=3)
-    sc_plain_ms = cuda_ms(lambda: scatter_add_reference(acc_r, payload, ids),
-                          reps=1, warmup=0)
-    keep = ids >= 0
-    idx, vals = ids[keep].to(torch.int64), payload[keep].to(torch.float64)
-    sc_lib_ms = cuda_ms(lambda: acc_r.index_add_(0, idx, vals), reps=3)
-    nnz = int(((payload != 0) & keep[:, None]).sum().item())
-    # the bytes the function needs: every id, the payload of the rows with
-    # a valid id only (the kernel skips the others unread), the float64
-    # accumulator read and written
-    n_hits = int(keep.sum().item())
-    sc_bound_ms, sc_bound_by = bound(
-        nnz, PEAK_FP64, n_hits * payload.shape[1] * payload.element_size()
-        + nbytes(ids) + 2 * nbytes(acc_k))
-    phase5["scatter"] = dict(ms=sc_ms, plain_ms=sc_plain_ms,
-                             library_ms=sc_lib_ms, max_abs_err=sc_err,
-                             scale=sc_scale, hits=n_hits,
-                             rows=ids.shape[0], nonzero_values=nnz,
-                             bound_ms=sc_bound_ms, bound_by=sc_bound_by,
-                             kernel_info=scatter_kernel_info())
-    del payload, ids, acc_k, acc_r, a32, r32, idx, vals, keep
+    sc5 = scatter_numbers("phase 5", payload, ids, cap, dev)
+    phase5["scatter"] = dict(sc5, kernel_info=scatter_kernel_info())
+    sc_ms, sc_plain_ms, sc_lib_ms, sc_err, sc_scale, nnz = (
+        sc5[k] for k in ("ms", "plain_ms", "library_ms", "max_abs_err",
+                         "scale", "nonzero_values"))
+    sc_bound_ms, sc_bound_by = sc5["bound_ms"], sc5["bound_by"]
+    del payload, ids
     record.update(phase5=phase5, tiles_per_launch=tiles_per_launch)
     print(f"phase 5: trace_slots at the step's batch ({tiles_per_launch} of "
           f"{n_tiles} {tile}-ray tiles, capacity {cap}, K={K}, mc "
@@ -3976,6 +4555,8 @@ def main() -> None:
     viewer = phase_viewer(dev, record, smi)
     par = phase_parallel(dev, record, smi)
     par_l = par["launches"]
+    split = phase_split(dev, record, smi)
+    win = split["c"]
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -4020,6 +4601,18 @@ def main() -> None:
         "v5_plain_ms": v5["passes"]["primary"]["plain_ms"],
         "v5_bound_ms": v5["passes"]["primary"]["bound_ms"],
         "v5_secondary_ms": v5["passes"]["secondary"]["ms"],
+        # split-far (phase 22): the eval frame's near (window 1) and far
+        # (window 2) passes, held bit for bit to the plain version
+        "split_launches_near": split["b"]["kbuffer"]["launches_near"],
+        "split_launches_far": split["b"]["kbuffer"]["launches_far"],
+        "split_max_abs_err": max(v["max_abs_err"] for k, v in win.items()
+                                 if k.startswith("render_culled")),
+        "split_ms": {k: v["ms"] for k, v in win.items()
+                     if k.startswith("render_culled")},
+        "split_checked_pairs": {k: v["checked_pairs"] for k, v in win.items()
+                                if k.startswith("render_culled")},
+        "split_plain_ms": {k: v["plain_ms"] for k, v in win.items()
+                           if k.startswith("render_culled")},
     }, {
         "name": "trace_slots",
         "route": "cuda",
@@ -4051,6 +4644,19 @@ def main() -> None:
         # exit mode 1 on the primary batch (phase 5b)
         "exit_mode_1_ms": phase5["exit_mode_1"]["ms"],
         "exit_mode_1_bound_ms": phase5["exit_mode_1"]["bound_ms"],
+        # split-far (phase 22): the step's near (window 1) and far (window
+        # 2) passes; ids and counters equal to the plain version's on
+        # every ray of the checked tiles
+        "split_launches_near": split["a"]["launches_near"],
+        "split_launches_far": split["a"]["launches_far"],
+        "split_max_abs_err": max(v["max_abs_err"] for k, v in win.items()
+                                 if k.startswith("trace_slots")),
+        "split_ms": {k: v["ms"] for k, v in win.items()
+                     if k.startswith("trace_slots")},
+        "split_checked_pairs": {k: v["checked_pairs"] for k, v in win.items()
+                                if k.startswith("trace_slots")},
+        "split_plain_ms": {k: v["plain_ms"] for k, v in win.items()
+                           if k.startswith("trace_slots")},
         # registers and blocks per SM of the launched kernel (phase 5)
         "registers": {k: v["registers"] for k, v in
                       record["trace_slots_kernel"].items()},
@@ -4073,6 +4679,16 @@ def main() -> None:
         # the parallel modes (phase 21), every rank: DP and
         # Gaussian-sharded steps
         "parallel_launches": par_l["scatter_add"],
+        # split-far (phase 22): the split step's launches, K + K_far slots
+        # a ray, and the scatter on its first batch's payload against its
+        # plain version
+        "split_launches": split["a"]["scatter_launches"],
+        "split_slots": split["a"]["scatter"]["rows"],
+        "split_ms": split["a"]["scatter"]["ms"],
+        "split_plain_ms": split["a"]["scatter"]["plain_ms"],
+        "split_library_ms": split["a"]["scatter"]["library_ms"],
+        "split_bound_ms": split["a"]["scatter"]["bound_ms"],
+        "split_max_abs_err": split["a"]["scatter"]["max_abs_err"],
         "registers": phase5["scatter"]["kernel_info"]["registers"],
         "blocks_per_sm": phase5["scatter"]["kernel_info"]["blocks_per_sm"],
     }, {
@@ -4100,6 +4716,18 @@ def main() -> None:
         "direct_reflected_ms": fast["bench"]["scan"]["reflected_ms"],
         # the viewer's session (phase 20): its drag-time preview ticks
         "viewer_launches": viewer["launches"]["render_scan"],
+        # split-far (phase 22): the scanq eval frame's near (window 1) and
+        # far (window 2) passes, held bit for bit to the plain version
+        "split_launches_near": split["b"]["scanq"]["launches_near"],
+        "split_launches_far": split["b"]["scanq"]["launches_far"],
+        "split_max_abs_err": max(v["max_abs_err"] for k, v in win.items()
+                                 if k.startswith("render_scan")),
+        "split_ms": {k: v["ms"] for k, v in win.items()
+                     if k.startswith("render_scan")},
+        "split_checked_pairs": {k: v["checked_pairs"] for k, v in win.items()
+                                if k.startswith("render_scan")},
+        "split_plain_ms": {k: v["plain_ms"] for k, v in win.items()
+                           if k.startswith("render_scan")},
         # registers and blocks per SM of the launched kernel (phase 9b)
         "registers": {k: v["registers"]
                       for k, v in fast["fps_kernel"].items()},

@@ -39,7 +39,6 @@ from .renderer.raytracer import RenderSettings, render_frame
 from .renderer.render import dispatch_render_frame
 from .tools.bench_render_sweep import (
     BEST_PATH,
-    frame_kwargs,
     parse_render_config,
     synchronize,
 )
@@ -100,7 +99,7 @@ def main(argv=None) -> dict:
     fused_kw, settings = bench_config()
     gen = torch.Generator(device=device).manual_seed(0)
     if device.type == "cuda":
-        kw = dict(frame_kwargs(fused_kw), num_bounces=NUM_BOUNCES)
+        kw = dict(fused_kw, num_bounces=NUM_BOUNCES)
         print(f"bench config: {kw}, secondary_throughput_threshold "
               f"{settings.secondary_throughput_threshold}", flush=True)
 

@@ -22,7 +22,14 @@
 // reciprocal without a branch per pair, and the ray-independent terms once
 // per Gaussian where a block's rays share an origin (a primary pass).
 // Kernels are instantiated per K (16, 32), exponent (3 spelled out, or
-// general), the backfacing test and the exit mode.  The Pallas kernels
+// general), the backfacing test, the exit mode and, in exit mode 0, the
+// split-far window (window_mode 1 keeps hits with t < t_split, 2 those with
+// t > t_split: pallas_trace_slots_v4's t-window, render_kernel_v3.py:787).
+// The window is a compile-time option, as the walk's load_ray makes it: the
+// kernels of window_mode 0 are the same code as without it, and the
+// windowed ones fold the bound into the ray's near or far once per thread.
+// pallas_trace_slots (exit mode 1) takes no window, and JAX never splits
+// where it runs, so the entry point refuses that pair.  The Pallas kernels
 // carried the whole 37-column payload through their drain (one-hot MXU
 // extraction, striped spread matrices), because a TPU core cannot gather a
 // row by id; here the epilogue sorts the K hits by (t, id), recomputes each
@@ -82,13 +89,13 @@ inline size_t slots_smem_bytes(int max_hits, int tile, int cluster) {
              : walk + sizeof(float) * tile * (max_hits + 1);
 }
 
-template <int K, bool CUBE, bool BACKFACING, int EXIT>
+template <int K, bool CUBE, bool BACKFACING, int EXIT, bool WINDOW>
 __global__ void __launch_bounds__(MAX_TILE)
     trace_slots_kernel(HitsParams p, int buffer, const float* table,
                        const float* ftable, float* slots, float* acc) {
   extern __shared__ __align__(16) float smem[];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const Ray ray = load_ray<false>(p, r);
+  const Ray ray = load_ray<WINDOW>(p, r);
   float* col_t;
   int* col_id;
   double log_t;
@@ -146,12 +153,12 @@ __global__ void __launch_bounds__(MAX_TILE)
   for (int i = 3; i < ACC_LANES; ++i) a[i] = 0.0f;
 }
 
-template <int K, bool CUBE, bool BACKFACING, int EXIT>
+template <int K, bool CUBE, bool BACKFACING, int EXIT, bool WINDOW>
 cudaError_t launch(const HitsParams& p, const float* table,
                    const float* ftable, float* slots, float* acc, int n_tiles,
                    int tile, cudaStream_t s) {
   const int smem = (int)slots_smem_bytes(K, tile, p.cluster);
-  const auto kernel = trace_slots_kernel<K, CUBE, BACKFACING, EXIT>;
+  const auto kernel = trace_slots_kernel<K, CUBE, BACKFACING, EXIT, WINDOW>;
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<n_tiles, tile, smem, s>>>(p, buffer_offset(K, tile, p.cluster),
@@ -159,79 +166,90 @@ cudaError_t launch(const HitsParams& p, const float* table,
   return cudaGetLastError();
 }
 
-// The instantiation for the launch's exponent, backfacing test and exit
-// mode.
-template <int K, int EXIT>
+// The instantiation for the launch's exponent, backfacing test, exit mode
+// and window.
+template <int K, int EXIT, bool WINDOW>
 cudaError_t launch_e(const HitsParams& p, bool backfacing, const float* table,
                      const float* ftable, float* slots, float* acc,
                      int n_tiles, int tile, cudaStream_t s) {
   const bool cube = p.int_power == 3;
-  const auto go = cube ? (backfacing ? launch<K, true, true, EXIT>
-                                     : launch<K, true, false, EXIT>)
-                       : (backfacing ? launch<K, false, true, EXIT>
-                                     : launch<K, false, false, EXIT>);
+  const auto go = cube ? (backfacing ? launch<K, true, true, EXIT, WINDOW>
+                                     : launch<K, true, false, EXIT, WINDOW>)
+                       : (backfacing ? launch<K, false, true, EXIT, WINDOW>
+                                     : launch<K, false, false, EXIT, WINDOW>);
   return go(p, table, ftable, slots, acc, n_tiles, tile, s);
 }
 
+// Exit mode 1 has no windowed kernel (the entry point refuses the pair).
 template <int K>
 cudaError_t launch_k(const HitsParams& p, bool backfacing, int exit_mode,
                      const float* table, const float* ftable, float* slots,
                      float* acc, int n_tiles, int tile, cudaStream_t s) {
-  const auto go = exit_mode == 1 ? launch_e<K, 1> : launch_e<K, 0>;
+  const auto go = exit_mode == 1      ? launch_e<K, 1, false>
+                  : p.window_mode != 0 ? launch_e<K, 0, true>
+                                       : launch_e<K, 0, false>;
   return go(p, backfacing, table, ftable, slots, acc, n_tiles, tile, s);
 }
 
-template <int K, bool CUBE, bool BACKFACING, int EXIT>
+template <int K, bool CUBE, bool BACKFACING, int EXIT, bool WINDOW>
 cudaError_t info(int tile, int cluster, int* out) {
-  return kernel_info(trace_slots_kernel<K, CUBE, BACKFACING, EXIT>, tile,
-                     (int)slots_smem_bytes(K, tile, cluster), out);
+  return kernel_info(trace_slots_kernel<K, CUBE, BACKFACING, EXIT, WINDOW>,
+                     tile, (int)slots_smem_bytes(K, tile, cluster), out);
 }
 
-template <int K, int EXIT>
+template <int K, int EXIT, bool WINDOW>
 cudaError_t info_e(bool cube, bool backfacing, int tile, int cluster,
                    int* out) {
-  const auto go = cube ? (backfacing ? info<K, true, true, EXIT>
-                                     : info<K, true, false, EXIT>)
-                       : (backfacing ? info<K, false, true, EXIT>
-                                     : info<K, false, false, EXIT>);
+  const auto go = cube ? (backfacing ? info<K, true, true, EXIT, WINDOW>
+                                     : info<K, true, false, EXIT, WINDOW>)
+                       : (backfacing ? info<K, false, true, EXIT, WINDOW>
+                                     : info<K, false, false, EXIT, WINDOW>);
   return go(tile, cluster, out);
 }
 
+// kind 0 and 1: exit modes 0 and 1 without the window; 2: exit mode 0 with
+// it (window_mode 1 and 2 run the same kernel).
 template <int K>
-cudaError_t info_k(bool cube, bool backfacing, int exit_mode, int tile,
+cudaError_t info_k(bool cube, bool backfacing, int kind, int tile,
                    int cluster, int* out) {
-  return exit_mode == 1 ? info_e<K, 1>(cube, backfacing, tile, cluster, out)
-                        : info_e<K, 0>(cube, backfacing, tile, cluster, out);
+  return kind == 1   ? info_e<K, 1, false>(cube, backfacing, tile, cluster,
+                                           out)
+         : kind == 2 ? info_e<K, 0, true>(cube, backfacing, tile, cluster, out)
+                     : info_e<K, 0, false>(cube, backfacing, tile, cluster,
+                                           out);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  slots [n_rays, 37*max_hits] and
 // acc [n_rays, 16] f32 are written in full.  exit_mode 0 or 1 (the header);
-// secondary_static 1 (the backfacing test), 0 (none) or -1 (where
-// `secondary` > 0).  The shapes it takes are init_hits_params'
+// window_mode 0 (none, t_split unread), 1 (keep t < t_split) or 2 (keep t >
+// t_split), in exit mode 0 only; secondary_static 1 (the backfacing test),
+// 0 (none) or -1 (where `secondary` > 0).  The shapes it takes are init_hits_params'
 // (trace_hits_walk.cuh) whose staging buffer fits too (slots_smem_bytes);
 // it returns SHAPES_REFUSED for any other.  Launches on `stream`, allocates
 // nothing, and returns the launch's cudaError_t (0 = success).
 extern "C" int egr_trace_slots(
     const float* rays_o, const float* rays_d, const float* alive,
-    const float* gpack, const float* table, const float* ftable,
-    const int* cand,
-    const float* cand_near, float* slots, float* acc, int n_rays, int n_gauss,
-    int mc, int tile, int cluster, int max_hits, int check_every,
-    int exit_mode, int secondary_static, float near, float far,
+    const float* t_split, const float* gpack, const float* table,
+    const float* ftable, const int* cand, const float* cand_near,
+    float* slots, float* acc, int n_rays, int n_gauss, int mc, int tile,
+    int cluster, int max_hits, int check_every, int exit_mode,
+    int window_mode, int secondary_static, float near, float far,
     float secondary, float bf_max_dist, float bf_thr, float log_thr,
     float exp_power, void* stream) {
   HitsParams p;
-  // no split-far window (window_mode 0), so no t_split
   if (!init_hits_params(p, rays_o, rays_d, alive, gpack, cand, cand_near,
                         n_rays, n_gauss, mc, tile, cluster, max_hits,
                         check_every, near, far, secondary, bf_max_dist,
                         bf_thr, log_thr, exp_power) ||
       slots_smem_bytes(max_hits, tile, cluster) > MAX_SMEM ||
-      (exit_mode != 0 && exit_mode != 1) || secondary_static < -1 ||
-      secondary_static > 1)
+      (exit_mode != 0 && exit_mode != 1) || window_mode < 0 ||
+      window_mode > 2 || (exit_mode == 1 && window_mode != 0) ||
+      secondary_static < -1 || secondary_static > 1)
     return SHAPES_REFUSED;
+  p.t_split = t_split;
+  p.window_mode = window_mode;
   if (n_rays == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_rays / tile;
@@ -245,13 +263,14 @@ extern "C" int egr_trace_slots(
 
 // The compiled kernel of (max_hits, cube, backfacing, exit_mode) at (tile,
 // cluster): what kernel_info (trace_hits_walk.cuh) reports in out[0..3].
+// exit_mode 2 asks for exit mode 0's windowed kernel (window_mode 1/2).
 // Returns a cudaError_t, or SHAPES_REFUSED.
 extern "C" int egr_trace_slots_info(int max_hits, int cube, int backfacing,
                                     int exit_mode, int tile, int cluster,
                                     int* out) {
   if (!hits_shape_ok(max_hits, tile, cluster) ||
       slots_smem_bytes(max_hits, tile, cluster) > MAX_SMEM ||
-      (exit_mode != 0 && exit_mode != 1))
+      exit_mode < 0 || exit_mode > 2)
     return SHAPES_REFUSED;
   if (max_hits == 16)
     return (int)info_k<16>(cube, backfacing, exit_mode, tile, cluster, out);

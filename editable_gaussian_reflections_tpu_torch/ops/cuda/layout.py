@@ -153,6 +153,24 @@ def pack_frame_table(frames: GaussianFrames, scene) -> torch.Tensor:
         rounded(torch.exp, scene.scaling), scene.rotation, z], dim=1)
 
 
+def merge_slots(slots_n: torch.Tensor, acc_n: torch.Tensor,
+                slots_f: torch.Tensor, acc_f: torch.Tensor, K_n: int,
+                K_f: int):
+    """Split-far's near-pass and far-pass slots [R, SLOT_BLOCKS*K_n] /
+    [R, SLOT_BLOCKS*K_f] as one [R, SLOT_BLOCKS*(K_n+K_f)] list, each slot
+    block the near slots then the far ones, and acc with the first three
+    lanes (log-T, traversed, processed clusters) added and the rest the
+    near pass's (JAX render_kernel.py:765-781).  Every far hit lies behind
+    every near hit (the t-window), and the composite passes over empty
+    slots (alpha 0, invalid) wherever they sit, so the concatenation is the
+    depth-sorted merge."""
+    R = slots_n.shape[0]
+    slots = torch.cat([slots_n.reshape(R, SLOT_BLOCKS, K_n),
+                       slots_f.reshape(R, SLOT_BLOCKS, K_f)], dim=-1)
+    acc = torch.cat([acc_n[:, :3] + acc_f[:, :3], acc_n[:, 3:]], dim=1)
+    return slots.reshape(R, SLOT_BLOCKS * (K_n + K_f)), acc
+
+
 def unpack_slots(slots: torch.Tensor, acc: torch.Tensor, K: int,
                  rays_o: torch.Tensor, rays_d: torch.Tensor):
     """Slots [R, SLOT_BLOCKS*K] + acc [R, 16] -> (RayHits fields, attrs,

@@ -395,7 +395,8 @@ def render_culled(
 
     CUDA tensors launch the kernel of csrc/render_culled.cu on the current
     stream (it is built at first use) and count the launch in
-    `render_culled.launches`; CPU tensors take render_culled_reference.
+    `render_culled.launches` (and in `render_culled.launches_by_window
+    [window_mode]`); CPU tensors take render_culled_reference.
     Anything else raises."""
     kw = dict(transmittance_threshold=transmittance_threshold,
               eps_forward_normalization=eps_forward_normalization,
@@ -456,10 +457,12 @@ def render_culled(
         raise RuntimeError(f"render_culled kernel launch failed: cudaError "
                            f"{err}")
     render_culled.launches += 1
+    render_culled.launches_by_window[window_mode] += 1
     return out
 
 
 render_culled.launches = 0
+render_culled.launches_by_window = [0, 0, 0]
 
 
 def check_every_for(capacity: int) -> int:

@@ -326,7 +326,8 @@ def render_scan(
 
     CUDA tensors launch the kernel of csrc/render_scan.cu on the current
     stream (it is built at first use) and count the launch in
-    `render_scan.launches`; CPU tensors take render_scan_reference.
+    `render_scan.launches` (and in `render_scan.launches_by_window
+    [window_mode]`); CPU tensors take render_scan_reference.
     Anything else raises."""
     kw = dict(transmittance_threshold=transmittance_threshold,
               eps_forward_normalization=eps_forward_normalization,
@@ -394,7 +395,9 @@ def render_scan(
         raise RuntimeError(f"render_scan kernel launch failed: cudaError "
                            f"{err}")
     render_scan.launches += 1
+    render_scan.launches_by_window[window_mode] += 1
     return out
 
 
 render_scan.launches = 0
+render_scan.launches_by_window = [0, 0, 0]

@@ -106,7 +106,8 @@ def kernel_info(max_hits: int, cube: bool = True, backfacing: bool = False,
     WALK_KERNELS (csrc/<kernel>.cu) for (max_hits, exp_power 3 or not,
     backfacing test or not: reflected passes, exit mode) at (tile,
     cluster): registers and spilled (local) bytes per thread, dynamic
-    shared memory per block and resident blocks per SM.  Needs a CUDA
+    shared memory per block and resident blocks per SM (trace_slots:
+    exit_mode 2 is exit mode 0's split-far windowed kernel).  Needs a CUDA
     device."""
     if kernel not in WALK_KERNELS:
         raise ValueError(f"kernel={kernel!r}: one of {WALK_KERNELS}")

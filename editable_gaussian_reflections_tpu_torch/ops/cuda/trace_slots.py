@@ -20,6 +20,14 @@ each kept hit's attributes from pack_attr_table's [N, TABLE_A] table and its
 frame fields from pack_frame_table's [N, FTABLE_A] table, by id (the inputs
 of pallas_trace_slots; pallas_trace_slots_v4 reads the same attribute
 values from gpack's rows).
+
+`t_split` [R] and `window_mode` 1 / 2 keep only the hits with t < t_split
+(split-far's near pass) or t > t_split (its far pass), as
+pallas_trace_slots_v4's do (render_kernel_v3.py:793-803): every far hit
+then lies behind every near hit, and merge_slots (ops/cuda/layout.py)
+concatenates the two passes' slots into one depth-sorted list.  Exit mode
+1 (pallas_trace_slots) takes no window: the JAX step splits only where the
+resident kernel runs (slots_resident_fits).
 """
 
 from __future__ import annotations
@@ -56,11 +64,12 @@ from .render_kernel import (
 ACC_LANES = 16
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 10         # rays_o, rays_d, alive, gpack, table,
-                                   # ftable, cand, cand_near, slots, acc
-    + [ctypes.c_int] * 9           # n_rays, n_gauss, mc, tile, cluster,
+    [ctypes.c_void_p] * 11         # rays_o, rays_d, alive, t_split, gpack,
+                                   # table, ftable, cand, cand_near, slots,
+                                   # acc
+    + [ctypes.c_int] * 10          # n_rays, n_gauss, mc, tile, cluster,
                                    # max_hits, check_every, exit_mode,
-                                   # secondary_static
+                                   # window_mode, secondary_static
     + [ctypes.c_float] * 7         # near, far, secondary, bf_max_dist,
                                    # bf_thr, log_thr, exp_power
     + [ctypes.c_void_p]            # stream
@@ -89,16 +98,30 @@ def exit_mode_for(n_capacity: int) -> tuple[int, int]:
     return (0, 8) if slots_resident_fits(n_capacity) else (1, 2)
 
 
+def _check_window(exit_mode: int, window_mode: int) -> None:
+    """Refuse what no Pallas slots kernel takes: a window other than 0/1/2,
+    or one in exit mode 1 (pallas_trace_slots has none)."""
+    if window_mode not in (0, 1, 2):
+        raise ValueError(f"window_mode={window_mode}: expected 0, 1 or 2")
+    if exit_mode == 1 and window_mode:
+        raise ValueError("exit_mode=1 (pallas_trace_slots) has no split-far "
+                         f"window; window_mode={window_mode} needs exit "
+                         "mode 0")
+
+
 def trace_slots_reference(
     rays_o, rays_d, gpack, table, ftable, candidates, cand_near, near, far,
     exp_power, secondary, backfacing_max_dist,
     backfacing_invalid_normal_threshold, transmittance_threshold=0.01,
     max_hits: int = 32, cluster: int = 256, tile: int = 256, alive=None,
     secondary_static: int = -1, exit_mode: int = 0, check_every: int = 8,
+    t_split=None, window_mode: int = 0,
 ):
     """Plain PyTorch version of the kernel's contract (module docstring):
-    the walk of ops/cuda/render_kernel.py, then the kept hits sorted by
-    (t, id) and their payload gathered by id."""
+    the walk of ops/cuda/render_kernel.py (which applies the t-window),
+    then the kept hits sorted by (t, id) and their payload gathered by
+    id."""
+    _check_window(exit_mode, window_mode)
     R = rays_o.shape[0]
     K = max_hits
     dev = rays_o.device
@@ -109,6 +132,7 @@ def trace_slots_reference(
         secondary, backfacing_max_dist, backfacing_invalid_normal_threshold,
         transmittance_threshold=transmittance_threshold, max_hits=max_hits,
         cluster=cluster, tile=tile, alive=alive, check_every=check_every,
+        t_split=t_split, window_mode=window_mode,
         secondary_static=secondary_static, exit_mode=exit_mode)
     for rows, st, sa, sid, log_t, trav, chunks, _gp in walk:
         st, sa, sid = sort_slots(st, sa, sid)
@@ -136,19 +160,21 @@ def trace_slots(
     backfacing_invalid_normal_threshold, transmittance_threshold=0.01,
     max_hits: int = 32, cluster: int = 256, tile: int = 256, alive=None,
     secondary_static: int = -1, exit_mode: int = 0, check_every: int = 8,
+    t_split=None, window_mode: int = 0,
 ):
     """Culled slots trace for one bounce: (slots, acc), module docstring.
 
     CUDA tensors launch the kernel of csrc/trace_slots.cu on the current
     stream (it is built at first use) and count the launch in
     `trace_slots.launches` (and in `trace_slots.launches_by_mode[exit_mode]`:
-    mode 0 is pallas_trace_slots_v4's port, mode 1 pallas_trace_slots');
-    CPU tensors take trace_slots_reference.
-    Anything else raises."""
+    mode 0 is pallas_trace_slots_v4's port, mode 1 pallas_trace_slots'; and
+    in `trace_slots.launches_by_window[window_mode]`); CPU tensors take
+    trace_slots_reference.  Anything else raises."""
     kw = dict(transmittance_threshold=transmittance_threshold,
               max_hits=max_hits, cluster=cluster, tile=tile, alive=alive,
               secondary_static=secondary_static, exit_mode=exit_mode,
-              check_every=check_every)
+              check_every=check_every, t_split=t_split,
+              window_mode=window_mode)
     args = (rays_o, rays_d, gpack, table, ftable, candidates, cand_near,
             near, far, exp_power, secondary, backfacing_max_dist,
             backfacing_invalid_normal_threshold)
@@ -170,6 +196,7 @@ def trace_slots(
     if exit_mode not in (0, 1) or secondary_static not in (-1, 0, 1):
         raise ValueError(f"exit_mode={exit_mode}, "
                          f"secondary_static={secondary_static}")
+    _check_window(exit_mode, window_mode)
     n_tiles = R // tile
     mc = candidates.shape[1]
     _check("rays_o", rays_o, (R, 3), torch.float32, dev)
@@ -180,7 +207,9 @@ def trace_slots(
     _check("candidates", candidates, (n_tiles, mc), torch.int32, dev)
     _check("cand_near", cand_near, (n_tiles, mc), torch.float32, dev)
     alive_f = _per_ray(alive, R, 1.0, dev).contiguous()
+    t_split_f = _per_ray(t_split, R, 0.0, dev).contiguous()
     _check("alive", alive_f, (R,), torch.float32, dev)
+    _check("t_split", t_split_f, (R,), torch.float32, dev)
 
     slots = torch.empty((R, SLOT_BLOCKS * max_hits), dtype=torch.float32,
                         device=dev)
@@ -189,11 +218,11 @@ def trace_slots(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry_point()(
             rays_o.data_ptr(), rays_d.data_ptr(), alive_f.data_ptr(),
-            gpack.data_ptr(), table.data_ptr(), ftable.data_ptr(),
-            candidates.data_ptr(),
+            t_split_f.data_ptr(), gpack.data_ptr(), table.data_ptr(),
+            ftable.data_ptr(), candidates.data_ptr(),
             cand_near.data_ptr(), slots.data_ptr(), acc.data_ptr(),
             R, N, mc, tile, cluster, max_hits, check_every, exit_mode,
-            secondary_static,
+            window_mode, secondary_static,
             _f32(near), _f32(far), _f32(secondary), _f32(backfacing_max_dist),
             _f32(backfacing_invalid_normal_threshold),
             _log_f32(transmittance_threshold), float(exp_power), stream)
@@ -206,8 +235,10 @@ def trace_slots(
                            f"{err}")
     trace_slots.launches += 1
     trace_slots.launches_by_mode[exit_mode] += 1
+    trace_slots.launches_by_window[window_mode] += 1
     return slots, acc
 
 
 trace_slots.launches = 0
 trace_slots.launches_by_mode = [0, 0]
+trace_slots.launches_by_window = [0, 0, 0]

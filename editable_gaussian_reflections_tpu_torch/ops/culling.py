@@ -154,26 +154,46 @@ def cone_sphere_visible(cones: TileCones, bounds: ClusterBounds,
                         near, far) -> torch.Tensor:
     """[T, NC] conservative visibility: does the cluster sphere intersect the
     tile's (expanded) cone within the depth window?  `near` / `far` may be
-    scalars or per-tile [T] tensors."""
+    scalars or per-tile [T] tensors.
+
+    Conservative for every ray of the tile (unit direction within the cone,
+    origin within origin_radius of the apex), whatever the cone's width and
+    `near`: a ray meets the sphere only at t <= |c - o| + r <= dist + reff,
+    and where the cone is narrower than 90 degrees also at t <= (along +
+    reff) / cos_half (its direction's component along the axis is at least
+    cos_half); it meets it at t >= along - reff.  The JAX package tests
+    along + reff > near, which drops clusters a slanted ray hits beyond
+    near, and its angle test wraps once half + extra passes pi; both are
+    repaired here, and the lists are a superset of JAX's, equal to them for
+    the narrow cones of primary passes."""
     near = _per_tile(near, cones.origin)
     far = _per_tile(far, cones.origin)
     rel = bounds.center[None, :, :] - cones.origin[:, None, :]   # [T, NC, 3]
     dist = torch.linalg.vector_norm(rel, dim=-1)                 # [T, NC]
     reff = bounds.radius[None, :] + cones.origin_radius[:, None]
+    cos_half = cones.cos_half[:, None]
 
-    # depth window along the cone axis
+    # depth window: the deepest t at which a ray of the tile can meet the
+    # sphere against near, the shallowest against far
     along = torch.sum(rel * cones.axis[:, None, :], dim=-1)
-    in_window = (along + reff > near) & (along - reff < far)
+    deepest = torch.where(
+        cos_half > 0,
+        torch.minimum(dist + reff,
+                      (along + reff) / torch.clamp(cos_half, min=1e-30)),
+        dist + reff)
+    in_window = (deepest > near) & (along - reff < far)
 
     # angle test: angle(rel, axis) <= half_angle + asin(reff/dist)
     cos_to = along / torch.clamp(dist, min=1e-12)
-    sin_half = torch.sqrt(torch.clamp(1.0 - cones.cos_half**2, min=0.0))[:, None]
+    sin_half = torch.sqrt(torch.clamp(1.0 - cos_half**2, min=0.0))
     sin_extra = torch.clamp(reff / torch.clamp(dist, min=1e-12), 0.0, 1.0)
-    cos_half = cones.cos_half[:, None]
     # cos(a+b) = cos a cos b - sin a sin b ; visible iff cos_to >= cos(a+b)
     cos_limit = (cos_half * torch.sqrt(torch.clamp(1.0 - sin_extra**2, min=0.0))
                  - sin_half * sin_extra)
-    in_cone = cos_to >= cos_limit
+    # ... while a + b < pi: cos is not monotonic beyond, where every
+    # direction passes (a >= pi/2 and b >= pi - a, i.e. sin b >= sin a)
+    wraps = (cos_half <= 0) & (sin_extra >= sin_half)
+    in_cone = (cos_to >= cos_limit) | wraps
     inside = dist <= reff  # apex inside the sphere
 
     return bounds.any_valid[None, :] & in_window & (in_cone | inside)

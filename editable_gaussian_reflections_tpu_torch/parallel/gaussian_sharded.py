@@ -23,7 +23,8 @@ use_pallas, gaussian_sharded_trace runs each shard through the slots kernel
 (Morton sort, cluster culling, ops/cuda/trace_slots.py, in the exit mode
 exit_mode_for picks for the shard's capacity).  Randomness: the step draws
 per ray shard (the JAX fold_in(key_b, ray_idx)), so it takes the
-TileSamples of tile = R / the ray shards.  split-far is not ported.
+TileSamples of tile = R / the ray shards.  No split-far: its steps take no
+such option, as the JAX Gaussian-sharded step has none.
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import inspect
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ from ..ops.cuda.render_kernel import render_culled
 from ..ops.cuda.scatter import scatter_add
 from ..ops.cuda.trace_hits import trace_hits
 from ..ops.cuda.trace_slots import trace_slots, trace_slots_reference
+from ..renderer import raytracer
 from ..renderer.raytracer import RayTargets, RenderSettings
 from ..scene.gaussian_scene import GaussianScene, from_arrays
 from ..training import TrainState, init_train_state
@@ -113,6 +115,8 @@ def _settings(inputs: dict) -> RenderSettings:
 def _counts() -> dict:
     return dict(trace_slots_mode0=trace_slots.launches_by_mode[0],
                 trace_slots_mode1=trace_slots.launches_by_mode[1],
+                trace_slots_near=trace_slots.launches_by_window[1],
+                trace_slots_far=trace_slots.launches_by_window[2],
                 scatter_add=scatter_add.launches,
                 trace_hits=trace_hits.launches,
                 render_culled=render_culled.launches)
@@ -197,10 +201,30 @@ def render(mesh, dev, inputs: dict, held: dict, **kw) -> dict:
     return dict(final=to_numpy(final), ranks=_per_rank(numbers))
 
 
+def capped_flags(fn, max_hits: int):
+    """fn() (a one-pass fused frame) with, per bounce, its rays whose
+    k-buffer kept `max_hits` hits or more: (fn's result, [S, R] bool in the
+    bounce loop's ray order).  At the frame's own max_hits such a ray
+    composites a truncated tail that its tile's walk decides."""
+    caps = []
+    real = raytracer.bounce_epilogue
+
+    def epilogue(out, call, *args, **kwargs):
+        comp = raytracer.unpack_composite(raytracer.canonical(out, call))
+        caps.append(comp["num_accumulated"] >= max_hits)
+        return real(out, call, *args, **kwargs)
+
+    with mock.patch.object(raytracer, "bounce_epilogue", epilogue):
+        out = fn()
+    return out, torch.stack(caps)
+
+
 def render_fused(mesh, dev, inputs: dict, held: dict, repeat: int = 1,
-                 **kw) -> dict:
+                 capped_at: int | None = None, **kw) -> dict:
     """sharded_render_fused of inputs' scene (or room), camera, settings
-    and FrameSamples; run `repeat` times, the last one measured."""
+    and FrameSamples; run `repeat` times, the last one measured.  With
+    `capped_at`, one more (unmeasured) frame gives each rank's capped_flags
+    ([S, rays of the rank], under "capped", in rank order)."""
     x = moved(inputs, dev, copy=True)
     scene = x["scene"] if "scene" in x else _room(x, dev)
 
@@ -211,8 +235,12 @@ def render_fused(mesh, dev, inputs: dict, held: dict, repeat: int = 1,
     for _ in range(repeat - 1):
         frame()
     (steps, final), numbers = measured(dev, frame)
-    return dict(steps=to_numpy(steps), final=to_numpy(final),
-                ranks=_per_rank(numbers))
+    out = dict(steps=to_numpy(steps), final=to_numpy(final),
+               ranks=_per_rank(numbers))
+    if capped_at is not None:
+        out["capped"] = _per_rank(to_numpy(capped_flags(frame,
+                                                        capped_at)[1]))
+    return out
 
 
 def gauss_step(mesh, dev, inputs: dict, held: dict, gather: bool = True,

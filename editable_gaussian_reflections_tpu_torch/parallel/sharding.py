@@ -89,10 +89,14 @@ def sharded_train_step(
     split_far: bool = False,
     samples: TileSamples | None = None,
     axis: str = "rays",
+    mc_far: int = 32,
+    max_hits_far: int = 0,
+    split_radius_scale: float = 1.5,
 ):
     """One data-parallel training step: rays sharded over `axis`, the
     parameters replicated, the gradients all-reduced.  Returns (new
-    TrainState, metrics), the same on every rank; metrics as train_step's.
+    TrainState, metrics), the same on every rank; metrics as train_step's
+    (split-far as there: each ray's two passes are its own).
 
     With `tile` equal to train_step's tile (default: one tile per shard)
     the result equals train_step on the same samples.  The shard must be a
@@ -114,7 +118,9 @@ def sharded_train_step(
     prep = prepare_step(state, camera, targets, settings, None, width,
                         height, num_bounces, tile_sz, jitter, use_pallas,
                         use_culling, cull_tile, cull_cluster, max_clusters,
-                        split_far, samples)
+                        split_far, samples, mc_far=mc_far,
+                        max_hits_far=max_hits_far,
+                        split_radius_scale=split_radius_scale)
     _, tiles = _shard(mesh, axis, prep["dirs_t"].shape[0])
     acc, l1_tiles, starved = accumulate_over_tiles(
         camera.origin, prep["dirs_t"][tiles],
@@ -226,6 +232,9 @@ def sharded_render_fused(
     composite_mode: str = "kbuffer",
     samples: FrameSamples | None = None,
     axis: str = "rays",
+    mc_far: int = 32,
+    split_radius_scale: float = 1.5,
+    max_hits_far: int = 0,
 ):
     """render_frame_fused's per-bounce kernel path with the rays sharded
     over `axis`.  The scene preparation (Morton sort, cluster bounds,
@@ -237,16 +246,19 @@ def sharded_render_fused(
     single-process frame where neither starved.  The shard must be a whole
     number of the larger cull tile and of `rays_per_call` (the JAX
     assertions; the port's bounce loop itself needs no per-call slabs).
+    split_far splits every bounce as render_frame_fused does, the split
+    sphere replicated and the far pass's re-sort shard-local too.
 
     Returns (StepOutputs [S, H*W, ...], final [H*W, 3]) in linear pixel
     order on every rank."""
-    check_composite_mode(composite_mode, split_far)
+    check_composite_mode(composite_mode)
     full_f32_matmuls()
     prep = _prepare_fused_frame(
         scene, camera, settings, samples, width, height, jitter=jitter,
         cull_cluster=cull_cluster, cull_tile_primary=cull_tile_primary,
         num_steps=num_bounces + 1, generator=generator,
-        composite_mode=composite_mode)
+        composite_mode=composite_mode, split_far=split_far,
+        split_radius_scale=split_radius_scale)
     R = prep["R"]
     n_shards = mesh.shape[axis]
     tile_max = max(cull_tile_primary, cull_tile_secondary)
@@ -268,7 +280,8 @@ def sharded_render_fused(
         max_clusters=max_clusters,
         max_clusters_secondary=max_clusters_secondary,
         cull_tile_secondary=cull_tile_secondary,
-        cull_tile_primary=cull_tile_primary, scan=prep["scan"])
+        cull_tile_primary=cull_tile_primary, scan=prep["scan"],
+        split=prep["split"], mc_far=mc_far, max_hits_far=max_hits_far)
     ray_inv = prep["ray_inv"]
     stacked = StepOutputs(*(all_gather(a, mesh, axis, dim=1)[:, ray_inv]
                             for a in stacked))

@@ -105,7 +105,9 @@ def render_view(cfg, scene, cam, settings, seed: int, W: int, H: int,
             cull_cluster=cfg.cull_cluster, max_clusters=cfg.max_clusters,
             max_clusters_secondary=cfg.max_clusters_secondary or None,
             cull_tile_secondary=cfg.cull_tile_secondary,
-            split_far=cfg.split_far)
+            split_far=cfg.split_far, mc_far=cfg.mc_far,
+            max_hits_far=cfg.max_hits_far,
+            split_radius_scale=cfg.split_radius_scale)
     return render_accumulated_chunked(
         scene, cam, settings, seed, W, H, spp=spp, spp_chunk=spp_chunk,
         fused=False, num_bounces=2, max_hits=cfg.max_hits,

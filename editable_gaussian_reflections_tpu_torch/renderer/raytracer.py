@@ -33,8 +33,14 @@ attributes by id, as the JAX use_pallas=False path does.  Their default
 is use_pallas=True (the kernels), so a caller takes the plain tracer only
 by asking for it; the JAX package's default is False.
 
-Not ported yet, and raising instead of falling back: split_far=True (the
-two-pass bounce).
+split_far=True renders each bounce as two passes partitioned exactly by
+hit distance against a per-ray split-sphere exit t (split_exit_t): a near
+pass (t < t_split) in the usual tiling, then a far pass (t > t_split) of
+the rays the near pass left unsaturated, reflected ones re-sorted by
+direction (far_order).  The frame combines the two composites behind the
+near pass's transmittance; the training step concatenates the two passes'
+slots (merge_slots) and composites, backpropagates and scatters K + K_far
+slots a ray unchanged.
 
 Randomness: the JAX package draws jitter and GGX uniforms from a key; the
 port draws the same quantities (FrameSamples for a fused frame; TileSamples,
@@ -67,6 +73,7 @@ from ..ops.culling import (
     tile_pixel_order,
 )
 from ..ops.cuda.layout import (
+    merge_slots,
     pack_frames,
     pack_scan_table,
     unpack_composite,
@@ -75,7 +82,11 @@ from ..ops.cuda.layout import (
 from ..ops.cuda.render_kernel import check_every_for, render_culled
 from ..ops.cuda.scan_kernel import ATTR_PRECISIONS, render_scan, scan_fits
 from ..ops.cuda.scatter import scatter_add
-from ..ops.cuda.trace_slots import exit_mode_for, trace_slots
+from ..ops.cuda.trace_slots import (
+    exit_mode_for,
+    slots_resident_fits,
+    trace_slots,
+)
 from ..ops.gaussian_kernel import ROUGHNESS_DOWNWEIGHT_GRAD_POWER
 from ..ops.intersect import GaussianFrames
 from ..ops.precision import WIDE, dot, norm, rounded
@@ -243,16 +254,65 @@ def _starved(t_drop_ray, t_limit, full_T, alive, transmittance_threshold):
         torch.float32)
 
 
-def check_composite_mode(composite_mode: str, split_far: bool = False) -> None:
-    """Raise for what the port does not render (never a silent fallback)."""
+def check_composite_mode(composite_mode: str) -> None:
+    """Raise for a composite mode the renderer does not have (a typo would
+    otherwise render with the k-buffer kernel)."""
     if composite_mode not in COMPOSITE_MODES:
         raise ValueError(
             f"composite_mode={composite_mode!r}: expected one of "
             "'kbuffer' | 'scan' | 'scanq'")
-    if split_far:
-        raise NotImplementedError(
-            "split_far=True: the two-pass near/far bounce (merge_slots and "
-            "the far pass) is not ported yet")
+
+
+class SplitSphere(NamedTuple):
+    """Split-far's sphere: a near pass keeps the hits before a ray's exit
+    from it, the far pass those beyond.  The partition is exact for any
+    sphere; the sphere decides only how the passes cull."""
+
+    center: torch.Tensor     # [3] f32
+    radius: torch.Tensor     # 0-d f32
+
+
+def _split_sphere(points, valid, scale: float) -> SplitSphere:
+    """Centre the mean of the valid points (summed in WIDE, rounded once),
+    radius `scale` x the median of their distances to it (the element
+    n_valid // 2 of the sorted distances, as JAX indexes it)."""
+    w = valid[:, None].to(WIDE)
+    cnt = torch.clamp(w.sum(), min=1.0)
+    center = ((points.to(WIDE) * w).sum(dim=0) / cnt).to(torch.float32)
+    dist = norm(points - center[None])
+    key = torch.where(valid, dist, torch.full_like(dist, float("inf")))
+    r_med = torch.sort(key).values[torch.clamp(valid.sum() // 2, min=0)]
+    return SplitSphere(center, r_med * torch.tensor(
+        scale, dtype=torch.float32, device=r_med.device))
+
+
+def split_sphere_from_bounds(bounds: ClusterBounds,
+                             scale: float = 1.5) -> SplitSphere:
+    """The training step's sphere, from the valid clusters' centres (JAX
+    raytracer.py:432-448)."""
+    return _split_sphere(bounds.center, bounds.any_valid, scale)
+
+
+def split_sphere_from_frames(frames: GaussianFrames,
+                             scale: float = 1.5) -> SplitSphere:
+    """The frame's sphere, from the live means: the dense scene inside, the
+    far-field shell's bulk outside (JAX raytracer.py:882-896)."""
+    return _split_sphere(frames.mean, frames.valid, scale)
+
+
+def split_exit_t(rays_o, rays_d, sphere: SplitSphere) -> torch.Tensor:
+    """[R] each ray's exit distance from the split sphere (in the ray's own
+    t, as the kernels intersect), 0 for a ray that misses it: everything on
+    such a ray lies in the far pass."""
+    oc = rays_o - sphere.center[None]
+    a2 = dot(rays_d, rays_d)
+    b = dot(rays_d, oc)
+    cc = dot(oc, oc) - sphere.radius * sphere.radius
+    disc = b * b - a2 * cc
+    root = rounded(torch.sqrt, torch.clamp(disc, min=0.0))
+    t = torch.where(disc > 0, (-b + root) / torch.clamp(a2, min=1e-30),
+                    torch.zeros_like(disc))
+    return torch.clamp(t, min=0.0)
 
 
 def _prepare_fused_frame(scene: GaussianScene, camera: CameraParams,
@@ -261,14 +321,17 @@ def _prepare_fused_frame(scene: GaussianScene, camera: CameraParams,
                          height: int, *, jitter: bool, cull_cluster: int,
                          cull_tile_primary: int, num_steps: int,
                          generator: torch.Generator | None = None,
-                         composite_mode: str = "kbuffer"):
+                         composite_mode: str = "kbuffer",
+                         split_far: bool = False,
+                         split_radius_scale: float = 1.5):
     """Morton sort + cluster bounds + gpack, pixel-tile ray ordering and the
     per-step GGX uniforms in tile order.  The frame's randomness is
     `samples`, or drawn from `generator` when that is None.  Scan modes
     also depth-sort each cluster along the camera's forward axis and build
     the frame's scan table once (None where scan_fits says the JAX renderer
-    would composite with the k-buffer kernel).  Returns a dict of
-    everything _fused_bounce_core consumes plus (ray_perm, ray_inv, R)."""
+    would composite with the k-buffer kernel).  With split_far, the split
+    sphere from the live means (else None).  Returns a dict of everything
+    _fused_bounce_core consumes plus (ray_perm, ray_inv, R)."""
     if samples is None:
         if generator is None:
             raise ValueError("a frame needs samples or a generator")
@@ -311,30 +374,50 @@ def _prepare_fused_frame(scene: GaussianScene, camera: CameraParams,
     scene_lo, scene_hi = live_bounds(frames.mean, frames.valid)
     us = samples.us[:, ray_perm]
     rays_o = camera.origin.expand(R, 3)
+    split = (split_sphere_from_frames(frames, split_radius_scale)
+             if split_far else None)
     return dict(gpack=gpack, scan=scan, bounds=bounds, scene_lo=scene_lo,
-                scene_hi=scene_hi, rays_o=rays_o, dirs=dirs, us=us,
-                ray_perm=ray_perm, ray_inv=ray_inv, R=R)
+                scene_hi=scene_hi, split=split, rays_o=rays_o, dirs=dirs,
+                us=us, ray_perm=ray_perm, ray_inv=ray_inv, R=R)
 
 
-def secondary_order(rays_o, rays_d, alive, scene_lo, scene_hi,
-                    group_rays: int | None = None):
-    """(order, inverse) re-tiling a reflected wavefront: a stable sort by
-    (group, liveness, origin Morton cell, direction bin), so tile cones stay
-    tight and dead tiles skip.  With `group_rays`, rays stay inside their
-    consecutive groups of that many (the training step's ray tiles, which
-    the JAX package traces one at a time)."""
-    pos_bits = morton_codes(rays_o, scene_lo, scene_hi, bits=5)
-    qd = torch.clamp((rays_d * 0.5 + 0.5) * 4.0, 0, 3).to(torch.int64)
-    dir_bits = (qd[:, 0] << 4) | (qd[:, 1] << 2) | qd[:, 2]
-    keys = torch.where(alive, 0, 1 << 26) | (pos_bits << 6) | dir_bits
-    R = rays_o.shape[0]
-    index = torch.arange(R, device=rays_o.device)
+def _sorted_by(keys, alive, group_rays: int | None):
+    """(order, inverse) of a stable sort by (group, liveness, keys < 2^26).
+    With `group_rays`, rays stay inside their consecutive groups of that
+    many (the training step's ray tiles, which the JAX package traces one
+    at a time)."""
+    keys = torch.where(alive, 0, 1 << 26) | keys
+    R = keys.shape[0]
+    index = torch.arange(R, device=keys.device)
     if group_rays is not None:
         keys = keys | ((index // group_rays) << 27)
     order = torch.sort(keys, stable=True).indices
     inv_order = torch.empty_like(order)
     inv_order[order] = index
     return order, inv_order
+
+
+def secondary_order(rays_o, rays_d, alive, scene_lo, scene_hi,
+                    group_rays: int | None = None):
+    """(order, inverse) re-tiling a reflected wavefront: a stable sort by
+    (group, liveness, origin Morton cell, direction bin), so tile cones stay
+    tight and dead tiles skip."""
+    pos_bits = morton_codes(rays_o, scene_lo, scene_hi, bits=5)
+    qd = torch.clamp((rays_d * 0.5 + 0.5) * 4.0, 0, 3).to(torch.int64)
+    dir_bits = (qd[:, 0] << 4) | (qd[:, 1] << 2) | qd[:, 2]
+    return _sorted_by((pos_bits << 6) | dir_bits, alive, group_rays)
+
+
+def far_order(rays_o, rays_d, alive, scene_lo, scene_hi,
+              group_rays: int | None = None):
+    """(order, inverse) of split-far's far pass over a reflected wavefront:
+    by (group, liveness, direction Morton cell, coarse origin cell).  The
+    far-field shell lies at a near-constant distance, so a tile of rays of
+    one direction sees few of its clusters (JAX raytracer.py:554-570)."""
+    one = torch.ones(3, dtype=rays_d.dtype, device=rays_d.device)
+    dirm = morton_codes(rays_d, -one, one, bits=5)
+    posm = morton_codes(rays_o, scene_lo, scene_hi, bits=2)
+    return _sorted_by((dirm << 6) | posm, alive, group_rays)
 
 
 class KernelCall(NamedTuple):
@@ -348,6 +431,17 @@ class KernelCall(NamedTuple):
     inv_order: torch.Tensor | None  # output row of each canonical ray
     tdrop_ray: torch.Tensor         # first dropped cluster's near distance,
                                     # per ray in canonical order
+
+
+class SplitCalls(NamedTuple):
+    """One split bounce of the training forward: its near (window 1) and
+    far (window 2) slots calls and each pass's starved flags [R],
+    canonical order."""
+
+    near: KernelCall
+    far: KernelCall
+    starved_near: torch.Tensor
+    starved_far: torch.Tensor
 
 
 def center_depth_order(rays_o, rays_d, cands, cnear, centers, tile: int):
@@ -375,22 +469,31 @@ def kernel_call(rays_o, rays_d, alive, step: int, gpack, bounds, scene_lo,
                 max_clusters: int, max_clusters_secondary: int | None,
                 cull_tile_secondary: int, cull_tile_primary: int,
                 scan=None, kernel_stats: bool = True,
-                attr_precision: str = "highest") -> KernelCall:
+                attr_precision: str = "highest", t_split=None,
+                window_mode: int = 0) -> KernelCall:
     """Order the wavefront of bounce `step`, cull per tile, and assemble
     the render kernel's call: render_scan over the frame's scan table
     `scan` when there is one (scan modes within scan_fits), else
-    render_culled."""
+    render_culled.  window_mode 1 / 2 is split-far's near / far pass over
+    the rays' split distances `t_split` [R] (canonical order): each tile
+    culls up to its rays' largest split distance / from their smallest,
+    and a far pass re-sorts reflected rays by direction (far_order)."""
     near = znear if step == 0 else 0.0
     inv_order = None
     if step > 0:
-        order, inv_order = secondary_order(rays_o, rays_d, alive, scene_lo,
-                                           scene_hi)
+        sort = far_order if window_mode == 2 else secondary_order
+        order, inv_order = sort(rays_o, rays_d, alive, scene_lo, scene_hi)
         rays_o, rays_d, alive = rays_o[order], rays_d[order], alive[order]
+        if t_split is not None:
+            t_split = t_split[order]
     mc = (max_clusters if step == 0 or max_clusters_secondary is None
           else max_clusters_secondary)
     tile = cull_tile_primary if step == 0 else cull_tile_secondary
+    cull_near, cull_far = window_bounds(near, zfar, t_split, window_mode,
+                                        tile)
     cands, cnear, _num, _ovf, tdrop = select_candidates(
-        rays_o, rays_d, bounds, near, zfar, tile=tile, max_clusters=mc)
+        rays_o, rays_d, bounds, cull_near, cull_far, tile=tile,
+        max_clusters=mc)
     tdrop_ray = tdrop.repeat_interleave(tile)
     if inv_order is not None:
         tdrop_ray = tdrop_ray[inv_order]
@@ -400,6 +503,8 @@ def kernel_call(rays_o, rays_d, alive, step: int, gpack, bounds, scene_lo,
         max_hits=max_hits, cluster=cull_cluster, tile=tile, alive=alive,
         # the backfacing test only applies to reflected rays
         secondary_static=1 if step > 0 else 0)
+    if window_mode:
+        kwargs.update(t_split=t_split.contiguous(), window_mode=window_mode)
     if scan is not None:
         # the k-buffer's exit needs near-sorted lists; the scan takes them
         # in centre-depth order, so they are re-sorted for it alone
@@ -416,6 +521,18 @@ def kernel_call(rays_o, rays_d, alive, step: int, gpack, bounds, scene_lo,
             settings.backfacing_max_dist,
             settings.backfacing_invalid_normal_threshold)
     return KernelCall(kernel, args, kwargs, inv_order, tdrop_ray)
+
+
+def window_bounds(near, far, t_split, window_mode: int, tile: int):
+    """The depth window each cull tile's list covers: (near, far), or with
+    split-far's window per tile (near, the tile's largest t_split) for a
+    near pass and (its smallest t_split, far) for a far pass (JAX
+    raytracer.py:546,571)."""
+    if window_mode == 1:
+        return near, t_split.reshape(-1, tile).amax(dim=1)
+    if window_mode == 2:
+        return t_split.reshape(-1, tile).amin(dim=1), far
+    return near, far
 
 
 def next_wavefront(normal, roughness, depth, f0, rays_o, rays_d, throughput,
@@ -448,11 +565,22 @@ def bounce_epilogue(out, call: KernelCall, rays_o, rays_d, throughput, alive,
     throughput, alive), all in canonical ray order.  float32 under the
     rules of ops/precision.py, so the next wavefront is the same on every
     device (near-mirror bounces amplify ulp differences ~10x per bounce)."""
-    if call.inv_order is not None:
-        out = out[call.inv_order]
-    comp = unpack_composite(out)
+    comp = unpack_composite(canonical(out, call))
     starved = _starved(call.tdrop_ray, zfar, comp["full_T"], alive,
                        settings.transmittance_threshold)
+    return composite_epilogue(comp, starved, rays_o, rays_d, throughput,
+                              alive, u, step, settings)
+
+
+def canonical(out, call: KernelCall):
+    """A kernel's output rows in canonical ray order."""
+    return out if call.inv_order is None else out[call.inv_order]
+
+
+def composite_epilogue(comp: dict, starved, rays_o, rays_d, throughput,
+                       alive, u, step: int, settings: RenderSettings):
+    """bounce_epilogue from a bounce's composite fields (canonical order)
+    and its starved flags."""
     rgb = comp["rgb"] if step == 0 else comp["rgb"] * throughput
     next_origin, next_dir, next_throughput, next_alive = next_wavefront(
         comp["normal"], comp["roughness"], comp["depth"], comp["f0"], rays_o,
@@ -468,26 +596,78 @@ def bounce_epilogue(out, call: KernelCall, rays_o, rays_d, throughput, alive,
     return record, (next_origin, next_dir, next_throughput, next_alive)
 
 
+def split_bounce(rays_o, rays_d, alive, step: int, gpack, bounds, scene_lo,
+                 scene_hi, settings: RenderSettings, znear: float,
+                 zfar: float, split: SplitSphere, *, mc_far: int,
+                 max_hits_far: int, **pass_kw):
+    """One bounce of a split-far frame (JAX raytracer.py:1125-1185): the
+    near pass (window 1), then the far pass (window 2, `mc_far`
+    candidates, K `max_hits_far` or the near K) of the rays the near pass
+    left unsaturated, combined exactly behind the near pass's full_T (every
+    far hit lies behind every near hit; the composite's fields are linear
+    in the per-hit weights).  Returns (the composite fields, the starved
+    flags: the larger of the two passes', each pass's own composite
+    fields and its starved flags under "starved" (near, far)), canonical
+    order."""
+    thr = settings.transmittance_threshold
+    ts = split_exit_t(rays_o, rays_d, split)
+    common = (step, gpack, bounds, scene_lo, scene_hi, settings, znear, zfar)
+    call_n = kernel_call(rays_o, rays_d, alive, *common, t_split=ts,
+                         window_mode=1, **pass_kw)
+    comp_n = unpack_composite(canonical(
+        call_n.kernel(*call_n.args, **call_n.kwargs), call_n))
+    alive_f = alive & (comp_n["full_T"] > thr)
+    far_kw = dict(pass_kw, max_clusters=mc_far, max_clusters_secondary=None,
+                  max_hits=max_hits_far or pass_kw["max_hits"])
+    call_f = kernel_call(rays_o, rays_d, alive_f, *common, t_split=ts,
+                         window_mode=2, **far_kw)
+    comp_f = unpack_composite(canonical(
+        call_f.kernel(*call_f.args, **call_f.kwargs), call_f))
+    fTn = comp_n["full_T"]
+    comp = {k: comp_n[k] + (fTn[:, None] if comp_n[k].ndim == 2 else fTn)
+            * comp_f[k] for k in ("rgb", "normal", "f0", "roughness",
+                                  "depth")}
+    comp.update(T_final=comp_n["T_final"] * comp_f["T_final"],
+                full_T=fTn * comp_f["full_T"])
+    comp_n["starved"] = _starved(call_n.tdrop_ray, ts, fTn, alive, thr)
+    comp_f["starved"] = _starved(call_f.tdrop_ray, zfar, comp["full_T"],
+                                 alive_f, thr)
+    starved = torch.maximum(comp_n["starved"], comp_f["starved"])
+    return comp, starved, (comp_n, comp_f)
+
+
 def _fused_bounce_core(rays_o, rays_d, us, gpack, bounds, scene_lo, scene_hi,
                        settings: RenderSettings, znear: float, zfar: float, *,
-                       num_bounces: int, **pass_kw):
+                       num_bounces: int, split: SplitSphere | None = None,
+                       mc_far: int = 32, max_hits_far: int = 0, **pass_kw):
     """The per-bounce wavefront loop over a prepared, tile-ordered ray batch
     (rays_o/rays_d [Rp, 3], us [num_steps, Rp, 2]); `pass_kw` are
-    kernel_call's keyword options.  Returns (StepOutputs [S, Rp, ...],
-    final [Rp, 3]) in the given order."""
+    kernel_call's keyword options.  With a split sphere every bounce is
+    split_bounce's two passes.  Returns (StepOutputs [S, Rp, ...], final
+    [Rp, 3]) in the given order."""
     Rp = rays_o.shape[0]
     dev = rays_o.device
     alive = torch.ones((Rp,), dtype=torch.bool, device=dev)
     throughput = torch.ones((Rp, 3), dtype=torch.float32, device=dev)
     outs = []
     for step in range(num_bounces + 1):
-        call = kernel_call(rays_o, rays_d, alive, step, gpack, bounds,
-                           scene_lo, scene_hi, settings, znear, zfar,
-                           **pass_kw)
-        out = call.kernel(*call.args, **call.kwargs)
-        record, (rays_o, rays_d, throughput, alive) = bounce_epilogue(
-            out, call, rays_o, rays_d, throughput, alive, us[step], step,
-            settings, zfar)
+        if split is None:
+            call = kernel_call(rays_o, rays_d, alive, step, gpack, bounds,
+                               scene_lo, scene_hi, settings, znear, zfar,
+                               **pass_kw)
+            out = call.kernel(*call.args, **call.kwargs)
+            record, nxt = bounce_epilogue(
+                out, call, rays_o, rays_d, throughput, alive, us[step], step,
+                settings, zfar)
+        else:
+            comp, starved, _passes = split_bounce(
+                rays_o, rays_d, alive, step, gpack, bounds, scene_lo,
+                scene_hi, settings, znear, zfar, split, mc_far=mc_far,
+                max_hits_far=max_hits_far, **pass_kw)
+            record, nxt = composite_epilogue(
+                comp, starved, rays_o, rays_d, throughput, alive, us[step],
+                step, settings)
+        rays_o, rays_d, throughput, alive = nxt
         outs.append(record)
 
     stacked = StepOutputs(**{k: torch.stack([o[k] for o in outs], dim=0)
@@ -499,14 +679,16 @@ def padded_ray_count(R: int, max_clusters: int,
                      max_clusters_secondary: int | None,
                      cull_tile_primary: int, cull_tile_secondary: int,
                      rays_per_call: int = 65536,
-                     composite_mode: str = "kbuffer") -> int:
+                     composite_mode: str = "kbuffer",
+                     mc_far: int = 0) -> int:
     """Rays after the JAX renderer's padding rule: R rounded up to a
     multiple of its per-call ray count (raytracer.py:1332-1363).  The padded
     rays (copies of the leading rays) join the secondary re-sort, so they
     change tile membership; keeping the rule keeps the result equal to the
     JAX render.  The cap itself came from a TPU scalar-memory budget, 8
     bytes per candidate for the k-buffer kernels and 4 for the scan
-    kernels' packed word."""
+    kernels' packed word; `mc_far` is a split frame's far-pass budget (0
+    without split-far)."""
     rays_per_call = min(rays_per_call, R)
 
     def pad8(m):
@@ -515,7 +697,8 @@ def padded_ray_count(R: int, max_clusters: int,
     cand_bytes = 4.0 if composite_mode in SCAN_MODES else 8.0
     per_ray = max(pad8(max_clusters) / cull_tile_primary,
                   pad8(max_clusters_secondary or max_clusters)
-                  / cull_tile_secondary) * cand_bytes
+                  / cull_tile_secondary,
+                  pad8(mc_far) / cull_tile_secondary) * cand_bytes
     tile_lcm = max(cull_tile_primary, cull_tile_secondary)
     cap = max(tile_lcm, int(0.4 * 2**20 / per_ray) // tile_lcm * tile_lcm)
     rays_per_call = min(rays_per_call, cap)
@@ -540,6 +723,9 @@ def render_frame_fused(
     cull_tile_secondary: int = 256,
     cull_tile_primary: int = 256,
     split_far: bool = False,
+    mc_far: int = 32,
+    split_radius_scale: float = 1.5,
+    max_hits_far: int = 0,
     composite_mode: str = "kbuffer",
     samples: FrameSamples | None = None,
     kernel_stats: bool = True,
@@ -547,7 +733,11 @@ def render_frame_fused(
 ):
     """Whole-frame render where each bounce is one render kernel launch:
     render_culled (composite_mode "kbuffer") or render_scan ("scan": direct
-    pair math; "scanq": quadric), module docstring.
+    pair math; "scanq": quadric), module docstring.  split_far=True makes
+    every bounce two launches of that kernel (split_bounce): the far pass
+    with `mc_far` candidates and K `max_hits_far` (0: the near K), the
+    split sphere's radius `split_radius_scale` x the median live distance
+    from the live centroid.
 
     `kernel_stats=False` compiles the scan kernels' counters out (lanes
     num_accumulated, num_traversed, chunks read zero; every other output is
@@ -558,7 +748,7 @@ def render_frame_fused(
     the scene capacity padded to cull_cluster (fused_path_ok).  Returns
     (StepOutputs [S, H*W, ...], final [H*W, 3]) in linear pixel order, on
     the scene's device."""
-    check_composite_mode(composite_mode, split_far)
+    check_composite_mode(composite_mode)
     if attr_precision not in ATTR_PRECISIONS:
         raise ValueError(f"attr_precision={attr_precision!r}: expected one "
                          f"of {ATTR_PRECISIONS}")
@@ -567,14 +757,16 @@ def render_frame_fused(
         scene, camera, settings, samples, width, height, jitter=jitter,
         cull_cluster=cull_cluster, cull_tile_primary=cull_tile_primary,
         num_steps=num_bounces + 1, generator=generator,
-        composite_mode=composite_mode)
+        composite_mode=composite_mode, split_far=split_far,
+        split_radius_scale=split_radius_scale)
     dirs, us, ray_inv, R = prep["dirs"], prep["us"], prep["ray_inv"], prep["R"]
     if R % 256:
         raise ValueError(f"{width}x{height}: pixel count must be a multiple "
                          "of 256")
     Rp = padded_ray_count(R, max_clusters, max_clusters_secondary,
                           cull_tile_primary, cull_tile_secondary,
-                          rays_per_call, composite_mode)
+                          rays_per_call, composite_mode,
+                          mc_far if split_far else 0)
     pad = Rp - R
     if pad:
         # duplicate leading rays into the padded tail (sliced off below);
@@ -592,7 +784,8 @@ def render_frame_fused(
         max_clusters_secondary=max_clusters_secondary,
         cull_tile_secondary=cull_tile_secondary,
         cull_tile_primary=cull_tile_primary, scan=prep["scan"],
-        kernel_stats=kernel_stats, attr_precision=attr_precision)
+        kernel_stats=kernel_stats, attr_precision=attr_precision,
+        split=prep["split"], mc_far=mc_far, max_hits_far=max_hits_far)
     unpad = StepOutputs(*(a[:, :R][:, ray_inv] for a in stacked))
     return unpad, final[:R][ray_inv]
 
@@ -1071,19 +1264,27 @@ def slots_call(rays_o, rays_d, alive, step: int, gpack, table, ftable,
                settings: RenderSettings, znear: float, zfar: float, *,
                max_hits: int, cull_tile: int, cull_cluster: int,
                max_clusters: int, n_capacity: int, exp_power_static: float,
-               tile_rays: int | None) -> KernelCall:
+               tile_rays: int | None, t_split=None,
+               window_mode: int = 0) -> KernelCall:
     """Order the wavefront of bounce `step` (reflected rays re-sorted within
     their `tile_rays` groups), cull per tile, and assemble trace_slots'
     arguments, with the exit mode of the Pallas kernel the JAX dispatch
-    would run for this capacity."""
+    would run for this capacity.  window_mode 1 / 2: split-far's near / far
+    pass over the rays' split distances `t_split` [R] (canonical order), as
+    kernel_call takes them."""
     near = znear if step == 0 else 0.0
     inv_order = None
     if step > 0:
-        order, inv_order = secondary_order(rays_o, rays_d, alive, scene_lo,
-                                           scene_hi, tile_rays)
+        sort = far_order if window_mode == 2 else secondary_order
+        order, inv_order = sort(rays_o, rays_d, alive, scene_lo, scene_hi,
+                                tile_rays)
         rays_o, rays_d, alive = rays_o[order], rays_d[order], alive[order]
+        if t_split is not None:
+            t_split = t_split[order]
+    cull_near, cull_far = window_bounds(near, zfar, t_split, window_mode,
+                                        cull_tile)
     cands, cnear, _n, _ovf, tdrop = select_candidates(
-        rays_o, rays_d, bounds, near, zfar, tile=cull_tile,
+        rays_o, rays_d, bounds, cull_near, cull_far, tile=cull_tile,
         max_clusters=max_clusters)
     tdrop_ray = tdrop.repeat_interleave(cull_tile)
     if inv_order is not None:
@@ -1098,7 +1299,24 @@ def slots_call(rays_o, rays_d, alive, step: int, gpack, table, ftable,
         max_hits=max_hits, cluster=cull_cluster, tile=cull_tile, alive=alive,
         secondary_static=1 if step > 0 else 0, exit_mode=exit_mode,
         check_every=check_every)
+    if window_mode:
+        kwargs.update(t_split=t_split.contiguous(), window_mode=window_mode)
     return KernelCall(trace_slots, args, kwargs, inv_order, tdrop_ray)
+
+
+def far_hits(max_hits: int, max_hits_far: int = 0) -> int:
+    """Split-far's far-pass slots a ray in the training step: max_hits_far,
+    or max(8, max_hits // 2) for 0 (JAX raytracer.py:431)."""
+    return max_hits_far or max(8, max_hits // 2)
+
+
+def traced_slots(call: KernelCall):
+    """A slots call's (slots, acc), rows in canonical ray order."""
+    slots, acc = call.kernel(*call.args, **call.kwargs)
+    if call.inv_order is not None:
+        # everything downstream is row-local: back to canonical order
+        slots, acc = slots[call.inv_order], acc[call.inv_order]
+    return slots, acc
 
 
 def fused_forward(
@@ -1106,32 +1324,54 @@ def fused_forward(
     us: torch.Tensor, num_bounces: int, max_hits: int, *, gpack, table,
     ftable, bounds: ClusterBounds, cull_tile: int, cull_cluster: int,
     max_clusters: int, n_capacity: int, exp_power_static: float = 3.0,
-    tile_rays: int | None = None,
+    tile_rays: int | None = None, split_far: bool = False,
+    mc_far: int = 32, max_hits_far: int = 0,
+    split_radius_scale: float = 1.5,
 ):
     """The training forward: per bounce one trace_slots launch, then the
     composite and the GGX epilogue on the [R, K] slots, all rows in
-    canonical order.  Returns (StepOutputs [S, R, ...], final rgb [R, 3],
-    per-bounce residuals (hits, comp, attrs, frames), per-bounce
-    KernelCalls)."""
+    canonical order.  split_far (where slots_resident_fits holds, as in
+    JAX; else one pass) makes every bounce two launches, the near pass
+    (window 1, K slots) and the far pass of the rays it left unsaturated
+    (window 2, `mc_far` candidates, far_hits(K, max_hits_far) slots),
+    merged into K + K_far slots a ray (merge_slots), which the composite
+    and the backward take as they are (JAX raytracer.py:397-603).  Returns
+    (StepOutputs [S, R, ...], final rgb [R, 3], per-bounce residuals
+    (hits, comp, attrs, frames), per-bounce KernelCalls: SplitCalls
+    where split)."""
     R = rays_o.shape[0]
     K = max_hits
     dev = rays_o.device
     scene_lo, scene_hi = scene_box(bounds)
     alive = torch.ones((R,), dtype=torch.bool, device=dev)
     throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
+    thr = settings.transmittance_threshold
+    split = (split_sphere_from_bounds(bounds, split_radius_scale)
+             if split_far and slots_resident_fits(n_capacity) else None)
+    Kf = far_hits(K, max_hits_far) if split is not None else 0
     outs, residuals, calls = [], [], []
     for step in range(num_bounces + 1):
-        call = slots_call(
-            rays_o, rays_d, alive, step, gpack, table, ftable, bounds,
-            scene_lo, scene_hi, settings, znear, zfar, max_hits=K,
-            cull_tile=cull_tile, cull_cluster=cull_cluster,
-            max_clusters=max_clusters, n_capacity=n_capacity,
-            exp_power_static=exp_power_static, tile_rays=tile_rays)
-        slots, acc = call.kernel(*call.args, **call.kwargs)
-        if call.inv_order is not None:
-            # everything downstream is row-local: back to canonical order
-            slots, acc = slots[call.inv_order], acc[call.inv_order]
-        hits_d, attrs_d, frames_d = unpack_slots(slots, acc, K, rays_o,
+        kw = dict(max_hits=K, cull_tile=cull_tile, cull_cluster=cull_cluster,
+                  max_clusters=max_clusters, n_capacity=n_capacity,
+                  exp_power_static=exp_power_static, tile_rays=tile_rays)
+        common = (step, gpack, table, ftable, bounds, scene_lo, scene_hi,
+                  settings, znear, zfar)
+        if split is None:
+            call = slots_call(rays_o, rays_d, alive, *common, **kw)
+            slots, acc = traced_slots(call)
+        else:
+            ts = split_exit_t(rays_o, rays_d, split)
+            call_n = slots_call(rays_o, rays_d, alive, *common, t_split=ts,
+                                window_mode=1, **kw)
+            slots_n, acc_n = traced_slots(call_n)
+            T_near = rounded(torch.exp, acc_n[:, 0])
+            alive_far = alive & (T_near > thr)
+            call_f = slots_call(rays_o, rays_d, alive_far, *common,
+                                t_split=ts, window_mode=2,
+                                **dict(kw, max_hits=Kf, max_clusters=mc_far))
+            slots_f, acc_f = traced_slots(call_f)
+            slots, acc = merge_slots(slots_n, acc_n, slots_f, acc_f, K, Kf)
+        hits_d, attrs_d, frames_d = unpack_slots(slots, acc, K + Kf, rays_o,
                                                  rays_d)
         hits = RayHits(**hits_d)
         comp = composite(hits, attrs_d["rgb"], attrs_d["normal"],
@@ -1139,8 +1379,18 @@ def fused_forward(
                          settings.transmittance_threshold,
                          settings.eps_forward_normalization)
         residuals.append((hits, comp, attrs_d, frames_d))
-        calls.append(call)
 
+        if split is None:
+            starved = _starved(call.tdrop_ray, zfar, comp.full_T, alive, thr)
+        else:
+            # the near pass's window ends at each ray's own split distance
+            call = SplitCalls(
+                call_n, call_f,
+                _starved(call_n.tdrop_ray, ts, T_near, alive, thr),
+                _starved(call_f.tdrop_ray, zfar, comp.full_T, alive_far,
+                         thr))
+            starved = torch.maximum(call.starved_near, call.starved_far)
+        calls.append(call)
         rgb_step = comp.rgb if step == 0 else comp.rgb * throughput
         next_origin, next_dir, next_throughput, next_alive = next_wavefront(
             comp.normal, comp.roughness, comp.depth, comp.f0, rays_o, rays_d,
@@ -1150,8 +1400,7 @@ def fused_forward(
             roughness=comp.roughness, depth=comp.depth,
             transmittance=comp.T_final, total_transmittance=comp.full_T,
             throughput=next_throughput, alive=alive.to(torch.float32),
-            overflow=_starved(call.tdrop_ray, zfar, comp.full_T, alive,
-                              settings.transmittance_threshold)))
+            overflow=starved))
         rays_o, rays_d = next_origin, next_dir
         throughput, alive = next_throughput, next_alive
 
@@ -1196,7 +1445,8 @@ def render_tile_with_grads_fused(
     max_hits: int, *, gpack, table, ftable, bounds: ClusterBounds,
     cull_tile: int, cull_cluster: int, max_clusters: int, n_capacity: int,
     exp_power_static: float = 3.0, use_mxu_scatter: bool = False,
-    split_far: bool = False, tile_rays: int | None = None,
+    split_far: bool = False, mc_far: int = 32, max_hits_far: int = 0,
+    split_radius_scale: float = 1.5, tile_rays: int | None = None,
     grad_acc: torch.Tensor | None = None,
 ):
     """Forward + loss-fused backward of a batch of rays via the slots kernel.
@@ -1219,21 +1469,21 @@ def render_tile_with_grads_fused(
     caller rounds them once (grads_from_accumulator).  Without it the
     function makes its own and returns the rounded ParamGrads; with it the
     third return value is None.  `use_mxu_scatter` selects the same scatter
-    kernel: the port has no separate one-hot form.  split_far=True raises.
+    kernel: the port has no separate one-hot form.  split_far, mc_far,
+    max_hits_far and split_radius_scale: fused_forward's two-pass bounce;
+    the scatter then takes K + K_far slots a ray.
 
     Returns (StepOutputs [S, R, ...], final rgb [R, 3], ParamGrads | None).
     """
-    if split_far:
-        raise NotImplementedError(
-            "split_far=True: the two-pass near/far bounce (merge_slots, "
-            "window modes 1/2 and the far pass) is not ported yet")
     del use_mxu_scatter  # one scatter kernel serves both JAX forms
     steps, final, residuals, _calls = fused_forward(
         rays_o, rays_d, settings, znear, zfar, us, num_bounces, max_hits,
         gpack=gpack, table=table, ftable=ftable, bounds=bounds,
         cull_tile=cull_tile, cull_cluster=cull_cluster,
         max_clusters=max_clusters, n_capacity=n_capacity,
-        exp_power_static=exp_power_static, tile_rays=tile_rays)
+        exp_power_static=exp_power_static, tile_rays=tile_rays,
+        split_far=split_far, mc_far=mc_far, max_hits_far=max_hits_far,
+        split_radius_scale=split_radius_scale)
     payload, ids = hit_grads(steps, residuals, targets, settings,
                              num_bounces, n_capacity)
     acc = grad_acc

@@ -49,6 +49,8 @@ def default_backend_kwargs(cfg) -> dict:
     """dispatch_render_frame's culling and composite options from a Config
     (render.py:38-60).
 
+    The split-far options (split_far, mc_far, max_hits_far,
+    split_radius_scale) reach the fused path only, as in JAX.
     cfg.backend "xla" renders as the JAX package's XLA path does: unculled,
     through the k-buffer composite, without split-far - here the brute
     trace_hits, which JAX holds equal to its XLA trace.  "auto" and
@@ -63,18 +65,21 @@ def default_backend_kwargs(cfg) -> dict:
                 max_clusters=cfg.max_clusters,
                 max_clusters_secondary=cfg.max_clusters_secondary or None,
                 cull_tile_secondary=cfg.cull_tile_secondary,
-                split_far=cfg.split_far,
+                split_far=cfg.split_far, mc_far=cfg.mc_far,
+                max_hits_far=cfg.max_hits_far,
+                split_radius_scale=cfg.split_radius_scale,
                 composite_mode=cfg.composite_mode)
 
 
 def nonfused_kwargs(cfg) -> dict:
     """render_frame's options (render_accumulated's, fused=False) from a
     Config: default_backend_kwargs' culling options without the fused-path
-    knobs.  split_far and unknown composite modes raise, as in the
-    dispatch; a scan mode has no non-fused form and renders the k-buffer
-    here, as in the JAX package."""
+    knobs (split-far's among them: the non-fused render has no split, as
+    in JAX).  Unknown composite modes raise, as in the dispatch; a scan
+    mode has no non-fused form and renders the k-buffer here, as in the
+    JAX package."""
     bk = default_backend_kwargs(cfg)
-    check_composite_mode(bk["composite_mode"], bk["split_far"])
+    check_composite_mode(bk["composite_mode"])
     return {k: bk[k] for k in ("use_culling", "cull_tile", "cull_cluster",
                                "max_clusters") if k in bk}
 
@@ -92,7 +97,9 @@ def dispatch_render_frame(scene: GaussianScene, cam: CameraParams,
                           max_clusters_secondary: int | None = None,
                           cull_tile_secondary: int = 256,
                           cull_tile_primary: int = 256,
-                          split_far: bool = False,
+                          split_far: bool = False, mc_far: int = 32,
+                          max_hits_far: int = 0,
+                          split_radius_scale: float = 1.5,
                           composite_mode: str = "kbuffer",
                           kernel_stats: bool = True,
                           attr_precision: str = "highest"):
@@ -106,10 +113,10 @@ def dispatch_render_frame(scene: GaussianScene, cam: CameraParams,
     `samples` is a FrameSamples (us [S, H*W, 2]) for the fused path and a
     TileSamples (us [T, S, tile, 2]) for render_frame.  max_clusters None
     takes each path's own default (64 fused, 192 non-fused).  The fused-path
-    knobs (secondary budget, both cull tiles, composite mode, kernel_stats,
-    attr_precision) are not read by render_frame; chunk and tile are not
-    read by the fused path.  split_far and unknown composite modes raise."""
-    check_composite_mode(composite_mode, split_far)
+    knobs (secondary budget, both cull tiles, split-far, composite mode,
+    kernel_stats, attr_precision) are not read by render_frame; chunk and
+    tile are not read by the fused path.  Unknown composite modes raise."""
+    check_composite_mode(composite_mode)
     if use_culling and fused_path_ok(scene, W, H, cull_cluster,
                                      composite_mode):
         return render_frame_fused(
@@ -118,7 +125,9 @@ def dispatch_render_frame(scene: GaussianScene, cam: CameraParams,
             max_clusters=64 if max_clusters is None else max_clusters,
             max_clusters_secondary=max_clusters_secondary,
             cull_tile_secondary=cull_tile_secondary,
-            cull_tile_primary=cull_tile_primary,
+            cull_tile_primary=cull_tile_primary, split_far=split_far,
+            mc_far=mc_far, max_hits_far=max_hits_far,
+            split_radius_scale=split_radius_scale,
             composite_mode=composite_mode, samples=samples,
             kernel_stats=kernel_stats, attr_precision=attr_precision)
     return render_frame(

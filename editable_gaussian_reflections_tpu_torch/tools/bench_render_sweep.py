@@ -19,9 +19,9 @@ A configuration is mcp:mcs[:tile_s[:tile_p]][:sN[:kM]][:tcN]
 {"best_honest": ...}.  With --out the best honest record (the row, K and
 cluster) is written there, as bench.py reads artifacts/bench_best.json;
 the tool never writes that file itself.  It runs on the card; --device cpu
-runs the kernels' plain versions (small sizes only).  Split-far (sN) is not
-ported: such a configuration raises in the render and prints an error row.
-The JAX tool's shrinking of rays_per_call to a TPU's scalar memory has no
+runs the kernels' plain versions (small sizes only).  A split-far
+configuration (sN, kM) renders each bounce in two passes (the far pass's K
+is kM, or max_hits for k0).  The JAX tool's shrinking of rays_per_call to a TPU's scalar memory has no
 counterpart here.
 """
 
@@ -77,15 +77,6 @@ def parse_render_config(cfg: str) -> dict:
     )
 
 
-def frame_kwargs(fused_kw: dict) -> dict:
-    """parse_render_config's keywords as the port's renders take them:
-    mc_far and max_hits_far size split-far's far pass, which the port has
-    not ported (split_far=True raises in the render), so they are dropped;
-    split_far itself is kept."""
-    return {k: v for k, v in fused_kw.items()
-            if k not in ("mc_far", "max_hits_far")}
-
-
 def synchronize(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -106,7 +97,7 @@ def run_config(scene, camera, W, H, cfg: str, max_hits: int, cluster: int,
     cfg_kw = parse_render_config(cfg)
     tcut = cfg_kw.pop("throughput_cutoff")
     settings = RenderSettings(secondary_throughput_threshold=tcut)
-    kw = dict(frame_kwargs(cfg_kw), num_bounces=2, max_hits=max_hits,
+    kw = dict(cfg_kw, num_bounces=2, max_hits=max_hits,
               cull_cluster=cluster, rays_per_call=rays_per_call)
     dev = scene.xyz.device
     samples = draw_samples(gen, W, H, 3)
@@ -164,12 +155,8 @@ def main(argv=None) -> dict | None:
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
     for cfg in args.configs.split(","):
-        try:
-            row = run_config(scene, camera, W, H, cfg, args.max_hits,
-                             args.cluster, args.rays_per_call, args.iters,
-                             gen)
-        except NotImplementedError as e:   # split-far is not ported
-            row = dict(mc=cfg, error=str(e)[-300:])
+        row = run_config(scene, camera, W, H, cfg, args.max_hits,
+                         args.cluster, args.rays_per_call, args.iters, gen)
         rows.append(row)
         print(json.dumps(row), flush=True)
     best = best_honest(rows)

@@ -14,8 +14,8 @@ at the real 16x16-pixel tiles.
 A configuration is mode:cluster:max_hits:mc_prim:mc_sec[:key=val...] with
 the keys tsec=N (cull_tile_secondary), tcut=F (secondary throughput
 cutoff), ns=1 (kernel_stats off), ap=bf16 (scanq's bf16 attributes),
-far=N and kfar=N (split-far, not ported: such a configuration raises in the
-render and prints an error row).  One JSON row per configuration, then the
+far=N and kfar=N (split-far: mc_far max(N, 32), as the JAX tool takes it,
+and the far pass's K, 0 for max_hits).  One JSON row per configuration, then the
 fastest honest one (starved below 1% on every pass, at least 27 dB against
 the k-buffer) in parse_render_config's form ({"best_honest": ...}); the
 tool writes no file.  It runs on the card; --device cpu runs the kernels'
@@ -78,6 +78,7 @@ def run_config(scene, camera, W, H, bounces, p, iters, samples, gen):
     kw = dict(num_bounces=bounces, max_hits=p["k"], cull_cluster=p["cl"],
               max_clusters=p["mcp"], max_clusters_secondary=p["mcs"],
               composite_mode=p["mode"], split_far=p["mc_far"] > 0,
+              mc_far=max(p["mc_far"], 32), max_hits_far=p["kfar"],
               cull_tile_secondary=p["tsec"], kernel_stats=not p["nstats"],
               attr_precision=p["ap"])
     steps, final = render_frame_fused(scene, camera, settings, None, W, H,
@@ -118,13 +119,8 @@ def main(argv=None) -> list:
     ref, results = None, []
     for cfg in args.configs.split(","):
         p = parse_config(cfg)
-        try:
-            row, final = run_config(scene, camera, W, H, args.bounces, p,
-                                    args.iters, samples, gen)
-        except NotImplementedError as e:   # split-far is not ported
-            print(json.dumps({"cfg": cfg, "error": str(e)[-200:]}),
-                  flush=True)
-            continue
+        row, final = run_config(scene, camera, W, H, args.bounces, p,
+                                args.iters, samples, gen)
         row = {"cfg": cfg, **row}
         if ref is None:
             ref = final

@@ -11,7 +11,8 @@ room_scene(175_000), as tools/fused_setup.py's training_step sets it up
 The first step (the kernels' build included) is timed apart, then `iters`
 steps, the host clock ending in torch.cuda.synchronize().  The JAX tool's
 --xla-scatter and --mxu-scatter A/B has no counterpart: the port's step has
-one scatter route (csrc/scatter_grads.cu); split-far is not ported.  It
+one scatter route (csrc/scatter_grads.cu).  --split_far (with --mc_far,
+--max_hits_far) times the two-pass step, as the JAX tool's options do.  It
 runs on the card; --device cpu runs the kernels' plain versions (small
 sizes only).
 """
@@ -35,12 +36,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--split_far", action="store_true",
+                    help="two passes a bounce, near and far of each ray's "
+                         "split-sphere exit")
+    ap.add_argument("--mc_far", type=int, default=32)
+    ap.add_argument("--max_hits_far", type=int, default=0)
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("bench_train_step: no CUDA device (--device cpu "
                          "runs the plain versions)")
-    t = training_step(device, n=args.n, side=args.res)
+    split = (dict(split_far=True, mc_far=args.mc_far,
+                  max_hits_far=args.max_hits_far) if args.split_far else {})
+    t = training_step(device, n=args.n, side=args.res, **split)
     t0 = time.perf_counter()
     st, m = t.step(t.state)
     l1 = m["l1_diffuse"].item()
@@ -56,7 +64,7 @@ def main(argv=None) -> dict:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     result = {"metric": "fused_train_step", "res": args.res, "n": args.n,
-              "scatter": "scatter_grads", "split_far": False,
+              "scatter": "scatter_grads", "split_far": args.split_far,
               "s_per_iter": round(dt, 4),
               "l1_diffuse": round(m["l1_diffuse"].item(), 6),
               "device": name}

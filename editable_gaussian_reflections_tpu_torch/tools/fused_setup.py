@@ -55,9 +55,6 @@ from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
 )
 from editable_gaussian_reflections_tpu_torch.scene.cameras import Camera
-from editable_gaussian_reflections_tpu_torch.tools.bench_render_sweep import (
-    frame_kwargs,
-)
 from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import (
     FRAME_KW,
     TRAIN_N,
@@ -74,8 +71,7 @@ TRAIN_W = TRAIN_H = 768
 # artifacts/bench_best.json (today scanq, K 16, cluster 128, 128/768
 # candidates, 256-ray cull tiles, counters off, bf16 attributes, throughput
 # cutoff 1e-3), in dispatch_render_frame's keywords
-_bench_kw, BENCH_SETTINGS = bench_config()
-BENCH_KW = frame_kwargs(_bench_kw)
+BENCH_KW, BENCH_SETTINGS = bench_config()
 N_FPS_VIEWS = 8
 
 
@@ -195,8 +191,8 @@ def fast_path(device, model_path: str) -> SimpleNamespace:
                            views=orbit_views(N_FPS_VIEWS, W, H))
 
 
-def training_step(device, n: int = TRAIN_N, side: int = TRAIN_W
-                  ) -> SimpleNamespace:
+def training_step(device, n: int = TRAIN_N, side: int = TRAIN_W,
+                  **split) -> SimpleNamespace:
     """The training step's inputs at side x side pixels (768x768 unless a
     test shrinks it), and `step(state)` -> (state, metrics): the state from
     room_scene(n, seed 1), the targets the G-buffers of the seed-0 room
@@ -204,7 +200,8 @@ def training_step(device, n: int = TRAIN_N, side: int = TRAIN_W
     steps go on drawing from.  `calls`: the trace_slots calls of the
     primary and first reflected pass of the first batch of tiles the step
     launches, from fused_forward, whose outputs (`steps`, `residuals`) and
-    targets (`targets_b`) it keeps for the backward."""
+    targets (`targets_b`) it keeps for the backward.  `split`: train_step's
+    split-far keywords for `step` (the calls stay one pass's)."""
     cfg = Config()
     settings = tr.settings_from_config(cfg)
     num_bounces, K = 2, cfg.max_hits
@@ -251,7 +248,7 @@ def training_step(device, n: int = TRAIN_N, side: int = TRAIN_W
 
     def step(st):
         return tr.train_step(st, camera, targets, settings, lrs, hyper, gen,
-                             side, side, **step_kw)
+                             side, side, **step_kw, **split)
 
     return SimpleNamespace(
         cfg=cfg, settings=settings, num_bounces=num_bounces, K=K, tile=tile,

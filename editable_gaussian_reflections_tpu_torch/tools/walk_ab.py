@@ -22,6 +22,10 @@ replaces its csrc/ (a variant of the kernel sources).  The setups are this
 script's own tree's, run on <tree>'s package, so that both trees are timed
 on the same launches.
 
+    python editable_gaussian_reflections_tpu_torch/tools/walk_ab.py <tree> --slots
+
+times trace_slots' two passes alone (window mode 0, the step's).
+
     python editable_gaussian_reflections_tpu_torch/tools/walk_ab.py <tree> --cut-walk
 
 times trace_slots' two passes with its walk cut out: a copy of <tree>'s
@@ -141,9 +145,10 @@ def main(argv: list[str]) -> None:
 
     from editable_gaussian_reflections_tpu_torch.ops.cuda import build
     cut = "--cut-walk" in argv[1:]
+    slots = cut or "--slots" in argv[1:]
     cut_scan = [a.split("=", 1)[1] for a in argv[1:]
                 if a.startswith("--cut-scan=")]
-    variant = [a for a in argv[1:] if not a.startswith("--cut-")]
+    variant = [a for a in argv[1:] if not a.startswith("--")]
     if cut:
         build.CSRC = cut_walk_csrc(tree)
     elif cut_scan:
@@ -165,7 +170,7 @@ def main(argv: list[str]) -> None:
     if cut_scan:
         scan_ab(fs, tag, dev, tree)
         return
-    if not cut:
+    if not slots:
         e = fs.eval_frame(dev)
         rc = {name: [round(cuda_ms(lambda: render_culled(
             *c.args, **c.kwargs), 10), 3) for _ in range(3)]
@@ -185,7 +190,7 @@ def main(argv: list[str]) -> None:
     del t
     torch.cuda.empty_cache()
     print(f"{tag}: card after [{fs.card()}]", flush=True)
-    if not cut:
+    if not slots:
         trace_hits_ab(_setup("nonfused_setup"), tag, dev)
         torch.cuda.empty_cache()
         scan_ab(fs, tag, dev, tree)

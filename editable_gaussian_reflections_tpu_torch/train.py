@@ -229,7 +229,9 @@ def train_scene(cfg: Config, scene: Scene, tb_writer=None,
     )
     cull_kw = dict(use_culling=use_culling, cull_tile=cfg.cull_tile,
                    cull_cluster=cfg.cull_cluster,
-                   max_clusters=cfg.max_clusters, split_far=cfg.split_far)
+                   max_clusters=cfg.max_clusters, split_far=cfg.split_far,
+                   mc_far=cfg.mc_far, max_hits_far=cfg.max_hits_far,
+                   split_radius_scale=cfg.split_radius_scale)
     start_time = time.time()
     if first_iter > 1:
         # resume: time.txt stays cumulative across restarts, the timer

@@ -32,7 +32,10 @@ Randomness: the JAX step draws its jitter and GGX uniforms from a key; the
 port draws the same quantities (TileSamples) from a torch.Generator, or
 takes them from the caller, as the tests do to hand both the same numbers.
 
-Not ported yet, and raising: split_far.
+split_far (with mc_far, max_hits_far, split_radius_scale) rides in the
+culling dict to the fused step (renderer/raytracer.py fused_forward: two
+slots launches a bounce, merged into K + K_far slots a ray); the non-fused
+and XLA steps do not read it, as in JAX.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from .renderer.raytracer import (
     RenderSettings,
     TileSamples,
     draw_tile_samples,
+    far_hits,
     render_tile_with_grads,
     render_tile_with_grads_fused,
     tiles_per_launch_for,
@@ -146,20 +150,19 @@ def lr_tree(cfg: Config, iteration: int, spatial_lr_scale: float) -> dict:
 def prepare_render_inputs(scene: GaussianScene, settings: RenderSettings,
                           use_pallas: bool, use_culling: bool, cull_tile: int,
                           cull_cluster: int, max_clusters: int,
-                          split_far: bool = False):
+                          split_far: bool = False, mc_far: int = 32,
+                          max_hits_far: int = 0,
+                          split_radius_scale: float = 1.5):
     """Per-step scene preprocessing: activated frames and gpack; with
     culling also the Morton sort (the BVH-refit analog), cluster bounds and
-    the slots kernel's tables, all in the sorted layout.  Without culling
-    the scene keeps its order: culling and gauss_perm are None.
+    the slots kernel's tables, all in the sorted layout, and split-far's
+    options in the culling dict.  Without culling the scene keeps its
+    order: culling and gauss_perm are None.
 
     use_pallas=False (the XLA tracer) needs no packed table and never
     culls: (frames, attrs, None, None, scene, None), as in JAX.
 
     Returns (frames, attrs, gpack, culling, scene_for_bwd, gauss_perm)."""
-    if split_far:
-        raise NotImplementedError(
-            "split_far=True: the two-pass near/far bounce (merge_slots and "
-            "the far pass) is not ported yet")
     frames, attrs = build_frames(scene, settings.alpha_threshold,
                                  settings.exp_power,
                                  settings.global_scale_factor)
@@ -176,7 +179,10 @@ def prepare_render_inputs(scene: GaussianScene, settings: RenderSettings,
                    cull_tile=cull_tile, cluster=cull_cluster, mc=max_clusters,
                    table=pack_attr_table(attrs).contiguous(),
                    ftable=pack_frame_table(frames,
-                                           scene_for_bwd).contiguous())
+                                           scene_for_bwd).contiguous(),
+                   split_far=split_far, mc_far=mc_far,
+                   max_hits_far=max_hits_far,
+                   split_radius_scale=split_radius_scale)
     gpack = pack_frames(frames, attrs).contiguous()
     return frames, attrs, gpack, culling, scene_for_bwd, gauss_perm
 
@@ -229,9 +235,13 @@ def accumulate_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
     rounds once, as one process does."""
     T, tile = dirs_t.shape[:2]
     dev = dirs_t.device
+    split = culling is not None and culling.get("split_far", False)
     if tiles_per_launch is None:
+        # a split bounce keeps K + K_far slots a ray
+        slots = max_hits + (far_hits(max_hits, culling["max_hits_far"])
+                            if split else 0)
         tiles_per_launch = tiles_per_launch_for(T, tile, num_bounces + 1,
-                                                max_hits, dev)
+                                                slots, dev)
     acc = new_grad_accumulator(n_capacity, dev)
     l1_tiles, starved = [], []
     for b0 in range(0, T, tiles_per_launch):
@@ -252,6 +262,9 @@ def accumulate_over_tiles(origin, dirs_t, targets_t: RayTargets, settings,
                 bounds=culling["bounds"], cull_tile=culling["cull_tile"],
                 cull_cluster=culling["cluster"], max_clusters=culling["mc"],
                 n_capacity=n_capacity, exp_power_static=exp_power_static,
+                split_far=split, mc_far=culling.get("mc_far", 32),
+                max_hits_far=culling.get("max_hits_far", 0),
+                split_radius_scale=culling.get("split_radius_scale", 1.5),
                 tile_rays=tile, grad_acc=acc)
         err = (steps.rgb[0] - targets.diffuse).abs()
         per_ray = div(err[:, 0] + err[:, 1] + err[:, 2], 3.0)
@@ -345,7 +358,9 @@ def prepare_step(state: TrainState, camera: CameraParams,
                  use_pallas: bool = False, use_culling: bool = False,
                  cull_tile: int = 256, cull_cluster: int = 256,
                  max_clusters: int = 192, split_far: bool = False,
-                 samples: TileSamples | None = None) -> dict:
+                 samples: TileSamples | None = None, *, mc_far: int = 32,
+                 max_hits_far: int = 0,
+                 split_radius_scale: float = 1.5) -> dict:
     """Everything a step computes before its ray tiles: the scene's sorted
     tables, the samples, the primary rays and targets in pixel-tile order
     cut into [T, tile, ...] ray tiles.  Returns a dict of grads_over_tiles'
@@ -357,7 +372,9 @@ def prepare_step(state: TrainState, camera: CameraParams,
     frames, attrs, gpack, culling, scene_s, gauss_perm = (
         prepare_render_inputs(scene, settings, use_pallas, use_culling,
                               cull_tile, cull_cluster, max_clusters,
-                              split_far=split_far))
+                              split_far=split_far, mc_far=mc_far,
+                              max_hits_far=max_hits_far,
+                              split_radius_scale=split_radius_scale))
     R = width * height
     tile_sz = min(tile, R)
     # padding would duplicate rays and double-count their gradients; the
@@ -406,6 +423,9 @@ def train_step(
     max_clusters: int = 192,
     split_far: bool = False,
     samples: TileSamples | None = None,
+    mc_far: int = 32,
+    max_hits_far: int = 0,
+    split_radius_scale: float = 1.5,
 ):
     """One training iteration (the JAX train_step's contract).
 
@@ -415,7 +435,9 @@ def train_step(
     so does not read `chunk`.  use_pallas=False (the default, as in JAX) is
     the JAX XLA tracer's step: never culled, traced by trace_rays in chunks
     of `chunk` Gaussians.  The step's randomness is `samples`, or drawn
-    from `generator` when that is None.
+    from `generator` when that is None.  split_far (mc_far, max_hits_far
+    0 = max(8, max_hits // 2), split_radius_scale) splits every bounce of
+    the fused step in two passes (module docstring).
 
     Returns (new TrainState, metrics) with metrics l1_diffuse (mean over
     rays) and starved (share of bounce x ray slots whose candidate list
@@ -423,7 +445,9 @@ def train_step(
     prep = prepare_step(state, camera, targets, settings, generator, width,
                         height, num_bounces, tile, jitter, use_pallas,
                         use_culling, cull_tile, cull_cluster, max_clusters,
-                        split_far, samples)
+                        split_far, samples, mc_far=mc_far,
+                        max_hits_far=max_hits_far,
+                        split_radius_scale=split_radius_scale)
     grads, l1, starved = grads_over_tiles(
         camera.origin, prep["dirs_t"], prep["targets_t"], settings, camera,
         prep["us_t"], num_bounces, max_hits, exp_power_static, prep["gpack"],

@@ -7,12 +7,13 @@ JAX side's own code: tools/bench_render_sweep.py's parse_render_config
 lines 117-147 written out with it, on artifacts/bench_best.json, with the
 JAX package's RenderSettings.  Then the bench and each tool twin run once on
 the CPU at a tiny size (their plain versions), which is what a CPU can
-show: the rows, keys and error rows, not a speed.
+show: the rows and keys (split-far's included), not a speed.
 """
 
 import importlib.util
 import json
 from pathlib import Path
+from unittest import mock
 
 import pytest
 import torch
@@ -21,6 +22,7 @@ from editable_gaussian_reflections_tpu.renderer.raytracer import (
     RenderSettings as JaxRenderSettings,
 )
 from editable_gaussian_reflections_tpu_torch import bench
+from editable_gaussian_reflections_tpu_torch.renderer import raytracer
 from editable_gaussian_reflections_tpu_torch.renderer.render import (
     dispatch_render_frame,
 )
@@ -30,6 +32,7 @@ from editable_gaussian_reflections_tpu_torch.tools import (
     bench_slots_kernel,
     bench_train_step,
     fused_setup,
+    probe_cand_stats,
 )
 from editable_gaussian_reflections_tpu_torch.tools.nonfused_setup import room
 
@@ -62,16 +65,20 @@ def test_parse_render_config_matches_the_tool():
     for cfg in _configs():
         assert bench_render_sweep.parse_render_config(cfg) == jax_parse(cfg), \
             cfg
-    # split-far stays split-far: the port's render refuses it, never
-    # renders it as a one-pass frame
-    kw = bench_render_sweep.frame_kwargs(
-        bench_render_sweep.parse_render_config("64:96:s32"))
+    # split-far stays split-far: the render takes the far pass's budget
+    # and renders every bounce in two passes, never as a one-pass frame
+    kw = bench_render_sweep.parse_render_config("64:96:s32:k16")
     assert kw["split_far"] is True
+    assert (kw["mc_far"], kw["max_hits_far"]) == (32, 16)
     scene, camera = room(512, "cpu")
     kw.pop("throughput_cutoff")
-    with pytest.raises(NotImplementedError, match="split_far"):
-        dispatch_render_frame(scene, camera, bench.RenderSettings(), None, 16,
-                              16, **kw)
+    with mock.patch.object(raytracer, "split_bounce",
+                           wraps=raytracer.split_bounce) as split:
+        _steps, final = dispatch_render_frame(
+            scene, camera, bench.RenderSettings(),
+            torch.Generator().manual_seed(0), 16, 16, **kw)
+    assert split.call_count == 3       # 2 bounces: 3 split passes
+    assert torch.isfinite(final).all()
 
 
 def test_bench_config_matches_bench_py(tmp_path):
@@ -98,7 +105,7 @@ def test_bench_config_matches_bench_py(tmp_path):
     assert port_settings._asdict() == JaxRenderSettings()._asdict()
     # the smoke's fast path times the same frame
     kw, port_settings = bench.bench_config()
-    assert fused_setup.BENCH_KW == bench_render_sweep.frame_kwargs(kw)
+    assert fused_setup.BENCH_KW == kw
     assert fused_setup.BENCH_SETTINGS == port_settings
 
 
@@ -134,7 +141,8 @@ def test_render_sweep_twin(capsys, tmp_path):
     rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [r.get("mc") for r in rows[:3]] == ["64:64", "96:128:256:256:tc3",
                                                 "64:96:s32"]
-    assert "split_far" in rows[2]["error"]
+    # the split-far row is a real row (it printed an error before)
+    assert "error" not in rows[2] and len(rows[2]["starved"]) == 3
     assert len(rows[0]["starved"]) == 3 and rows[1]["tc_psnr"] > 45.0
     assert rows[3] == {"best_honest": best} and best is not None
     assert json.loads(out.read_text()) == dict(best, max_hits=16,
@@ -151,7 +159,8 @@ def test_scan_mode_twin(capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert rows[0]["role"] == "reference"
     assert 20.0 < rows[1]["psnr_vs_kbuffer"] < 99.0
-    assert "split_far" in lines[2]["error"]
+    assert lines[2]["cfg"].endswith("far=32") and "error" not in lines[2]
+    assert len(lines[2]["starved_per_pass"]) == 3
     assert "best_honest" in lines[-1]
 
 
@@ -162,7 +171,60 @@ def test_train_step_twin():
     assert 0.0 < res["l1_diffuse"] < 1.0
 
 
+def test_train_step_twin_split_far():
+    """The JAX tool's --split_far (--mc_far, --max_hits_far) options."""
+    res = bench_train_step.main(["--device", "cpu", "--n", "2048", "--res",
+                                 "32", "--iters", "1", "--split_far",
+                                 "--max_hits_far", "16"])
+    assert res["split_far"] is True and res["s_per_iter"] > 0
+    assert 0.0 < res["l1_diffuse"] < 1.0
+
+
 def test_slots_kernel_twin():
     rows = bench_slots_kernel.main(CPU + ["--iters", "1"])
     assert [r["case"] for r in rows] == ["primary", "secondary_shuffled"]
     assert all(r["rays"] == 1024 and r["kernel_ms"] > 0 for r in rows)
+
+
+def test_probe_cand_stats_twin(capsys):
+    """The candidate-count probe at a tiny size: a row per pass and tile
+    size with the repaired cull's counts and the parent's (JAX's cone
+    test) beside them; the primary tiles' narrow cones count alike, the
+    reflected tiles count at least the parent's."""
+    out = probe_cand_stats.main(["--device", "cpu", "--n", "2048", "--res",
+                                 "32"])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert set(out) == {"primary", "secondary"}
+    assert lines[-1]["summary"]["primary"]["256"]["mean"] > 0
+    for tile in probe_cand_stats.TILES:
+        p, s = out["primary"][tile], out["secondary"][tile]
+        assert p["mean"] == p["parent"]["mean"] and p["max"] >= p["p99"]
+        assert s["mean"] >= s["parent"]["mean"]
+
+
+def test_probe_parent_cull_is_jax_cull():
+    """The probe's parent cone test is the JAX package's, on wide cones
+    with per-tile windows (the cases the repair changed)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from editable_gaussian_reflections_tpu.ops import culling as jc
+    from editable_gaussian_reflections_tpu_torch.ops import culling as tc
+
+    rng = np.random.default_rng(5)
+    o = rng.normal(scale=0.5, size=(1024, 3)).astype(np.float32)
+    d = rng.normal(size=(1024, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    center = rng.uniform(-6, 6, (300, 3)).astype(np.float32)
+    radius = rng.uniform(0.1, 1.0, 300).astype(np.float32)
+    near = np.linspace(0.0, 3.0, 16).astype(np.float32)
+    ref = np.asarray(jc.cone_sphere_visible(
+        jc.tile_cones(jnp.asarray(o), jnp.asarray(d), 64),
+        jc.ClusterBounds(jnp.asarray(center), jnp.asarray(radius),
+                         jnp.ones(300, bool)), jnp.asarray(near), 50.0))
+    got = probe_cand_stats.parent_visible(
+        tc.tile_cones(torch.tensor(o), torch.tensor(d), 64),
+        tc.ClusterBounds(torch.tensor(center), torch.tensor(radius),
+                         torch.ones(300, dtype=torch.bool)),
+        torch.tensor(near), 50.0)
+    np.testing.assert_array_equal(got.numpy(), ref)

@@ -35,6 +35,7 @@ from editable_gaussian_reflections_tpu_torch.ops.render_grads import (
     scatter_grads,
     zero_grads,
 )
+from editable_gaussian_reflections_tpu_torch.ops.tonemap import tonemap
 from editable_gaussian_reflections_tpu_torch.ops.trace import RayHits
 from editable_gaussian_reflections_tpu_torch.renderer import raytracer as trt
 
@@ -394,13 +395,42 @@ def test_fused_tile_batches_equal_single_tiles(jax_ref):
                                    msg=f)
 
 
+def _psnr(a, b):
+    """Tonemapped, clamped PSNR of a against b (dB)."""
+    mse = float(((tonemap(a).clamp(0, 1) - tonemap(b).clamp(0, 1)) ** 2
+                 ).double().mean())
+    return 10 * np.log10(1.0 / max(mse, 1e-12))
+
+
 def test_split_far_raises(jax_ref):
-    with pytest.raises(NotImplementedError, match="split_far"):
-        trt.render_tile_with_grads_fused(
-            None, None, None, trt.RenderSettings(), 0.05, 50.0, None, 0, 16,
-            gpack=None, table=None, ftable=None, bounds=None, cull_tile=256,
-            cull_cluster=256, max_clusters=8, n_capacity=2048,
-            split_far=True)
+    """split_far, which raised before it was ported, runs the two-pass
+    bounce on this file's fused inputs (2 bounces, far K 16).  The split
+    step keeps up to K + K_far hits a ray where the single pass keeps K, so
+    on this dense room the two differ by the hits the single pass cuts
+    (tests/test_torch_split_far.py holds the split step equal to the
+    single pass where both have room, and against JAX's split step): the
+    primary frames within 55 dB, the final within 35 dB (tonemapped), and
+    every gradient field finite and within 25% of the single pass's
+    largest entry."""
+    t = {k: torch.tensor(jax_ref[k]) for k in ("gpack", "table", "ftable")}
+    bounds = ClusterBounds(*(torch.tensor(jax_ref[f"bounds/{f}"])
+                             for f in ClusterBounds._fields))
+    targets = trt.RayTargets(**{f: torch.tensor(jax_ref[f"targets/{f}"])
+                                for f in trt.RayTargets._fields})
+    steps, final, grads = trt.render_tile_with_grads_fused(
+        torch.tensor(jax_ref["rays_o"]), torch.tensor(jax_ref["rays_d"]),
+        targets, trt.RenderSettings(**SETTINGS), 0.05, 50.0,
+        torch.tensor(jax_ref["us"]), 2, FUSED_K, bounds=bounds,
+        cull_tile=256, cull_cluster=256, max_clusters=FUSED_MC,
+        n_capacity=t["gpack"].shape[1], split_far=True, mc_far=FUSED_MC,
+        max_hits_far=16, **t)
+    single_steps, single, single_grads = _port_fused(jax_ref, 2)
+    assert _psnr(steps.rgb[0], single_steps.rgb[0]) > 55.0
+    assert _psnr(final, single) > 35.0
+    for f in ParamGrads._fields:
+        a, b = getattr(grads, f), getattr(single_grads, f)
+        assert torch.isfinite(a).all(), f
+        assert float((a - b).abs().max()) < 0.25 * float(b.abs().max()), f
 
 
 if __name__ == "__main__":

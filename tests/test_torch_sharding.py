@@ -23,8 +23,10 @@ against JAX's sharded_train_step on the 8-device virtual mesh:
     starved, every output within rtol 1e-5 / atol 1e-5 (the re-sorts of
     reflected rays become shard-local, which only moves a ray into another
     tile's candidate list);
-  * split_far=True raises, and spawn refuses NCCL with more ranks than
-    cards.
+  * split_far=True through both (the culled step and the fused frame
+    above, split): the step delta 0 against train_step(split_far=True), the
+    frame as above against render_frame_fused(split_far=True); and spawn
+    refuses NCCL with more ranks than cards.
 The JAX side runs in a child process capped at the AVX instruction set
 (see test_torch_render_frame.py) with --xla_force_host_platform_device_count=8.
 """
@@ -41,14 +43,14 @@ import torch
 
 from editable_gaussian_reflections_tpu_torch import training as ttr
 from editable_gaussian_reflections_tpu_torch.parallel import mesh as pmesh
+from editable_gaussian_reflections_tpu_torch.ops.cuda.layout import (
+    unpack_composite,
+)
 from editable_gaussian_reflections_tpu_torch.parallel.ranks import (
+    capped_flags,
     host_inputs,
     run_jobs,
     to_numpy,
-)
-from editable_gaussian_reflections_tpu_torch.parallel.sharding import (
-    sharded_render_fused,
-    sharded_train_step,
 )
 from editable_gaussian_reflections_tpu_torch.renderer import raytracer as trt
 from editable_gaussian_reflections_tpu_torch.scene import gaussian_scene as tgs
@@ -77,6 +79,12 @@ FUSED_KW = dict(num_bounces=1, max_hits=8, chunk=64, use_pallas=True,
 FRAME_KW = dict(num_bounces=2, max_hits=16, jitter=True, cull_cluster=128,
                 max_clusters=8, rays_per_call=256, cull_tile_primary=64,
                 cull_tile_secondary=64)
+# split-far on the culled step and the fused frame
+SPLIT_STEP_KW = dict(FUSED_KW, split_far=True, mc_far=4, max_hits_far=8)
+SPLIT_FRAME_KW = dict(FRAME_KW, split_far=True, mc_far=8)
+# the frame job's capped_flags count: below max_hits, which no ray of this
+# small scene fills
+CAPPED_AT = 4
 
 
 def camera(device="cpu"):
@@ -228,7 +236,13 @@ def ranks2(jax_ref):
                                    tile=WF * HF // N_DEV, **FUSED_KW)),
             ("render", in_r, dict(width=W, height=H, **RENDER_KW)),
             ("render", in_r, dict(width=W, height=H, **CULLED_KW)),
-            ("render_fused", in_fr, dict(width=WF, height=HF, **FRAME_KW))]
+            ("render_fused", in_fr, dict(width=WF, height=HF,
+                                         capped_at=CAPPED_AT,
+                                         **FRAME_KW)),
+            ("dp_step", in_f, dict(width=WF, height=HF,
+                                   tile=WF * HF // N_DEV, **SPLIT_STEP_KW)),
+            ("render_fused", in_fr, dict(width=WF, height=HF,
+                                         **SPLIT_FRAME_KW))]
     out = pmesh.spawn(run_jobs, 2, "gloo", "cpu", {"rays": 2}, jobs)
     return out, dict(xla=s_xla, fused=s_f, render=s_r, frame=s_fr)
 
@@ -312,12 +326,11 @@ def test_sharded_render_equals_render_frame(path, ranks2):
     assert (res["final"] > 0).any()
 
 
-def test_sharded_render_fused_matches_single(ranks2):
-    res = ranks2[0][4]
+def _assert_frames_match(res, samples, frame_kw):
     steps, final = trt.render_frame_fused(
         fused_frame_scene(), camera(),
         trt.RenderSettings(transmittance_threshold=1e-8), None, WF, HF,
-        samples=ranks2[1]["frame"], **FRAME_KW)
+        samples=samples, **frame_kw)
     ok = ((steps.overflow.numpy() == 0)
           & (res["steps"]["overflow"] == 0)).all(axis=0)
     assert ok.mean() > 0.9, ok.mean()
@@ -330,19 +343,72 @@ def test_sharded_render_fused_matches_single(ranks2):
                                    rtol=1e-5, atol=1e-5, err_msg=f)
 
 
-def test_split_far_raises():
-    mesh = pmesh.Mesh(shape={"rays": 1}, index={"rays": 0}, groups={},
+def test_sharded_render_fused_matches_single(ranks2):
+    _assert_frames_match(ranks2[0][4], ranks2[1]["frame"], FRAME_KW)
+
+
+def test_sharded_render_fused_capped_flags(ranks2):
+    """The frame job's capped_at: each rank's capped_flags, [S, rays of
+    the rank].  In rank order they are the single frame's on the primary
+    step (the same tiles in both), where they mark the rays whose primary
+    pass kept CAPPED_AT hits or more."""
+    res, K = ranks2[0][4], CAPPED_AT
+    S = FRAME_KW["num_bounces"] + 1
+    assert [c.shape for c in res["capped"]] == [(S, WF * HF // 2)] * 2
+    sharded = np.concatenate(res["capped"], axis=1)
+    seen, real = [], trt.kernel_call
+
+    def record(*args, **kwargs):
+        seen.append(real(*args, **kwargs))
+        return seen[-1]
+
+    with mock.patch.object(trt, "kernel_call", record):
+        _out, single = capped_flags(
+            lambda: trt.render_frame_fused(
+                fused_frame_scene(), camera(),
+                trt.RenderSettings(transmittance_threshold=1e-8), None, WF,
+                HF, samples=ranks2[1]["frame"], **FRAME_KW), K)
+    assert single.shape == (S, WF * HF)
+    np.testing.assert_array_equal(sharded[0], single[0].numpy())
+    call = seen[0]
+    comp = unpack_composite(trt.canonical(
+        call.kernel(*call.args, **call.kwargs), call))
+    np.testing.assert_array_equal(
+        single[0].numpy(), (comp["num_accumulated"] >= K).numpy())
+    assert single[0].any() and not single[0].all()
+
+
+def test_split_far_raises(ranks2):
+    """split_far, which raised before it was ported, runs through the
+    ray-sharded step and frame on 2 gloo ranks: the DP step's delta against
+    train_step(split_far=True) is 0, and the sharded split frame matches
+    render_frame_fused(split_far=True) where neither starved."""
+    single = _single_step(ranks2[1]["fused"], 48, 256, WF, HF,
+                          tile=WF * HF // N_DEV, **SPLIT_STEP_KW)
+    _assert_delta_zero(ranks2[0][5], single)
+    _assert_frames_match(ranks2[0][6], ranks2[1]["frame"], SPLIT_FRAME_KW)
+
+
+def test_gaussian_sharded_refuses_split_far():
+    """The Gaussian-sharded step has no split-far, as JAX's has none: the
+    option is refused before anything runs."""
+    from editable_gaussian_reflections_tpu.parallel import (
+        gaussian_sharded as jgsh,
+    )
+    from editable_gaussian_reflections_tpu_torch.parallel import (
+        gaussian_sharded as tgsh,
+    )
+
+    mesh = pmesh.Mesh(shape={"gauss": 1}, index={"gauss": 0}, groups={},
                       device=torch.device("cpu"))
-    R = WF * HF
-    with pytest.raises(NotImplementedError, match="split_far"):
-        sharded_train_step(
-            mesh, ttr.init_train_state(scene(48, 256)), camera(), targets(R),
-            trt.RenderSettings(), LRS, HYPER, torch.Generator(), WF, HF,
-            split_far=True, **FUSED_KW)
-    with pytest.raises(NotImplementedError, match="split_far"):
-        sharded_render_fused(mesh, fused_frame_scene(), camera(),
-                             trt.RenderSettings(), torch.Generator(), WF, HF,
-                             split_far=True, **FRAME_KW)
+    with pytest.raises(TypeError, match="split_far"):
+        tgsh.gaussian_sharded_train_step(
+            mesh, ttr.init_train_state(scene(48, 256)), camera(),
+            targets(WF * HF), trt.RenderSettings(), LRS, HYPER, None, WF, HF,
+            split_far=True)
+    with pytest.raises(TypeError, match="split_far"):
+        jgsh.gaussian_sharded_train_step(None, None, None, None, None, None,
+                                         None, None, WF, HF, split_far=True)
 
 
 def test_spawn_refuses_nccl_beyond_the_cards():

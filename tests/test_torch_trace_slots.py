@@ -6,7 +6,9 @@ in interpret mode, on the 2048-Gaussian room at 32x16 rays (two 256-ray
 tiles), K=16 and a few candidate clusters per tile, for primary rays and for
 reflected-ray-like rays with a dead-ray mask; and on an exact depth tie at
 the K-th slot that a later hit breaks, where the kept ids must equal the
-Pallas drain's on every ray.
+Pallas drain's on every ray; and in split-far's window modes 1 and 2 (the
+near and far pass over per-ray split distances, each culled over its
+window), whose two outputs merge_slots joins as the JAX merge_slots does.
 
 The JAX side runs in a child process whose XLA is capped at the AVX
 instruction set (as in test_torch_render_frame.py): with FMA contraction,
@@ -67,6 +69,9 @@ CASES = {
     "secondary_dead_v1": ("secondary", "v1", 1, 2, 1),
 }
 CAPACITIES = (2048, 176_128, 393_216, 400_000, 1_000_000)
+# split-far's passes on the secondary rays (dead mask, backfacing test):
+# window mode, K
+WINDOW_CASES = {"window_near_v4": (1, K), "window_far_v4": (2, 8)}
 
 
 def jax_reference(path):
@@ -169,7 +174,33 @@ def jax_reference(path):
         out[f"{case}/slots"] = np.asarray(slots)
         out[f"{case}/acc"] = np.asarray(acc)
 
-    o, d = rays["secondary"][:2]
+    o, d, al, _near = rays["secondary"]
+    t_split = np.random.default_rng(9).uniform(1.0, 8.0, H * W).astype(
+        np.float32)
+    out["window/t_split"] = t_split
+    ts_tiles = t_split.reshape(-1, TILE)
+    for case, (wmode, k) in WINDOW_CASES.items():
+        cull_near, cull_far = ((0.0, ts_tiles.max(axis=1)) if wmode == 1
+                               else (ts_tiles.min(axis=1), FAR))
+        cands, cnear, _n, _o, _t = jc.select_candidates(
+            jnp.asarray(o), jnp.asarray(d), bounds, jnp.asarray(cull_near),
+            jnp.asarray(cull_far, jnp.float32), tile=TILE, max_clusters=MC)
+        slots, acc = pallas_trace_slots_v4(
+            jnp.asarray(o), jnp.asarray(d), gpack, ftable, cands, cnear, 0.0,
+            FAR, 3.0, 1.0, BF_MAX_DIST, BF_THR, transmittance_threshold=THR,
+            max_hits=k, cluster=CLUSTER, tile=TILE, interpret=True,
+            alive=jnp.asarray(al), t_split=jnp.asarray(t_split),
+            window_mode=wmode, secondary_static=1)
+        out.update({f"{case}/cands": np.asarray(cands),
+                    f"{case}/cnear": np.asarray(cnear),
+                    f"{case}/slots": np.asarray(slots),
+                    f"{case}/acc": np.asarray(acc)})
+    merged = jrk.merge_slots(out["window_near_v4/slots"],
+                             out["window_near_v4/acc"],
+                             out["window_far_v4/slots"],
+                             out["window_far_v4/acc"], K, 8)
+    out["merged/slots"], out["merged/acc"] = (np.asarray(a) for a in merged)
+
     unpacked = jrk.unpack_slots(out["secondary_dead_v4/slots"],
                                 out["secondary_dead_v4/acc"], K,
                                 jnp.asarray(o), jnp.asarray(d))
@@ -216,12 +247,12 @@ def _port_slots(ref, kind, exit_mode, check_every, secondary_static,
     return slots.numpy(), acc.numpy()
 
 
-def _blocks(slots):
-    return slots.reshape(slots.shape[0], layout.SLOT_BLOCKS, K)
+def _blocks(slots, k=K):
+    return slots.reshape(slots.shape[0], layout.SLOT_BLOCKS, k)
 
 
-def assert_slots_match(slots, acc, ref_slots, ref_acc):
-    s, r = _blocks(slots), _blocks(ref_slots)
+def assert_slots_match(slots, acc, ref_slots, ref_acc, k=K):
+    s, r = _blocks(slots, k), _blocks(ref_slots, k)
     same = ((s[:, layout.SLOT_ID] == r[:, layout.SLOT_ID]).all(axis=1)
             & (acc[:, 1:3] == ref_acc[:, 1:3]).all(axis=1))
     assert same.mean() >= IDS_EQUAL, f"ids/counters equal on {same.mean()}"
@@ -278,6 +309,63 @@ def test_boundary_tie_matches_pallas(case, jax_ref):
     assert (ids == tie["a"]).any(axis=1).all()
     assert not (ids == tie["b"]).any()
     assert_slots_match(slots, acc, ref_slots, ref_acc)
+
+
+def _port_window_slots(ref, case, fn=trace_slots_reference):
+    wmode, k = WINDOW_CASES[case]
+    t = {n: torch.tensor(ref[n]) for n in ("gpack", "table", "ftable")}
+    slots, acc = fn(
+        torch.tensor(ref["secondary/o"]), torch.tensor(ref["secondary/d"]),
+        t["gpack"], t["table"], t["ftable"],
+        torch.tensor(ref[f"{case}/cands"]), torch.tensor(ref[f"{case}/cnear"]),
+        0.0, FAR, 3.0, 1.0, BF_MAX_DIST, BF_THR, transmittance_threshold=THR,
+        max_hits=k, cluster=CLUSTER, tile=TILE,
+        alive=torch.tensor(ref["secondary/alive"]), secondary_static=1,
+        exit_mode=0, check_every=8,
+        t_split=torch.tensor(ref["window/t_split"]), window_mode=wmode)
+    return slots.numpy(), acc.numpy()
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_reference_window_matches_pallas(case, jax_ref):
+    """Window mode 1 keeps only hits before each ray's t_split, mode 2
+    only those beyond it, as pallas_trace_slots_v4 (interpret mode)
+    does."""
+    wmode, k = WINDOW_CASES[case]
+    slots, acc = _port_window_slots(jax_ref, case)
+    assert_slots_match(slots, acc, jax_ref[f"{case}/slots"],
+                       jax_ref[f"{case}/acc"], k)
+    t = _blocks(slots, k)[:, layout.SLOT_T]
+    valid = t < 1e37
+    ts = jax_ref["window/t_split"][:, None]
+    assert valid.any() and (valid & ~jax_ref["secondary/alive"][:, None]
+                            ).sum() == 0
+    assert ((t < ts) if wmode == 1 else (t > ts))[valid].all()
+
+
+def test_merge_slots_matches_jax(jax_ref):
+    """merge_slots on the two windowed passes' port slots equals JAX's
+    merge_slots on the Pallas kernel's: the near slots then the far ones in
+    every block, the first three acc lanes added."""
+    n = _port_window_slots(jax_ref, "window_near_v4")
+    f = _port_window_slots(jax_ref, "window_far_v4")
+    slots, acc = layout.merge_slots(*(torch.tensor(a) for a in (*n, *f)),
+                                    K, 8)
+    assert slots.shape == (H * W, layout.SLOT_BLOCKS * (K + 8))
+    assert_slots_match(slots.numpy(), acc.numpy(), jax_ref["merged/slots"],
+                       jax_ref["merged/acc"], K + 8)
+    # on JAX's own inputs the two merges are the same arrays
+    got = layout.merge_slots(*(torch.tensor(jax_ref[f"{c}/{x}"]) for c in (
+        "window_near_v4", "window_far_v4") for x in ("slots", "acc")), K, 8)
+    np.testing.assert_array_equal(got[0].numpy(), jax_ref["merged/slots"])
+    np.testing.assert_array_equal(got[1].numpy(), jax_ref["merged/acc"])
+
+
+def test_window_refused_in_exit_mode_1(jax_ref):
+    """pallas_trace_slots (exit mode 1) has no window; nor has its port."""
+    with pytest.raises(ValueError, match="window"):
+        _port_slots(jax_ref, "primary", 1, 2, 0, fn=lambda *a, **kw: (
+            trace_slots(*a, **kw, t_split=None, window_mode=1)))
 
 
 def test_unpack_slots_matches_jax(jax_ref):

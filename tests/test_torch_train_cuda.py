@@ -254,6 +254,87 @@ def test_trace_slots_wrapper_checks_inputs(cuda):
         trace_slots(*args, **dict(kw, exit_mode=2))
 
 
+# split-far's passes (window_mode 1 near, 2 far) on the case's rays, culled
+# over the window as the step culls them: (K, cluster, rays, window_mode,
+# mc, secondary_static)
+WINDOW_CASES = {
+    "k32_c256_secondary_dead_near": (32, 256, "secondary", 1, 16, 1),
+    "k16_c256_secondary_dead_far": (16, 256, "secondary", 2, 16, 1),
+    "k16_c128_primary_far_gate_dynamic": (16, 128, "primary", 2, 8, -1),
+    "k32_c256_primary_near": (32, 256, "primary", 1, 8, 0),
+}
+
+
+def _window_slots(case, device, fn):
+    K, cluster, kind, wmode, mc, ss = WINDOW_CASES[case]
+    gpack, table, ftable, bounds = _tables(cluster, device)
+    o, d, alive = _rays(kind, device)
+    near = 0.05 if kind == "primary" else 0.0
+    t_split = torch.tensor(np.random.default_rng(7).uniform(
+        1.0, 6.0, o.shape[0]).astype(np.float32), device=device)
+    cull_near, cull_far = rt.window_bounds(near, FAR, t_split, wmode, 256)
+    cands, cnear, _n, _o, _t = culling.select_candidates(
+        o, d, bounds, cull_near, cull_far, tile=256, max_clusters=mc)
+    slots, acc = fn(o, d, gpack, table, ftable, cands, cnear, near, FAR, 3.0,
+                    1.0 if ss else 0.0, 0.1, 0.9, max_hits=K,
+                    cluster=cluster, tile=256, alive=alive,
+                    secondary_static=ss, exit_mode=0, check_every=8,
+                    t_split=t_split, window_mode=wmode)
+    return slots, acc, t_split
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_trace_slots_window_matches_reference(case, cuda):
+    """Window modes 1 and 2 (split-far's near and far pass): every slot
+    block and counter equals the plain version's, and every kept hit lies
+    on its side of the ray's t_split."""
+    K, wmode = WINDOW_CASES[case][0], WINDOW_CASES[case][3]
+    before = trace_slots.launches_by_window[wmode]
+    slots, acc, ts = _window_slots(case, cuda, trace_slots)
+    torch.cuda.synchronize()
+    assert trace_slots.launches_by_window[wmode] == before + 1
+    ref_slots, ref_acc, _ = _window_slots(case, cuda, trace_slots_reference)
+    torch.testing.assert_close(acc, ref_acc, rtol=0, atol=0)
+    torch.testing.assert_close(slots, ref_slots, rtol=0, atol=0)
+    t = slots.reshape(-1, layout.SLOT_BLOCKS, K)[:, layout.SLOT_T]
+    valid = t < 1e37
+    assert valid.any()
+    side = t < ts[:, None] if wmode == 1 else t > ts[:, None]
+    assert side[valid].all()
+
+
+def test_trace_slots_window_refused_in_exit_mode_1(cuda):
+    """pallas_trace_slots (exit mode 1) has no window: the wrapper refuses
+    the pair before any launch, on the card as on the CPU."""
+    gpack, table, ftable, bounds = _tables(256, cuda)
+    o, d, _ = _rays("primary", cuda)
+    cands, cnear, _n, _o, _t = culling.select_candidates(
+        o, d, bounds, 0.05, FAR, tile=256, max_clusters=8)
+    before = trace_slots.launches
+    with pytest.raises(ValueError, match="window"):
+        trace_slots(o, d, gpack, table, ftable, cands, cnear, 0.05, FAR, 3.0,
+                    0.0, 0.1, 0.9, max_hits=16, cluster=256, tile=256,
+                    exit_mode=1, check_every=2,
+                    t_split=torch.ones(o.shape[0], device=cuda),
+                    window_mode=1)
+    assert trace_slots.launches == before
+
+
+def test_split_far_step_cuda_equals_cpu(cuda):
+    """The split-far step (near K 16, far K 16) on the card and on the CPU,
+    the same samples: the same state, bit for bit, through both passes'
+    kernels, merge_slots and the scatter of K + K_far slots."""
+    samples = _samples()
+    before = list(trace_slots.launches_by_window)
+    a, ma = _step(cuda, samples, split_far=True, mc_far=16, max_hits_far=16)
+    assert [n - b for n, b in zip(trace_slots.launches_by_window,
+                                  before)] == [0, 3, 3]
+    b, mb = _step(torch.device("cpu"), samples, split_far=True, mc_far=16,
+                  max_hits_far=16)
+    assert ma == mb
+    _assert_states_equal(a, b)
+
+
 def _random_ids_case(g):
     """The first case: heavy duplicates, empty slots, exact cancellations,
     a nonzero start (zero in its first rows)."""
@@ -386,12 +467,12 @@ LRS = dict(xyz=1e-4, scaling=5e-3, rotation=1e-3, opacity=2.5e-2,
 HYPER = dict(beta_1=0.9, beta_2=0.999, scale_decay=0.9999, apply_grads=1.0)
 
 
-def _step(device, samples):
+def _step(device, samples, **kw):
     state, camera, targets = _step_inputs(device)
     s = rt.TileSamples(samples.jitter.to(device), samples.us.to(device))
     new, metrics = tr.train_step(state, camera, targets, rt.RenderSettings(),
                                  LRS, HYPER, None, 64, 64, samples=s,
-                                 **STEP_KW)
+                                 **dict(STEP_KW, **kw))
     return new, {k: v.item() for k, v in metrics.items()}
 
 

@@ -529,13 +529,13 @@ def test_settings_from_config():
 
 
 def test_unported_paths_raise(jax_ref):
-    """split_far raises; the non-fused step (use_culling=False, ported
-    since: tests/test_torch_render_tile.py holds it against JAX) and the
-    XLA tracer's step (use_pallas=False, ported since:
-    tests/test_torch_trace_rays.py holds it against JAX) step."""
-    with pytest.raises(NotImplementedError, match="split_far"):
-        _port_step(jax_ref, split_far=True)
-    for kw in (dict(use_culling=False), dict(use_pallas=False)):
+    """Each of the paths that raised before they were ported steps: the
+    split-far step (tests/test_torch_split_far.py holds it against JAX),
+    the non-fused step (use_culling=False: tests/test_torch_render_tile.py)
+    and the XLA tracer's step (use_pallas=False:
+    tests/test_torch_trace_rays.py)."""
+    for kw in (dict(split_far=True), dict(use_culling=False),
+               dict(use_pallas=False)):
         new, metrics = _port_step(jax_ref, **kw)
         assert new.count == 1 and np.isfinite(metrics["l1_diffuse"].item())
         assert (new.total_weight > 0).any()
