@@ -259,6 +259,46 @@ Phases, one line each (any failure raises and the script exits non-zero):
      ranks at SPLIT_DP_SIDE against train_step, by phase 21 (a)'s rule.
      (e) tools/probe_cand_stats.py at its defaults: candidates a tile by
      tile size, repaired and parent cull.
+ 23. the tools (python -m editable_gaussian_reflections_tpu_torch.tools.
+     <name>) in-process, each with its seconds and its kernels' launches
+     (counted from 0 just before it) against the counts its code implies:
+     (a) make_room_dataset at its defaults (128x128, room_scene(20000),
+     10 + 2 views, 4 spp: the fused route), ms a view; BlenderDataset
+     reads the dataset back with imageio, cv2 and PIL blocked, every
+     buffer bit for bit what was written; the training CLI on it at -r
+     128 for CLI_KW's iterations (every loss finite, trace_slots 1 or 3 a
+     step, scatter_grads 1), then its last step's inputs once more on the
+     dataset's ground-truth scene, whose reflected rays live (the fit's
+     die on its faint normals).  (b) eval_sweep on that model at its
+     defaults (spp 1/16/128, denoise 0/1) on the route render.py's gate
+     gives the loaded model (default_backend_kwargs, fused_path_ok):
+     every PSNR finite, eval_sweep.json written.  (c) denoiser_eval at its defaults
+     (256x256, reference 256 spp, spp 1/8/32/128): plain PSNR rising with
+     spp, the KPN's gain at spp 1 above 0 dB; the grid printed beside the
+     repository's denoiser_eval.json (the JAX run's figures).  (d)
+     denoise_train --gen (256x256, reference 192 spp, 2 noisy frames a
+     view) and --train (crop 128), cut in depth (TOOLS_CUTS: views 16 ->
+     4, steps 1500 -> 150): the best validation L1 below its initial
+     value, the weights (a temporary path) read back by load_params, the
+     shipped assets/denoise_kpn_v1.npz's sha256 unchanged.  (e)
+     colmap2nerf on phase 19's COLMAP sparse model: every frame's pose
+     within TOOLS_POSE_TOL of the one the dataset writer was given;
+     --sharpen_percent 50 on a copy of phase 19's PNG frames keeps the
+     sharpest half.  (f) card against CPU with the same samples on
+     room_scene(TOOLS_SMALL_N): a make_room_dataset view at
+     TOOLS_SMALL_SIDE (fused forced) and at TOOLS_NF_SIDE (non-fused:
+     trace_hits against the CPU's plain tracer), its 7 buffers by the
+     frame rule (at most RUN_FLIP_SHARE of elements outside 2e-4*|ref| +
+     2e-5*scale), the RGB ones also tonemapped to 8 bits by phase 19
+     (b)'s PNG rule, and a denoiser_eval frame and its denoised image
+     likewise.  At bounce 0 (primary) and at bounce 1 (reflected), the
+     call with the most live rays of each kernel the route runs,
+     render_culled or trace_hits in (a), (b), (c) and (f), trace_slots
+     (the reflected ones come after no_bounces_until_iter) and the
+     report's render_culled in (a)'s training and its ground-truth step,
+     and the first scatter of each, is held against its plain version
+     (phases 2 and 5's rules); a run that made none of one fails, and so
+     does a ground-truth reflected trace_slots call with no live ray.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -270,6 +310,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import copy
+import hashlib
 import importlib
 import io
 import json
@@ -298,6 +339,9 @@ from editable_gaussian_reflections_tpu_torch import render as trender
 from editable_gaussian_reflections_tpu_torch import train as ttrain
 from editable_gaussian_reflections_tpu_torch import training as tr
 from editable_gaussian_reflections_tpu_torch.config import Config
+from editable_gaussian_reflections_tpu_torch.dataset.blender import (
+    BlenderDataset,
+)
 from editable_gaussian_reflections_tpu_torch.dataset.image_utils import (
     from_png,
 )
@@ -370,6 +414,7 @@ from editable_gaussian_reflections_tpu_torch.ops.camera_rays import (
     primary_ray_directions,
 )
 from editable_gaussian_reflections_tpu_torch.ops.precision import div
+from editable_gaussian_reflections_tpu_torch.ops import trace as trace_mod
 from editable_gaussian_reflections_tpu_torch.ops.trace import trace_rays
 from editable_gaussian_reflections_tpu_torch.parallel.gaussian_sharded import (
     shard_scene,
@@ -408,6 +453,7 @@ from editable_gaussian_reflections_tpu_torch.renderer.raytracer import (
     render_frame_fused,
     tiles_per_launch_for,
 )
+from editable_gaussian_reflections_tpu_torch.renderer import denoise_net as tdn
 from editable_gaussian_reflections_tpu_torch.renderer import raytracer as rt
 from editable_gaussian_reflections_tpu_torch.renderer import render as trd
 from editable_gaussian_reflections_tpu_torch.renderer.render import (
@@ -416,6 +462,7 @@ from editable_gaussian_reflections_tpu_torch.renderer.render import (
 from editable_gaussian_reflections_tpu_torch.scene import init as tinit
 from editable_gaussian_reflections_tpu_torch.scene.gaussian_scene import (
     build_frames,
+    from_arrays,
     num_live,
 )
 from editable_gaussian_reflections_tpu_torch.scene.dataset_readers import (
@@ -423,6 +470,11 @@ from editable_gaussian_reflections_tpu_torch.scene.dataset_readers import (
     getNerfppNorm,
 )
 from editable_gaussian_reflections_tpu_torch.scene.scene import Scene
+from editable_gaussian_reflections_tpu_torch.utils import synth as tsynth
+from editable_gaussian_reflections_tpu_torch.utils.synth import (
+    room_camera,
+    room_scene,
+)
 from editable_gaussian_reflections_tpu_torch.viewer import service as tservice
 from editable_gaussian_reflections_tpu_torch.viewer import state as tstate
 from editable_gaussian_reflections_tpu_torch.viewer.service import (
@@ -436,6 +488,17 @@ from editable_gaussian_reflections_tpu_torch.tools import (
     bench_v5,
     bench_vpu_dtype,
     demo_5m,
+)
+from editable_gaussian_reflections_tpu_torch.tools import colmap2nerf as tc2n
+from editable_gaussian_reflections_tpu_torch.tools import (
+    denoise_train as tdt,
+)
+from editable_gaussian_reflections_tpu_torch.tools import (
+    denoiser_eval as tde,
+)
+from editable_gaussian_reflections_tpu_torch.tools import eval_sweep as tsweep
+from editable_gaussian_reflections_tpu_torch.tools import (
+    make_room_dataset as tmrd,
 )
 from editable_gaussian_reflections_tpu_torch.tools import (
     probe_cand_stats as tprobe,
@@ -1935,6 +1998,7 @@ def probe_cli(dev, step_samples=None, render_samples=None):
         if step_samples is not None:
             kw = dict(kw, generator=None,
                       samples=step_samples(len(rec["steps"]), kw))
+        rec["last_step"] = (cp, targets, settings, lrs, hyper, kw)
         new, m = timed("steps", real["step"], state, cp, targets, settings,
                        lrs, hyper, **kw)
         rec["steps"][-1].update(
@@ -3957,17 +4021,6 @@ def phase_split(dev, record, smi) -> dict:
                                  float(cf["starved"].float().mean())))
             return comp, starved, (cn, cf)
 
-        def calls_of(fn):
-            seen, real = [], rt.kernel_call
-
-            def rec(*a, **k):
-                c = real(*a, **k)
-                seen.append(c)
-                return c
-            with mock.patch.object(rt, "kernel_call", rec):
-                out = fn()
-            return out, seen
-
         ms1, (fs1, ff1), _ = timed(lambda: dispatch_render_frame(
             fscene, fcam, settings, None, fside, fside, **kw), N_TIMED_SPLIT)
         reset_window_counts()
@@ -3984,11 +4037,12 @@ def phase_split(dev, record, smi) -> dict:
         with mock.patch.object(rt, "bounce_epilogue", epi):
             rt_single = dispatch_render_frame(fscene, fcam, settings, None,
                                               fside, fside, **kw)
-        with mock.patch.object(rt, "split_bounce", spl):
-            (fs2b, ff2b), seen = calls_of(lambda: dispatch_render_frame(
+        with mock.patch.object(rt, "split_bounce", spl), \
+                busiest_calls() as seen:
+            fs2b, ff2b = dispatch_render_frame(
                 fscene, fcam, settings, None, fside, fside, split_far=True,
                 mc_far=cfg.mc_far, max_hits_far=cfg.max_hits_far,
-                split_radius_scale=cfg.split_radius_scale, **kw))
+                split_radius_scale=cfg.split_radius_scale, **kw)
         del rt_single
         frame_calls[mode] = seen
         capped = torch.zeros(fside * fside, dtype=torch.bool, device=dev)
@@ -4033,12 +4087,13 @@ def phase_split(dev, record, smi) -> dict:
         kernel, reference = ((render_culled, render_culled_reference)
                              if mode == "kbuffer" else
                              (render_scan, render_scan_reference))
-        for i, call in enumerate(seen[:4]):
-            name = ("one", "near", "far")[call.kwargs["window_mode"]]
-            res["c"][f"{kernel.__name__} {name} {i // 2}"] = \
-                check_window_pass(kernel, reference, call,
-                                  f"{kernel.__name__} {name} pass, bounce "
-                                  f"{i // 2}")
+        for bounce in (0, 1):
+            for window, name in ((1, "near"), (2, "far")):
+                _live, call = seen[(kernel.__name__, bounce, window)]
+                res["c"][f"{kernel.__name__} {name} {bounce}"] = \
+                    check_window_pass(kernel, reference, call,
+                                      f"{kernel.__name__} {name} pass, "
+                                      f"bounce {bounce}")
     del frame_calls, fscene
     torch.cuda.empty_cache()
     print("phase 22 (c): window modes 1/2 against the plain versions on "
@@ -4116,6 +4171,587 @@ def phase_split(dev, record, smi) -> dict:
     record["phase22"] = res
     print(f"phase 22: {res['s']:.1f} s", flush=True)
     return res
+
+
+# -- phase 23: the tools ------------------------------------------------------
+
+# each tool at its defaults unless said: make_room_dataset (128x128, the
+# 20k room, 10 + 2 views, 4 spp), eval_sweep (spp 1/16/128) on the model the
+# training CLI fits to that dataset for CLI_KW's iterations at -r 128,
+# denoiser_eval (256x256, reference 256 spp, spp 1/8/32/128),
+# denoise_train (--gen and --train, cut: TOOLS_GEN_ARGV's views 16 -> 4,
+# TOOLS_TRAIN_ARGV's steps 1500 -> 150), colmap2nerf on phase 19's COLMAP
+# sparse model
+TOOLS_ROOM_ARGV = []
+TOOLS_TRAIN_KW = CLI_KW
+TOOLS_SWEEP_ARGV = []
+TOOLS_EVAL_ARGV = []
+TOOLS_GEN_ARGV = ["--views", "4"]
+TOOLS_TRAIN_ARGV = ["--steps", "150"]
+TOOLS_CUTS = "views 16 -> 4, steps 1500 -> 150"
+# (f): card against CPU at this side on a room of this many rows; the
+# non-fused route (trace_hits) at a side the fused path refuses
+TOOLS_SMALL_SIDE, TOOLS_SMALL_N, TOOLS_NF_SIDE, TOOLS_SMALL_SPP = 64, 4096, 60, 2
+# colmap2nerf's poses against the dataset writer's
+TOOLS_POSE_TOL = 1e-6
+ASSET_KPN = (ROOT / "editable_gaussian_reflections_tpu" / "assets"
+             / "denoise_kpn_v1.npz")
+BLOCKED_IMAGING = {"imageio": None, "imageio.v3": None, "cv2": None,
+                   "PIL": None, "PIL.Image": None}
+# BlenderDataset's CameraInfo field of each buffer make_room_dataset writes
+LOADED_FIELD = {"render": "image", "diffuse": "diffuse_image",
+                "specular": "specular_image", "depth": "depth_image",
+                "normal": "normal_image", "roughness": "roughness_image",
+                "f0": "f0_image"}
+
+
+def tool_run(dev, fn, argv) -> tuple:
+    """fn(argv) with every kernel's count set to 0 just before and read
+    just after: (its return value, the launches, seconds)."""
+    for c in CLI_COUNTERS.values():
+        c.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn(argv)
+    sync(dev)
+    return out, launch_counts(), time.perf_counter() - t0
+
+
+# the (kernel, bounce) pairs a tool's run must call, the busiest call of
+# each held against its plain version: a fused frame's k-buffer passes, a
+# non-fused frame's traces, a training step's slots passes and scatter
+FUSED_CALLS = (("render_culled", 0), ("render_culled", 1))
+TRACE_CALLS = (("trace_hits", 0), ("trace_hits", 1))
+STEP_CALLS = (("trace_slots", 0), ("trace_slots", 1), ("scatter_grads", None))
+BOUNCE_NAMES = ("primary", "reflected")
+
+
+@contextlib.contextmanager
+def busiest_calls():
+    """Records, of each kernel at each bounce and window mode, the call
+    with the most live rays (the first among equals) under (kernel, bounce,
+    window), as (live rays, call), to be held against the plain versions
+    after the run: the KernelCalls that rt.kernel_call and rt.slots_call
+    assemble (render_culled, render_scan, trace_slots; the bounce is their
+    `step`, the live rays their `alive`), trace_hits' (args, kwargs)
+    (bounce 0 for a primary trace, 1 for the first secondary one: a tile's
+    bounces run in order; every ray live) and the first scatter's
+    (payload, ids, capacity) under ("scatter_grads", None, 0)."""
+    rec = {}
+    real_k, real_s = rt.kernel_call, rt.slots_call
+    real_h, real_sc = trace_mod.trace_hits, rt.scatter_add
+
+    def assembled(real):
+        def wrapper(*a, **k):
+            call = real(*a, **k)
+            step = a[3] if len(a) > 3 else k["step"]
+            key = (call.kernel.__name__, int(step), k.get("window_mode", 0))
+            alive = call.kwargs.get("alive")
+            live = (call.args[0].shape[0] if alive is None
+                    else int(alive.sum()))
+            if key not in rec or live > rec[key][0]:
+                rec[key] = (live, call)
+            return call
+        return wrapper
+
+    def hits(*a, **k):
+        secondary = a[8] if len(a) > 8 else k["secondary"]
+        rec.setdefault(("trace_hits", int(float(secondary) > 0), 0),
+                       (a[0].shape[0], (a, k)))
+        return real_h(*a, **k)
+
+    def scatter(acc, payload, ids):
+        key = ("scatter_grads", None, 0)
+        if key not in rec:
+            rec[key] = (ids.shape[0], (payload.clone(), ids.clone(),
+                                       acc.shape[0]))
+        return real_sc(acc, payload, ids)
+
+    with mock.patch.object(rt, "kernel_call", assembled(real_k)), \
+            mock.patch.object(rt, "slots_call", assembled(real_s)), \
+            mock.patch.object(trace_mod, "trace_hits", hits), \
+            mock.patch.object(rt, "scatter_add", scatter):
+        yield rec
+
+
+def check_tool_calls(where: str, rec: dict, want: tuple, dev) -> dict:
+    """The call of each (kernel, bounce) of `want` that busiest_calls
+    recorded, held against its plain version on the card (phase 2's rule
+    for render_culled and trace_hits, phase 5's for trace_slots and the
+    scatter), with the kernel's and the plain version's ms and the live
+    rays.  Raises when the run made one of them not."""
+    missing = [w for w in want if (*w, 0) not in rec]
+    if missing:
+        raise RuntimeError(f"{where}: no call of {missing} was recorded "
+                           f"(recorded {sorted(map(str, rec))})")
+    out = {}
+    for kernel, bounce in want:
+        live, call = rec[(kernel, bounce, 0)]
+        name = kernel if bounce is None else f"{kernel} {BOUNCE_NAMES[bounce]}"
+        if kernel == "scatter_grads":
+            out[name] = scatter_numbers(f"{where} {name}", *call, dev)
+            continue
+        if kernel == "trace_hits":
+            args, kwargs = call
+            run = lambda: trace_hits(*args, **kwargs)  # noqa: E731
+            plain = lambda: trace_hits_reference(*args, **{  # noqa: E731
+                k: v for k, v in kwargs.items() if k != "extract_attrs"})
+        else:
+            args, kwargs = call.args, call.kwargs
+            fn, ref = ((render_culled, render_culled_reference)
+                       if kernel == "render_culled"
+                       else (trace_slots, trace_slots_reference))
+            run = lambda: fn(*args, **kwargs)  # noqa: E731
+            plain = lambda: ref(*args, **kwargs)  # noqa: E731
+        ms = cuda_ms(run, reps=3)
+        got = run()
+        sync(dev)
+        t0 = time.perf_counter()
+        want_out = plain()
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if kernel == "render_culled":
+            cmp = compare_lanes(got, want_out)
+        elif kernel == "trace_hits":
+            cmp = compare_hits(got[:5] + got[6:], want_out)
+        else:
+            cmp = compare_slots(*got, *want_out, kwargs["max_hits"])
+        check_lanes(f"{where} {name}", cmp)
+        if kernel == "trace_slots" and cmp["counters_equal"] < 1.0:
+            raise RuntimeError(f"{where} {name}: ids or counters differ on "
+                               f"{1 - cmp['counters_equal']:.6%} of rays: "
+                               f"{cmp['differ']}")
+        out[name] = dict(cmp, ms=ms, plain_ms=plain_ms,
+                         rays=args[0].shape[0], live=live)
+    return out
+
+
+def calls_line(checks: dict) -> str:
+    return "; ".join(f"{k} ({v.get('rays', v.get('rows'))} rays"
+                     + (f", {v['live']} live" if "live" in v else "") + ") "
+                     f"{v['ms']:.3f} ms, plain {v['plain_ms']:.1f} ms, "
+                     f"max_abs_err {v['max_abs_err']:.3g}"
+                     for k, v in checks.items())
+
+
+def expect(where: str, got: dict, want: dict, dev) -> None:
+    """Every kernel's launches as its code implies (0 where not named); on
+    the card only (the CPU runs the plain versions, which count none)."""
+    full = {k: want.get(k, 0) for k in got}
+    if dev.type == "cuda" and got != full:
+        raise RuntimeError(f"{where}: launches {got}, expected {full}")
+
+
+def sha256_of(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def share_rule(a: np.ndarray, b: np.ndarray, image: bool) -> dict:
+    """Card against CPU: a float buffer by the frame rule (the share of
+    elements outside 2e-4*|b| + 2e-5*scale); an RGB image also tonemapped
+    to 8 bits by phase 19 (b)'s PNG rule."""
+    out = dict(frame_share=mismatch(torch.from_numpy(np.asarray(a)),
+                                    torch.from_numpy(np.asarray(b))),
+               png_share=0.0, flip_share=0.0)
+    if image:
+        d = np.abs(tprior.tonemapped8(a).astype(np.int16)
+                   - tprior.tonemapped8(b).astype(np.int16))
+        out.update(png_share=float((d > 0).mean()),
+                   flip_share=float((d > 1).any(-1).mean()))
+    return out
+
+
+def rule_fails(name: str, r: dict) -> list:
+    return ([f"{name} {r}"] if r["frame_share"] > RUN_FLIP_SHARE
+            or r["png_share"] > RUN_PNG_SHARE
+            or r["flip_share"] > RUN_FLIP_SHARE else [])
+
+
+def tools_card_vs_cpu(dev) -> dict:
+    """(f): a make_room_dataset view (fused forced, and the non-fused route
+    at TOOLS_NF_SIDE: trace_hits on the card, the plain tracer on the
+    CPU) and a denoiser_eval frame with its default denoise, on the card
+    and on the CPU with the same samples, a small room; the share rules."""
+    side, spp = TOOLS_SMALL_SIDE, TOOLS_SMALL_SPP
+    eye = tmrd.orbit_eye(0, 3, 3.0)
+    c2w = tmrd.look_at_blender_c2w(eye, np.array([0.0, 0.0, 2.25]))
+    arrs = room_scene(TOOLS_SMALL_N, farfield_fraction=0.25)
+    out, failed = dict(launches={}), []
+    views, frames = {}, {}
+    cpu = torch.device("cpu")
+    with cpu_drawn_samples():
+        for d in (dev, cpu):
+            scene = from_arrays(**arrs, pad_multiple=2048, device=d)
+            for fused, s in ((True, side), (False, TOOLS_NF_SIDE)):
+                key = (d.type, fused)
+                with busiest_calls() as rec:
+                    (views[key], launches, _s) = tool_run(
+                        d, lambda _: tmrd.render_view(
+                            scene, c2w, eye, 1000, s, spp, fused, d), None)
+                if d.type == dev.type:
+                    out["launches"]["fused" if fused else "nonfused"] = \
+                        launches
+                    if not fused:
+                        # the CPU's non-fused route is the plain tracer
+                        out["calls"] = check_tool_calls(
+                            "phase 23 (f)", rec,
+                            TRACE_CALLS if d.type == "cuda" else (), dev)
+            escene, ecam = tsynth.room(d, TOOLS_SMALL_N), tsynth.camera_at(
+                *room_camera(), d)
+            fr = tsynth.room_frame(escene, ecam, side, spp, tde.SEED)
+            frames[d.type] = dict(
+                final=fr["final"].cpu().numpy(),
+                denoised=tde.denoise_specular(
+                    fr["final"], fr["diffuse"], fr["normal"], fr["depth"],
+                    fr["rough"], spp=spp).cpu().numpy())
+    expect("phase 23 (f) fused view", out["launches"]["fused"],
+           dict(render_culled=3 * spp), dev)
+    expect("phase 23 (f) non-fused view", out["launches"]["nonfused"],
+           dict(trace_hits=3 * spp), dev)
+    rules = {}
+    for fused in (True, False):
+        a, b = views[(dev.type, fused)], views[("cpu", fused)]
+        for buf in tmrd.BUFFERS:
+            name = f"room {'fused' if fused else 'non-fused'} {buf}"
+            rules[name] = share_rule(a[buf], b[buf], buf in (
+                "render", "diffuse", "specular"))
+            failed += rule_fails(name, rules[name])
+    for k in ("final", "denoised"):
+        name = f"denoiser_eval {k}"
+        rules[name] = share_rule(frames[dev.type][k], frames["cpu"][k],
+                                 True)
+        failed += rule_fails(name, rules[name])
+    if failed:
+        raise RuntimeError(f"phase 23 (f): card and CPU differ: {failed}")
+    out["rules"] = rules
+    out["worst"] = {k: max(r[k] for r in rules.values())
+                    for k in ("frame_share", "png_share", "flip_share")}
+    return out
+
+
+def phase_tools(dev, record, smi) -> dict:
+    """Phase 23: the five tools, in-process on the card (docstring)."""
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "tools_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    res = {}
+    on = ["--device", dev.type]
+
+    # (a) make_room_dataset at its defaults, read back, trained on
+    data, model = out_dir / "room", out_dir / "room_model"
+    room_args = tmrd.parse_args(TOOLS_ROOM_ARGV)
+    written, view_ms, route, gt = {}, [], [], {}
+    real_write, real_view = tmrd.write_tiff, tmrd.render_view
+    real_route = tmrd.use_fused
+
+    def use_fused(*a, **k):
+        route.append(real_route(*a, **k))
+        return route[-1]
+
+    def write(path, arr):
+        written[os.path.basename(path)] = arr.copy()
+        real_write(path, arr)
+
+    def view(*a, **k):
+        gt.setdefault("scene", a[0])
+        sync(dev)
+        t0 = time.perf_counter()
+        bufs = real_view(*a, **k)
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+        return bufs
+
+    with mock.patch.object(tmrd, "write_tiff", write), \
+            mock.patch.object(tmrd, "render_view", view), \
+            mock.patch.object(tmrd, "use_fused", use_fused), \
+            busiest_calls() as rec_a:
+        _, launches_a, s_a = tool_run(
+            dev, tmrd.main, ["--out", str(data)] + TOOLS_ROOM_ARGV + on)
+    n_views = room_args.n_train + room_args.n_test
+    fused = route == [True]
+    frames_a = n_views * room_args.spp
+    expect("phase 23 (a)", launches_a,
+           dict(render_culled=3 * frames_a) if fused
+           else dict(trace_hits=3 * frames_a), dev)
+    t0 = time.perf_counter()
+    loaded = 0
+    with mock.patch.dict(sys.modules, BLOCKED_IMAGING):
+        for split in ("train", "test"):
+            ds = BlenderDataset(str(data), split)
+            for i in range(len(ds)):
+                ci = ds[i]
+                for buf, field in LOADED_FIELD.items():
+                    a = np.asarray(getattr(ci, field))
+                    b = written[f"{split}_{buf}_{i:03d}.tiff"]
+                    if a.dtype != np.float32 or a.reshape(b.shape).tobytes() \
+                            != b.tobytes():
+                        raise RuntimeError(f"phase 23 (a): {split} {i} {buf}"
+                                           " read back differs from what "
+                                           "was written")
+                    loaded += 1
+    load_s = time.perf_counter() - t0
+    if loaded != n_views * len(LOADED_FIELD):
+        raise RuntimeError(f"phase 23 (a): {loaded} buffers read back")
+    checks_a = check_tool_calls("phase 23 (a)", rec_a,
+                                FUSED_CALLS if fused else TRACE_CALLS, dev)
+    del rec_a, written
+    with probe_cli(dev) as rec_t, busiest_calls() as rec_tc:
+        _, launches_t, s_t = tool_run(
+            dev, ttrain.cli, ["-s", str(data), "-m", str(model), "-r",
+                              str(room_args.size)]
+            + kw_argv(TOOLS_TRAIN_KW) + on)
+    steps = rec_t["steps"]
+    failed = []
+    if len(steps) != TOOLS_TRAIN_KW["iterations"] or not all(
+            s["finite"] and math.isfinite(s["l1"]) for s in steps):
+        failed.append(f"steps {[(s['l1'], s['finite']) for s in steps]}")
+    # a step: one trace_slots launch a bounce (both 8192-ray tiles in one
+    # launch), one scatter; the report's renders launch render_culled
+    step_slots = sum(s["launches"]["trace_slots"] for s in steps)
+    report = sum(e["launches"]["render_culled"] for e in rec_t["reports"])
+    if dev.type == "cuda" and (
+            step_slots != sum(1 if s["bounces"] == 0 else 3 for s in steps)
+            or [s["launches"]["scatter_grads"] for s in steps]
+            != [1] * len(steps)
+            or launches_t != dict(trace_slots=step_slots,
+                                  scatter_grads=len(steps),
+                                  render_culled=report, trace_hits=0)):
+        failed.append(f"launches {launches_t}, a step "
+                      f"{[s['launches'] for s in steps]}")
+    if failed:
+        raise RuntimeError(f"phase 23 (a) training CLI: {failed}")
+    checks_t = check_tool_calls("phase 23 (a) training", rec_tc,
+                                STEP_CALLS + FUSED_CALLS, dev)
+    del rec_tc
+    # the training's last step again, its own inputs (camera, targets,
+    # learning rates, the Config's kernel options at -r 128), on the
+    # dataset's ground-truth scene: the fit's faint normals kill every
+    # reflected ray of its steps, the ground truth's keep them live
+    *step_args, step_kw = rec_t.pop("last_step")
+    with busiest_calls() as rec_gt:
+        tr.train_step(tr.init_train_state(gt.pop("scene")), *step_args,
+                      **step_kw)
+    checks_gt = check_tool_calls("phase 23 (a) ground truth", rec_gt,
+                                 STEP_CALLS, dev)
+    del rec_gt
+    if not checks_gt["trace_slots reflected"]["live"]:
+        raise RuntimeError("phase 23 (a): the ground-truth step's reflected "
+                           "trace_slots call has no live ray")
+    res["a"] = dict(
+        s=s_a, view_ms=view_ms, fused=fused, launches=launches_a,
+        load_s=load_s, buffers=loaded, calls=checks_a,
+        train=dict(s=s_t, launches=launches_t,
+                   l1=[s["l1"] for s in steps],
+                   iteration_ms=[s["ms"] for s in steps], calls=checks_t,
+                   ground_truth_calls=checks_gt))
+    print(f"phase 23 (a): make_room_dataset at its defaults "
+          f"({room_args.size}x{room_args.size}, room_scene("
+          f"{room_args.n_gaussians}), {room_args.n_train} + "
+          f"{room_args.n_test} views, {room_args.spp} spp, "
+          f"{'fused' if fused else 'non-fused'} route) {s_a:.1f} s: ms a "
+          f"view {fmt_list(view_ms, '.1f')}; launches {launches_a}; "
+          f"{loaded} buffers read back by BlenderDataset with imageio, cv2 "
+          f"and PIL blocked, equal bit for bit ({load_s:.2f} s); kernel vs "
+          f"plain: {calls_line(checks_a)} [{smi}]", flush=True)
+    print(f"phase 23 (a): the training CLI on it at -r {room_args.size} "
+          f"({TOOLS_TRAIN_KW['iterations']} iterations) {s_t:.1f} s: ms a "
+          f"step {fmt_list(res['a']['train']['iteration_ms'], '.1f')}; "
+          f"l1_diffuse {fmt_list(res['a']['train']['l1'], '.6f')}; launches "
+          f"{launches_t}; kernel vs plain: {calls_line(checks_t)}; its last "
+          f"step's inputs on the dataset's ground-truth scene: "
+          f"{calls_line(checks_gt)} [{smi}]", flush=True)
+
+    # (b) eval_sweep on that model at its defaults
+    sweep_args, _ = tsweep.parse_args(["-m", str(model)] + TOOLS_SWEEP_ARGV)
+    with mock.patch.object(tsweep, "render_sweep_view",
+                           wraps=tsweep.render_sweep_view) as sweep_views, \
+            busiest_calls() as rec_b:
+        sweep, launches_b, s_b = tool_run(
+            dev, tsweep.main, ["-m", str(model)] + TOOLS_SWEEP_ARGV + on)
+    n_test = sweep_views.call_count // (2 * len(sweep_args.spp))
+    frames_b = 2 * n_test * sum(sweep_args.spp)
+    # the route render.py's gate gives the loaded model: its Config and
+    # scene as the tool handed them to its first view
+    cfg_b, scene_b, *_, W_b, H_b, _spp = sweep_views.call_args_list[0].args
+    fused_b = bool(trd.default_backend_kwargs(cfg_b)["use_culling"]
+                   and fused_path_ok(scene_b, W_b, H_b, cfg_b.cull_cluster))
+    del scene_b, sweep_views
+    expect("phase 23 (b)", launches_b,
+           {"render_culled" if fused_b else "trace_hits": 3 * frames_b}, dev)
+    checks_b = check_tool_calls("phase 23 (b)", rec_b,
+                                FUSED_CALLS if fused_b else TRACE_CALLS, dev)
+    del rec_b
+    sweep_json = json.loads((model / "eval_sweep.json").read_text())
+    if sweep_json["results"] != sweep or not all(
+            math.isfinite(v) for row in sweep.values() for v in row.values()):
+        raise RuntimeError(f"phase 23 (b): eval_sweep.json {sweep_json}")
+    res["b"] = dict(s=s_b, launches=launches_b, results=sweep,
+                    n_views=n_test, fused=fused_b, calls=checks_b)
+    print(f"phase 23 (b): eval_sweep at its defaults (spp "
+          f"{sweep_args.spp}, denoise 0/1, {n_test} test views, "
+          f"{'fused' if fused_b else 'non-fused'} route) {s_b:.1f} s; "
+          f"launches {launches_b}; eval_sweep.json " + "; ".join(
+              f"{k} {v}" for k, v in sweep.items())
+          + f"; kernel vs plain: {calls_line(checks_b)} [{smi}]", flush=True)
+
+    # (c) denoiser_eval at its defaults, beside the JAX run's figures
+    eval_args = tde.parse_args(TOOLS_EVAL_ARGV)
+    with busiest_calls() as rec_c:
+        grid, launches_c, s_c = tool_run(
+            dev, tde.main, ["--out", str(out_dir / "denoiser_eval.json")]
+            + TOOLS_EVAL_ARGV + on)
+    frames_c = eval_args.ref_spp + sum(eval_args.spp)
+    expect("phase 23 (c)", launches_c, dict(render_culled=3 * frames_c),
+           dev)
+    plain = [grid[str(s)]["psnr"] for s in eval_args.spp]
+    if not all(b > a for a, b in zip(plain, plain[1:])) or not (
+            grid[str(eval_args.spp[0])]["gain_db"] > 0):
+        raise RuntimeError(f"phase 23 (c): plain PSNR {plain} must rise with"
+                           f" spp and the KPN gain at spp "
+                           f"{eval_args.spp[0]} be above 0: {grid}")
+    checks_c = check_tool_calls("phase 23 (c)", rec_c, FUSED_CALLS, dev)
+    del rec_c
+    jax_grid = json.loads((ROOT / "denoiser_eval.json").read_text())[
+        "results"]
+    res["c"] = dict(s=s_c, launches=launches_c, results=grid,
+                    jax_results=jax_grid, calls=checks_c)
+    print(f"phase 23 (c): denoiser_eval at its defaults ({eval_args.size}x"
+          f"{eval_args.size}, reference {eval_args.ref_spp} spp) "
+          f"{s_c:.1f} s; launches {launches_c}; spp: psnr / KPN gain / "
+          f"a-trous gain / legacy gain, here and [the JAX run's "
+          f"denoiser_eval.json]: " + "; ".join(
+              f"{s}: {r['psnr']} / {r['gain_db']:+} / "
+              f"{r['atrous_gain_db']:+} / {r['legacy_gain_db']:+} ["
+              + (" / ".join(str(jax_grid[s][k]) for k in (
+                  "psnr", "gain_db", "atrous_gain_db", "legacy_gain_db"))
+                 if s in jax_grid else "-") + "]"
+              for s, r in grid.items())
+          + f"; kernel vs plain: {calls_line(checks_c)} [{smi}]", flush=True)
+
+    # (d) denoise_train --gen, then --train, cut in depth (TOOLS_CUTS)
+    gen_npz, weights = out_dir / "denoise_data.npz", out_dir / "kpn.npz"
+    sha = sha256_of(ASSET_KPN)
+    gen_args = tdt.parse_args(["--gen"] + TOOLS_GEN_ARGV)
+    train_args = tdt.parse_args(["--train"] + TOOLS_TRAIN_ARGV)
+    _, launches_g, s_g = tool_run(
+        dev, tdt.main, ["--gen", "--data", str(gen_npz)] + TOOLS_GEN_ARGV
+        + on)
+    frames_d = gen_args.views * (gen_args.ref_spp + gen_args.noisy_per_view)
+    expect("phase 23 (d) --gen", launches_g,
+           dict(render_culled=3 * frames_d), dev)
+    fit, launches_tr, s_tr = tool_run(
+        dev, tdt.main, ["--train", "--data", str(gen_npz), "--weights",
+                        str(weights)] + TOOLS_TRAIN_ARGV + on)
+    expect("phase 23 (d) --train", launches_tr, {}, dev)
+    back = tdn.load_params(str(weights))
+    if not fit["val_l1_exact"] < fit["val_l1_init_exact"] or back is None \
+            or sorted(back) != sorted(tdn.init_params(
+                torch.Generator().manual_seed(0))):
+        raise RuntimeError(f"phase 23 (d): val L1 {fit['val_l1_init_exact']}"
+                           f" -> {fit['val_l1_exact']}, weights read back "
+                           f"{None if back is None else sorted(back)}")
+    if sha256_of(ASSET_KPN) != sha:
+        raise RuntimeError("phase 23 (d): the shipped KPN weights changed")
+    res["d"] = dict(gen_s=s_g, train_s=s_tr, launches_gen=launches_g,
+                    cuts=TOOLS_CUTS, report={k: v for k, v in fit.items()
+                                             if k != "history"},
+                    loss=fit["history"]["loss"], val=fit["history"]["val"])
+    print(f"phase 23 (d): denoise_train --gen ({gen_args.size}x"
+          f"{gen_args.size}, reference {gen_args.ref_spp} spp, "
+          f"{gen_args.noisy_per_view} noisy frames a view) {s_g:.1f} s, "
+          f"launches {launches_g}; --train (crop {train_args.crop}, "
+          f"{train_args.steps} steps) "
+          f"{s_tr:.1f} s; cut: {TOOLS_CUTS}; best val L1 "
+          f"{fit['val_l1_init_exact']:.6f} -> {fit['val_l1_exact']:.6f} at "
+          f"step {fit['best_step']}; weights read back by load_params; the "
+          f"shipped KPN's sha256 unchanged [{smi}]", flush=True)
+
+    # (e) colmap2nerf on phase 19's COLMAP sparse model and PNG frames
+    run_data = ROOT / "build" / "run_smoke" / "data"
+    t0 = time.perf_counter()
+    tf = tc2n.main(["--colmap_path", str(run_data), "--out",
+                    str(out_dir / "transforms.json")] + on)
+    written_poses = {}
+    for split in ("train", "test"):
+        meta = json.loads((run_data / f"transforms_{split}.json").read_text())
+        for fr in meta["frames"]:
+            written_poses[os.path.basename(fr["file_path"])] = np.asarray(
+                fr["transform_matrix"])
+    pose_err = max(float(np.abs(np.asarray(fr["transform_matrix"])
+                                - written_poses[Path(fr["file_path"]).stem])
+                         .max()) for fr in tf["frames"])
+    if len(tf["frames"]) != len(written_poses) or not (
+            pose_err <= TOOLS_POSE_TOL):
+        raise RuntimeError(f"phase 23 (e): {len(tf['frames'])} frames, pose "
+                           f"error {pose_err}")
+    frames_dir = out_dir / "frames"
+    frames_dir.mkdir()
+    for png in sorted(run_data.glob("*/render/*.png")):
+        shutil.copy(png, frames_dir / png.name)
+    scores = {p.name: tc2n.sharpness(str(p)) for p in frames_dir.iterdir()}
+    tc2n.main(["--images", str(frames_dir), "--sharpen_percent", "50"] + on)
+    kept = sorted(p.name for p in frames_dir.iterdir())
+    n_keep = max(1, int(len(scores) * 0.5))
+    if kept != sorted(sorted(scores, key=scores.get, reverse=True)[:n_keep]):
+        raise RuntimeError(f"phase 23 (e): kept {kept} of {scores}")
+    res["e"] = dict(s=time.perf_counter() - t0, frames=len(tf["frames"]),
+                    pose_err=pose_err, sharpness=scores, kept=kept)
+    print(f"phase 23 (e): colmap2nerf on phase 19's sparse model: "
+          f"{len(tf['frames'])} frames, poses within {pose_err:.2e} of the "
+          f"writer's; --sharpen_percent 50 on {len(scores)} PNG frames kept "
+          f"the {len(kept)} sharpest (variance of the Laplacian "
+          f"{fmt_list(sorted(scores.values()), '.1f')}); "
+          f"{res['e']['s']:.2f} s", flush=True)
+
+    # (f) the card against the CPU
+    res["f"] = tools_card_vs_cpu(dev)
+    res["launches"] = dict(
+        make_room_dataset=launches_a, train=launches_t,
+        eval_sweep=launches_b, denoiser_eval=launches_c,
+        denoise_train=launches_g, card_vs_cpu=res["f"]["launches"])
+    res["s"] = time.perf_counter() - t_phase
+    record["phase23"] = res
+    print(f"phase 23 (f): card vs CPU, the same samples, room_scene("
+          f"{TOOLS_SMALL_N}), {TOOLS_SMALL_SPP} spp: a make_room_dataset "
+          f"view at {TOOLS_SMALL_SIDE}x{TOOLS_SMALL_SIDE} (fused, forced) and"
+          f" at {TOOLS_NF_SIDE}x{TOOLS_NF_SIDE} (non-fused: trace_hits "
+          f"against the plain tracer), its 7 buffers, and a denoiser_eval "
+          f"frame and its denoised image: worst share outside the frame "
+          f"bound {res['f']['worst']['frame_share']:.4%}, 8-bit values "
+          f"differing {res['f']['worst']['png_share']:.4%}, by more than a "
+          f"level {res['f']['worst']['flip_share']:.4%}; trace_hits vs plain"
+          f": {calls_line(res['f']['calls'])}; phase 23 {res['s']:.1f} s "
+          f"[{smi}]", flush=True)
+    return res
+
+
+def tools_entry(tools: dict, kernel: str, check: str) -> dict:
+    """The kernels line's phase 23 keys of `kernel`: its launches by tool,
+    and the tools' calls of it (`check`: their name in the checks) held
+    against its plain version."""
+    launches = {}
+    for tool, counts in tools["launches"].items():
+        if tool == "card_vs_cpu":
+            for route, c in counts.items():
+                launches[f"card_vs_cpu_{route}"] = c[kernel]
+        else:
+            launches[tool] = counts[kernel]
+    calls = {f"{where} {k}": {f: v[f] for f in ("ms", "plain_ms",
+                                                 "max_abs_err", "rays",
+                                                 "live") if f in v}
+             for where, checks in (
+                 ("make_room_dataset", tools["a"]["calls"]),
+                 ("train", tools["a"]["train"]["calls"]),
+                 ("train_ground_truth",
+                  tools["a"]["train"]["ground_truth_calls"]),
+                 ("eval_sweep", tools["b"]["calls"]),
+                 ("denoiser_eval", tools["c"]["calls"]),
+                 ("card_vs_cpu", tools["f"]["calls"]))
+             for k, v in checks.items() if k.startswith(check)}
+    return dict(tools_launches=launches, tools_calls=calls,
+                tools_max_abs_err=max((v["max_abs_err"]
+                                       for v in calls.values()),
+                                      default=None))
 
 
 def main() -> None:
@@ -4557,6 +5193,7 @@ def main() -> None:
     par_l = par["launches"]
     split = phase_split(dev, record, smi)
     win = split["c"]
+    tools = phase_tools(dev, record, smi)
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -4613,6 +5250,9 @@ def main() -> None:
                                 if k.startswith("render_culled")},
         "split_plain_ms": {k: v["plain_ms"] for k, v in win.items()
                            if k.startswith("render_culled")},
+        # the tools (phase 23): launches by tool, and their calls at the
+        # tools' own shapes against the plain version
+        **tools_entry(tools, "render_culled", "render_culled"),
     }, {
         "name": "trace_slots",
         "route": "cuda",
@@ -4657,6 +5297,9 @@ def main() -> None:
                                 if k.startswith("trace_slots")},
         "split_plain_ms": {k: v["plain_ms"] for k, v in win.items()
                            if k.startswith("trace_slots")},
+        # the tools (phase 23): the training CLI on make_room_dataset's
+        # output
+        **tools_entry(tools, "trace_slots", "trace_slots"),
         # registers and blocks per SM of the launched kernel (phase 5)
         "registers": {k: v["registers"] for k, v in
                       record["trace_slots_kernel"].items()},
@@ -4689,6 +5332,9 @@ def main() -> None:
         "split_library_ms": split["a"]["scatter"]["library_ms"],
         "split_bound_ms": split["a"]["scatter"]["bound_ms"],
         "split_max_abs_err": split["a"]["scatter"]["max_abs_err"],
+        # the tools (phase 23): the training CLI on make_room_dataset's
+        # output
+        **tools_entry(tools, "scatter_grads", "scatter_grads"),
         "registers": phase5["scatter"]["kernel_info"]["registers"],
         "blocks_per_sm": phase5["scatter"]["kernel_info"]["blocks_per_sm"],
     }, {
@@ -4768,6 +5414,9 @@ def main() -> None:
         # the parallel modes (phase 21): sharded_render's culled ranks (row
         # 10)
         "parallel_launches": par_l["trace_hits"],
+        # the tools (phase 23): eval_sweep's and make_room_dataset's
+        # non-fused route
+        **tools_entry(tools, "trace_hits", "trace_hits"),
         # registers and blocks per SM of the launched kernel (phase 10)
         "registers": {k: v["registers"] for k, v in
                       record["trace_hits_kernel"].items()},

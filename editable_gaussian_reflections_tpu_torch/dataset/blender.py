@@ -6,9 +6,10 @@ frames, 7 buffers per frame (render/diffuse/specular/roughness/normal/depth/f0)
 loaded with an .exr -> .tiff -> .png fallback chain, OpenGL->COLMAP axis flip
 with R stored transposed, area-downsampling to `resolution`.
 
-Pure numpy: cv2 for EXR and for a resize, imageio for TIFF, each imported
-where it is used; PNGs are read by utils/image.read_png, so a dataset of
-PNGs at its native resolution loads with neither installed.
+Pure numpy: cv2 for EXR and for a resize, imported where it is used;
+float32 TIFFs are read by utils/image.read_tiff and PNGs by
+utils/image.read_png, so a dataset of TIFFs or PNGs at its native
+resolution loads with no imaging package installed.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
 
 from ..utils.graphics import focal2fov, fov2focal
-from ..utils.image import read_png
+from ..utils.image import read_png, read_tiff
 from .camera_info import CameraInfo
 from .image_utils import pil_samples
 
@@ -35,11 +36,6 @@ def _read_exr(path):
     if img.ndim == 3 and img.shape[-1] >= 3:
         img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
     return np.asarray(img)
-
-
-def _read_tiff(path):
-    import imageio.v3 as iio
-    return np.asarray(iio.imread(path))
 
 
 def _read_png(path):
@@ -91,7 +87,7 @@ class BlenderDataset:
         if os.path.exists(base + ".exr"):
             image = _read_exr(base + ".exr")
         elif os.path.exists(base + ".tiff"):
-            image = _read_tiff(base + ".tiff")
+            image = read_tiff(base + ".tiff")
         elif os.path.exists(base + ".png"):
             image = _read_png(base + ".png")
         else:

@@ -227,8 +227,12 @@ def full_f32_matmuls() -> None:
 def fold_in(seed: int, index: int) -> int:
     """Seed of sample `index` of a render seeded with `seed`: distinct for
     distinct pairs while seed < 2**31 and index < 2**32 (the generator
-    counterpart of jax.random.fold_in)."""
-    return ((seed << 32) | index) & (2**63 - 1)
+    counterpart of jax.random.fold_in).  The CPU generator (mt19937) keeps
+    only a seed's low 32 bits, so they carry the index mixed with a hash
+    of `seed` (Knuth's multiplicative one): renders of different seeds draw
+    different samples there too, and seed 0's are the index alone."""
+    low = (index ^ (seed * 2654435761)) & 0xFFFFFFFF
+    return ((seed << 32) | low) & (2**63 - 1)
 
 
 def draw_samples(generator: torch.Generator, width: int, height: int,

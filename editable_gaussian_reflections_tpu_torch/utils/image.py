@@ -7,6 +7,13 @@ gray, gray+alpha, RGB or RGBA with one row filter for the whole image (None
 unless asked); `read_png` decodes those colour types at both depths under
 all five row filters, as PIL's writer leaves them.  The training CLI's
 previews decode to the pixels the JAX package's PIL-written files decode to.
+
+Float32 TIFFs (the G-buffers tools/make_room_dataset.py writes) are written
+and read with numpy and struct: `write_tiff` writes the uncompressed
+little-endian single-strip layout imageio writes; `read_tiff` also reads
+several strips, big-endian files and four samples a pixel, and raises for
+anything else (compression, tiles, other sample formats) rather than
+return wrong pixels.
 """
 
 from __future__ import annotations
@@ -181,6 +188,171 @@ def read_png(path) -> np.ndarray:
     else:
         img = out.reshape(h, w, ch)
     return img[..., 0] if ch == 1 else img
+
+
+# TIFF tags (TIFF 6.0): the ones write_tiff writes and read_tiff reads
+_TIFF_WIDTH, _TIFF_LENGTH, _TIFF_BITS, _TIFF_COMPRESSION = 256, 257, 258, 259
+_TIFF_PHOTOMETRIC, _TIFF_STRIP_OFFSETS, _TIFF_SAMPLES = 262, 273, 277
+_TIFF_ROWS_PER_STRIP, _TIFF_STRIP_BYTES, _TIFF_PLANAR = 278, 279, 284
+_TIFF_PREDICTOR, _TIFF_SAMPLE_FORMAT = 317, 339
+_TIFF_TILE_TAGS = {322: "TileWidth", 323: "TileLength", 324: "TileOffsets",
+                   325: "TileByteCounts"}
+# field type -> (struct code, bytes): SHORT, LONG (the types of every tag
+# read here; a tag of another type reads as absent)
+_TIFF_TYPES = {3: ("H", 2), 4: ("I", 4)}
+
+
+def write_tiff(path, array: np.ndarray) -> None:
+    """A float32 [H, W] or [H, W, 3] image as an uncompressed little-endian
+    TIFF: chunky planes, SampleFormat 3 (IEEE float) at 32 bits, one strip
+    of all H rows - the layout imageio writes for such an array."""
+    img = np.asarray(array)
+    if img.dtype != np.float32 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"write_tiff: a float32 [H, W] or [H, W, 3] array,"
+                         f" not {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    spp = 1 if img.ndim == 2 else 3
+    data = np.ascontiguousarray(img, "<f4").tobytes()
+    # (tag, type, values); SHORT arrays of 3 do not fit the entry's 4
+    # bytes and go after the IFD
+    entries = [(_TIFF_WIDTH, 4, [w]), (_TIFF_LENGTH, 4, [h]),
+               (_TIFF_BITS, 3, [32] * spp), (_TIFF_COMPRESSION, 3, [1]),
+               (_TIFF_PHOTOMETRIC, 3, [1 if spp == 1 else 2]),
+               (_TIFF_STRIP_OFFSETS, 4, [0]), (_TIFF_SAMPLES, 3, [spp]),
+               (_TIFF_ROWS_PER_STRIP, 4, [h]),
+               (_TIFF_STRIP_BYTES, 4, [len(data)]),
+               (_TIFF_PLANAR, 3, [1]), (_TIFF_SAMPLE_FORMAT, 3, [3] * spp)]
+    ifd_end = 8 + 2 + 12 * len(entries) + 4
+    extra = b""
+    packed = []
+    for tag, typ, vals in entries:
+        raw = struct.pack("<" + _TIFF_TYPES[typ][0] * len(vals), *vals)
+        if len(raw) <= 4:
+            packed.append((tag, typ, len(vals), raw.ljust(4, b"\0")))
+        else:
+            packed.append((tag, typ, len(vals),
+                           struct.pack("<I", ifd_end + len(extra))))
+            extra += raw
+    data_at = ifd_end + len(extra)
+    data_at += data_at % 2                      # word-aligned strip
+    out = [b"II*\0", struct.pack("<IH", 8, len(packed))]
+    for tag, typ, count, raw in packed:
+        if tag == _TIFF_STRIP_OFFSETS:
+            raw = struct.pack("<I", data_at)
+        out.append(struct.pack("<HHI", tag, typ, count) + raw)
+    out.append(struct.pack("<I", 0))            # no next IFD
+    out.append(extra.ljust(data_at - ifd_end, b"\0"))
+    out.append(data)
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
+def _tiff_tags(data: bytes, bo: str, path) -> dict:
+    """tag -> tuple of values of the first IFD's SHORT and LONG fields
+    (None for fields of other types)."""
+    (ifd,) = struct.unpack(bo + "I", data[4:8])
+    if ifd + 2 > len(data):
+        raise ValueError(f"{path}: IFD offset {ifd} past the end of the "
+                         "file")
+    (n,) = struct.unpack(bo + "H", data[ifd:ifd + 2])
+    tags = {}
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
+        if typ not in _TIFF_TYPES:
+            tags[tag] = None
+            continue
+        code, size = _TIFF_TYPES[typ]
+        nbytes = size * count
+        if nbytes <= 4:
+            raw = data[e + 8:e + 8 + nbytes]
+        else:
+            (at,) = struct.unpack(bo + "I", data[e + 8:e + 12])
+            raw = data[at:at + nbytes]
+            if len(raw) != nbytes:
+                raise ValueError(f"{path}: tag {tag} runs past the end of "
+                                 "the file")
+        tags[tag] = struct.unpack(bo + code * count, raw)
+    return tags
+
+
+def read_tiff(path) -> np.ndarray:
+    """An uncompressed float32 TIFF's pixels as native float32: [H, W] for
+    one sample a pixel, [H, W, 3] or [H, W, 4] for three or four.
+
+    Reads little- (II) and big-endian (MM) files, chunky planes, any number
+    of strips; only the first image of the file.  Anything else raises a
+    ValueError naming the tag and value: Compression other than 1,
+    Predictor other than 1, tiles (TileWidth ...), SampleFormat other than
+    3, BitsPerSample other than 32, SamplesPerPixel other than 1, 3 or 4,
+    PlanarConfiguration 2, and strips shorter than their rows."""
+    with open(path, "rb") as f:
+        data = f.read()
+    order = data[:2]
+    if order not in (b"II", b"MM"):
+        raise ValueError(f"{path}: not a TIFF file (byte order {order!r})")
+    bo = "<" if order == b"II" else ">"
+    (magic,) = struct.unpack(bo + "H", data[2:4])
+    if magic != 42:
+        raise ValueError(f"{path}: TIFF version {magic} is not supported "
+                         "(42; 43 is BigTIFF)")
+    tags = _tiff_tags(data, bo, path)
+
+    def one(tag, name, default=None):
+        vals = tags.get(tag)
+        if vals is None:
+            if default is None:
+                raise ValueError(f"{path}: no {name} tag ({tag})")
+            return default
+        return vals[0]
+
+    for tag, name in _TIFF_TILE_TAGS.items():
+        if tag in tags:
+            raise ValueError(f"{path}: {name} ({tag}) is present: tiled "
+                             "TIFFs are not supported")
+    w = one(_TIFF_WIDTH, "ImageWidth")
+    h = one(_TIFF_LENGTH, "ImageLength")
+    spp = one(_TIFF_SAMPLES, "SamplesPerPixel", 1)
+    checks = (("Compression", _TIFF_COMPRESSION, (1,), "1 (none)"),
+              ("Predictor", _TIFF_PREDICTOR, (1,), "1 (none)"),
+              ("PlanarConfiguration", _TIFF_PLANAR, (1,), "1 (chunky)"),
+              ("SamplesPerPixel", _TIFF_SAMPLES, (1, 3, 4), "1, 3 or 4"))
+    for name, tag, ok, want in checks:
+        value = one(tag, name, 1)
+        if value not in ok:
+            raise ValueError(f"{path}: {name} ({tag}) = {value} is not "
+                             f"supported ({want})")
+    for name, tag, want, default in (
+            ("SampleFormat", _TIFF_SAMPLE_FORMAT, 3, (1,)),
+            ("BitsPerSample", _TIFF_BITS, 32, (1,))):
+        vals = tags.get(tag) or default
+        if len(vals) not in (1, spp) or any(v != want for v in vals):
+            raise ValueError(f"{path}: {name} ({tag}) = {list(vals)} is not "
+                             f"supported ({want} for every sample)")
+    offsets = tags.get(_TIFF_STRIP_OFFSETS)
+    counts = tags.get(_TIFF_STRIP_BYTES)
+    if not offsets or not counts or len(offsets) != len(counts):
+        raise ValueError(f"{path}: StripOffsets ({_TIFF_STRIP_OFFSETS}) and "
+                         f"StripByteCounts ({_TIFF_STRIP_BYTES}) must be "
+                         "present and of one length")
+    rows = min(one(_TIFF_ROWS_PER_STRIP, "RowsPerStrip", 2**32 - 1), h)
+    row_bytes = w * spp * 4
+    if len(offsets) != -(-h // rows):
+        raise ValueError(f"{path}: {len(offsets)} strips of RowsPerStrip "
+                         f"({_TIFF_ROWS_PER_STRIP}) = {rows} for {h} rows")
+    parts = []
+    for i, (at, nbytes) in enumerate(zip(offsets, counts)):
+        need = min(rows, h - i * rows) * row_bytes
+        chunk = data[at:at + need]
+        if nbytes < need or len(chunk) != need:
+            raise ValueError(f"{path}: strip {i} holds {min(nbytes, len(chunk))}"
+                             f" bytes of its {need} (StripByteCounts "
+                             f"({_TIFF_STRIP_BYTES}) = {nbytes})")
+        parts.append(chunk)
+    img = np.frombuffer(b"".join(parts), bo + "f4").astype(np.float32)
+    img = img.reshape(h, w, spp)
+    return img[..., 0] if spp == 1 else img
 
 
 def save_image_grid(images, path, nrow=2):

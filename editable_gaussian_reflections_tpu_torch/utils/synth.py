@@ -10,8 +10,22 @@ surface-aligned normals and plausible material parameters.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..renderer.raytracer import (
+    RenderSettings,
+    camera_from_numpy,
+    render_accumulated_chunked,
+)
+from ..scene.gaussian_scene import from_arrays
 from ..utils.general import inverse_sigmoid
+
+# the synthetic room of the denoiser tools and its fused render's options
+# (the root tools/denoiser_eval.py and tools/denoise_train.py)
+ROOM_N = 100_000
+ROOM_FRAME_KW = dict(num_bounces=2, max_hits=32, cull_cluster=128,
+                     max_clusters=128)
+ROOM_SPP_CHUNK = 16
 
 
 def room_scene(n: int = 100_000, extent: float = 3.0, seed: int = 0,
@@ -100,3 +114,35 @@ def room_camera(extent: float = 3.0):
     # renderer convention: dir = c2w @ [x, y, -1] with y up
     c2w = np.stack([right, -down, -fwd], axis=1).astype(np.float32)
     return eye, c2w
+
+
+def room(device: torch.device, n: int = ROOM_N):
+    """room_scene(n) padded to 2048 rows on `device` (the denoiser tools'
+    scene)."""
+    return from_arrays(**room_scene(n), pad_multiple=2048, device=device)
+
+
+def camera_at(eye, c2w, device: torch.device):
+    """The synthetic-room tools' camera at `eye` with rotation `c2w` (fov
+    0.9, znear 0.05, zfar 50)."""
+    return camera_from_numpy(dict(
+        origin=np.asarray(eye, np.float32), c2w=np.asarray(c2w, np.float32),
+        fov_y=np.float32(0.9), znear=np.float32(0.05),
+        zfar=np.float32(50.0)), device=device)
+
+
+def room_frame(scene, camera, size: int, spp: int, seed: int) -> dict:
+    """One frame of the denoiser tools at `spp` samples
+    (render_accumulated_chunked, fused, ROOM_FRAME_KW): final, the primary
+    diffuse, normal, depth and roughness as [H, W(, 3)] tensors on the
+    scene's device."""
+    dev = scene.xyz.device
+    H = W = size
+    steps, final = render_accumulated_chunked(
+        scene, camera, RenderSettings(), seed, W, H, spp=spp,
+        spp_chunk=ROOM_SPP_CHUNK, fused=True, **ROOM_FRAME_KW)
+    return dict(final=final.reshape(H, W, 3).to(dev),
+                diffuse=steps.rgb[0].reshape(H, W, 3).to(dev),
+                normal=steps.normal[0].reshape(H, W, 3).to(dev),
+                depth=steps.depth[0].reshape(H, W).to(dev),
+                rough=steps.roughness[0].reshape(H, W).to(dev))
