@@ -19,11 +19,12 @@ Phases, one line each (any failure raises and the script exits non-zero):
      Config defaults - through dispatch_render_frame and
      render_accumulated_chunked (4 spp in chunks of 2), with the kernel's
      launch count, ms/frame, Mrays/s and the starved fraction.  First the
-     kernel and its plain version are compared (tolerances of phase 2) and
-     timed at the shapes of this frame's primary and first reflected pass,
-     each beside its bound and no-FMA issue floor, with the compiled
+     kernel is timed at the shapes of this frame's primary and first
+     reflected pass, each beside its bound and no-FMA issue floor, and held
+     against its plain version (tolerances of phase 2) on each pass's
+     CHECK_TILES tiles that walk the most pairs, with the compiled
      kernel's registers, spilled bytes, shared memory and resident blocks
-     per SM (K 16 and 32, primary and reflected; what the runtime reports).
+     per SM (K 8 to 64, primary and reflected; what the runtime reports).
      4b: render_culled in groups of 4 (pallas_render_culled_v3's exit, which
      the renderer takes above the resident capacity) on the same primary
      pass: timed, its bound, held against its plain version on the first
@@ -32,9 +33,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
      step's own shapes: room_scene(175_000) (capacity 176,128), 768x768,
      the Config defaults (K=32, cluster 256, 192 candidates, 8192-ray tiles,
      2 bounces), the step's tiles in the batch the main path launches -
-     trace_slots on its primary and first reflected pass, scatter_grads on
-     the hits of all 3 bounces (within 1e-6 x scale, zeros equal; its
-     nonzero values counted); all timed with CUDA events, trace_slots
+     trace_slots on its primary and first reflected pass (the plain version
+     on each pass's CHECK_TILES busiest tiles), scatter_grads on the hits
+     of all 3 bounces (within 1e-6 x scale, zeros equal; its nonzero
+     values counted); all timed with CUDA events, trace_slots
      beside its bound and no-FMA issue floor, with what the runtime reports
      of both compiled kernels (trace_slots in both exit modes).  5b:
      trace_slots in exit mode 1 (pallas_trace_slots' pairs, check_every 2)
@@ -64,7 +66,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      128/768 candidates, K 16, throughput cutoff 1e-3) - ms/frame, FPS,
      M frame rays/s, starved fraction, device idle share, the scan kernel's
      ms per pass (scanq and scan), each against its bound and its plain
-     version, the scan (v6) frame, and the k-buffer frame with its
+     version (on the pass's CHECK_TILES busiest tiles), the scan (v6)
+     frame, and the k-buffer frame with its
      tonemapped PSNR against scanq; (b) measure_fps() at the Config defaults
      (scanq, cluster 256, 192 candidates, counters off) over 8 views
      orbiting room_camera, with the kernels' launch counts and the scan
@@ -216,7 +219,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      use_culling) on phase 11's 1365x768 frame at 1 bounce on 3 ranks,
      equal to render_frame.  (c) tools/demo_5m.py at its defaults: 5M
      Gaussians padded by shard_scene on 4 ranks, one step, one trace of
-     each kind; bytes per rank against the replicated footprint.  (d) the
+     each kind at the JAX tool's K 8; bytes per rank against the
+     replicated footprint.  (d) the
      rays 2 x gauss 2 mesh on 4 ranks at 64x64 on the 175k room: the
      gradients against train_step(use_pallas=False, tile R/2)'s (fails
      under 99% in the 1e-4 band, as tests/test_gaussian_sharded.py), and
@@ -299,6 +303,32 @@ Phases, one line each (any failure raises and the script exits non-zero):
      and the first scatter of each, is held against its plain version
      (phases 2 and 5's rules); a run that made none of one fails, and so
      does a ground-truth reflected trace_slots call with no live ray.
+ 24. the k-buffer kernels at K 8 and K 64, one line a (kernel, K) held: ms
+     a pass, its work and bound (walk_flops' count), the bytes it writes,
+     what the runtime reports of it (registers, local bytes, shared
+     memory, blocks per SM), and its plain version on the pass's
+     K_CHECK_TILES busiest tiles by phase 5's rule (ids, counters and
+     payload equal, max abs err 0; the render kernels bit for bit).  (a)
+     train.py's Config defaults at --max_hits 8: phase 7's step
+     (trace_slots at both passes, scatter_grads on its payload), the
+     800x800 eval frame's passes
+     (render_culled, render_table on the primary pass) and the training
+     CLI at CLI_SMALL_SIDE (its report's render_culled).  (b) split-far
+     at bench.py's fused configuration (K 16, cluster 128, 96 candidates,
+     grown for the shell) with the shell: the step, its far passes at the
+     default K_far 8, against one pass by phase 22's per-ray check, and
+     the eval frame at max_hits_far 8 against one pass at K 32 by the same
+     check (a ray with at most 16 near and 8 far hits keeps every hit on
+     both sides; at K 16 the one pass leaves no ray to compare); the near
+     and far pass of bounces 0 and 1 of each held.  (d) K
+     64: trace_slots on (a)'s first batch at the Config's 256-ray tiles
+     and 256-Gaussian clusters (its epilogue in two parts a slot block),
+     the CLI at --max_hits 64, the 800x800 eval frame at cluster 128 (its
+     bounce 0's tonemapped PSNR against the scan frames'), and trace_hits
+     at K 8 and 64 on phase 11's culled frame; the slot sort at both on
+     phase 16's rays.  ((c), demo_5m at K 8, runs in phase 21.)  Every
+     kernel of the set is launched at K 8 and K 64 on a driven path
+     (counted by K from 0 just before each, comparisons not counted).
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Every measured number also goes to
@@ -372,6 +402,7 @@ from editable_gaussian_reflections_tpu_torch.ops.cuda.render_fine import (
     render_culled_v5_reference,
 )
 from editable_gaussian_reflections_tpu_torch.ops.cuda.render_kernel import (
+    SUPPORTED_K,
     render_culled,
     render_culled_reference,
 )
@@ -964,7 +995,8 @@ def scan_pass_numbers(calls, mode: str, compare: bool) -> dict:
     per pass (CUDA events), the pairs it tests (a counters-on run: lane 14),
     its bound and no-FMA issue floor (scan_flops: the ray-independent terms
     once per Gaussian on blocks of one origin), and - with `compare` - its
-    plain version on the whole pass, held to the kernel."""
+    plain version on the pass's CHECK_TILES tiles that test the most pairs,
+    held to the kernel's whole pass there."""
     res = {}
     for name, call in zip(("primary", "reflected"), calls):
         ms = cuda_ms(lambda: render_scan(*call.args, **call.kwargs), reps=5)
@@ -983,13 +1015,12 @@ def scan_pass_numbers(calls, mode: str, compare: bool) -> dict:
                     f"{name}_rays": call.args[0].shape[0]})
         if compare:
             out = render_scan(*call.args, **call.kwargs)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ref = render_scan_reference(*call.args, **call.kwargs,
-                                        tiles_per_batch=512)
-            torch.cuda.synchronize()
-            res[f"{name}_plain_ms"] = (time.perf_counter() - t0) * 1e3
-            cmp = compare_lanes(out, ref)
+            work = counted[:, OUT_TRAV].reshape(-1, call.kwargs["tile"]).sum(
+                dim=1)
+            ref, rows, res[f"{name}_plain_ms"], keep = busiest_reference(
+                call, render_scan_reference, work, tiles_per_batch=512)
+            res[f"{name}_plain_tiles"] = len(keep)
+            cmp = compare_lanes(out[rows], ref)
             check_lanes(f"render_scan {mode} {name}", cmp)
             res[f"{name}_compare"] = cmp
             del out, ref
@@ -1147,7 +1178,8 @@ def phase_fast_path(dev, record, smi) -> dict:
               f"{n['reflected_ms']:.3f} ms ({n['reflected_pairs']:.4g} "
               f"pairs, bound {n['reflected_bound_ms']:.3f} ms, floor "
               f"{n['reflected_floor_ms']:.3f} ms)"
-              + (f"; plain {n['primary_plain_ms']:.1f} / "
+              + (f"; plain on each pass's {CHECK_TILES} busiest tiles "
+                 f"{n['primary_plain_ms']:.1f} / "
                  f"{n['reflected_plain_ms']:.1f} ms, max_abs_err "
                  f"{n['primary_compare']['max_abs_err']:.3g} / "
                  f"{n['reflected_compare']['max_abs_err']:.3g}"
@@ -1186,13 +1218,14 @@ def phase_fast_path(dev, record, smi) -> dict:
           f"render_scan launches {launches[0]}; per pass: primary "
           f"{n['primary_ms']:.3f} ms (bound {n['primary_bound_ms']:.3f} ms "
           f"by {n['primary_bound_by']}, no-FMA floor "
-          f"{n['primary_floor_ms']:.3f} ms, plain "
-          f"{n['primary_plain_ms']:.1f} ms, max_abs_err "
+          f"{n['primary_floor_ms']:.3f} ms, plain on its {CHECK_TILES} "
+          f"busiest tiles {n['primary_plain_ms']:.1f} ms, max_abs_err "
           f"{n['primary_compare']['max_abs_err']:.3g}), reflected "
           f"{n['reflected_ms']:.3f} ms (bound "
           f"{n['reflected_bound_ms']:.3f} ms by {n['reflected_bound_by']}, "
-          f"floor {n['reflected_floor_ms']:.3f} ms, plain "
-          f"{n['reflected_plain_ms']:.1f} ms, max_abs_err "
+          f"floor {n['reflected_floor_ms']:.3f} ms, plain on its "
+          f"{CHECK_TILES} busiest tiles {n['reflected_plain_ms']:.1f} ms, "
+          f"max_abs_err "
           f"{n['reflected_compare']['max_abs_err']:.3g}) [{smi}]",
           flush=True)
     res["fps_kernel"] = info = scan_info((
@@ -1251,11 +1284,12 @@ def compare_hits(out, ref) -> dict:
                 differ=differ)
 
 
-def trace_pass_numbers(calls, where: str) -> dict:
+def trace_pass_numbers(calls, where: str, busiest: bool = False) -> dict:
     """trace_hits on recorded launches (the primary and first reflected
     pass of the first batch of tiles): ms per launch (CUDA events), the
-    pairs it tests (traversed, summed over its rays), its bound, and its
-    plain version on the first NF_CHECK_TILES blocks, held to the
+    pairs it tests (traversed, summed over its rays), its bound, the bytes
+    it writes, and its plain version on the first NF_CHECK_TILES blocks
+    (`busiest`: the culled blocks that test the most pairs), held to the
     kernel."""
     res = {}
     for name, (args, kwargs) in zip(("primary", "reflected"), calls):
@@ -1271,20 +1305,31 @@ def trace_pass_numbers(calls, where: str) -> dict:
         # built without FMA contraction, each of the pair's flops issues on
         # its own: the FP32 pipe's floor is twice the flop bound
         floor_ms = flops / FP32_LANES_S * 1e3
-        sub_args, sub_kw, rows = hits_subset(args, kwargs, NF_CHECK_TILES)
-        plain_kw = {k: v for k, v in sub_kw.items() if k != "extract_attrs"}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = trace_hits_reference(*sub_args, **plain_kw)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        cmp = compare_hits(tuple(x[:rows] for x in out), ref)
+        plain_kw = {k: v for k, v in kwargs.items() if k != "extract_attrs"}
+        if busiest:
+            ref, rows, plain_ms, _keep = busiest_reference(
+                SimpleNamespace(args=args, kwargs=plain_kw),
+                trace_hits_reference,
+                out[6].reshape(-1, tile).sum(dim=1).double(),
+                n_tiles=NF_CHECK_TILES)
+        else:
+            sub_args, sub_kw, n = hits_subset(args, plain_kw,
+                                              NF_CHECK_TILES)
+            rows = slice(0, n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = trace_hits_reference(*sub_args, **sub_kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        cmp = compare_hits(tuple(x[rows] for x in out), ref)
         print_differing(f"{where} trace_hits {name}", cmp)
         check_lanes(f"{where} trace_hits {name}", cmp)
         res[name] = dict(cmp, ms=ms, pairs=pairs, flops=flops, bound_ms=b_ms,
                          bound_by=b_by, floor_ms=floor_ms,
                          rays=args[0].shape[0],
-                         plain_ms=plain_ms, plain_rays=rows,
+                         written_gb=nbytes(*out) / 1e9,
+                         plain_ms=plain_ms,
+                         plain_rays=NF_CHECK_TILES * 256,
                          mode="brute" if args[3] is None else "culled")
         del out, ref
     return res
@@ -1338,12 +1383,12 @@ def phase_trace_small(dev, record) -> None:
 def walk_kernel_info(kernel: str, exit_modes=(0,)) -> dict:
     """What the runtime reports of a kernel on the k-buffer walk
     (kernel_info) as the main paths launch it: exp power 3, 256-ray blocks,
-    256-Gaussian clusters, K 16 and 32, primary passes and reflected ones
+    256-Gaussian clusters, every built K, primary passes and reflected ones
     (the backfacing test), each exit mode."""
     return {f"K{k} {name}" + (f" exit {m}" if len(exit_modes) > 1 else ""):
             kernel_info(k, backfacing=name == "reflected", kernel=kernel,
                         exit_mode=m)
-            for k in (16, 32) for name in ("primary", "reflected")
+            for k in SUPPORTED_K for name in ("primary", "reflected")
             for m in exit_modes}
 
 
@@ -1864,7 +1909,7 @@ def phase_sort(dev, record, smi) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     b_ms, b_by = bound(SORT_RAYS * SORT_K * SORT_K / 2, PEAK_FP32,
                        nbytes(*large, *outs[1]))
-    info = {f"K{k}": sort_kernel_info(k) for k in (16, 32)}
+    info = {f"K{k}": sort_kernel_info(k) for k in SUPPORTED_K}
     res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                launches=launches, rays=SORT_RAYS, k=SORT_K, aux=SORT_AUX,
                max_abs_err=0.0, kernel_info=info)
@@ -3774,15 +3819,19 @@ def reset_window_counts() -> None:
         k.launches_by_window[:] = [0, 0, 0]
 
 
+def tile_rows(keep, tile: int):
+    """The ray rows of the ray tiles `keep` of `tile` rays each."""
+    return (keep[:, None] * tile
+            + torch.arange(tile, device=keep.device)).flatten()
+
+
 def busiest_tiles(call, n_tiles: int, work, cand_pos=(3, 4)):
     """(args, kwargs) of a kernel call cut to the `n_tiles` ray tiles with
     the most `work` [tiles] (in call order), and the tiles kept: the kernels
     treat tiles independently, so the rows of the cut call equal those
     tiles' rows of the whole one."""
-    tile = call.kwargs["tile"]
     keep = torch.topk(work, min(n_tiles, work.numel())).indices.sort().values
-    rows = (keep[:, None] * tile
-            + torch.arange(tile, device=keep.device)).flatten()
+    rows = tile_rows(keep, call.kwargs["tile"])
     args = list(call.args)
     for i in (0, 1):
         args[i] = args[i][rows]
@@ -3795,47 +3844,190 @@ def busiest_tiles(call, n_tiles: int, work, cand_pos=(3, 4)):
     return args, kwargs, keep
 
 
-def check_window_pass(kernel, reference, call, what, K=None) -> dict:
-    """A windowed pass's kernel against its plain version on the
-    CHECK_TILES tiles of the pass that walked the most (ray, Gaussian)
-    pairs (phase 5's rule for trace_slots: ids and counters equal on every
-    ray, max abs err 0; bit for bit for the render kernels), with the
-    whole pass timed.  Fails unless those tiles walked WINDOW_MIN_PAIRS."""
+def busiest_reference(call, reference, work, cand_pos=(3, 4),
+                      n_tiles=CHECK_TILES, **extra):
+    """`reference`, a kernel's plain version, on the n_tiles tiles of
+    `call` with the most `work` [tiles]: (its output, those tiles' rows in
+    the whole call, its ms, the tiles)."""
+    args, kw, keep = busiest_tiles(call, n_tiles, work, cand_pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = reference(*args, **kw, **extra)
+    torch.cuda.synchronize()
+    return (ref, tile_rows(keep, call.kwargs["tile"]),
+            (time.perf_counter() - t0) * 1e3, keep)
+
+
+def check_window_pass(kernel, reference, call, what, K=None,
+                      where="phase 22 (c)", min_pairs=WINDOW_MIN_PAIRS,
+                      n_tiles=CHECK_TILES) -> dict:
+    """A windowed pass's kernel against its plain version on the n_tiles
+    tiles of the pass that walked the most (ray, Gaussian) pairs (phase
+    5's rule for trace_slots: ids and counters equal on every ray, max abs
+    err 0; bit for bit for the render kernels), with the whole pass timed.
+    Fails unless those tiles walked min_pairs."""
     ms = cuda_ms(lambda: kernel(*call.args, **call.kwargs), reps=2)
     tile = call.kwargs["tile"]
     is_slots = kernel is trace_slots
     whole = kernel(*call.args, **call.kwargs)
     trav = whole[1][:, 1] if is_slots else whole[:, OUT_TRAV]
     work = trav.reshape(-1, tile).sum(dim=1)
-    del whole, trav
-    args, kw, keep = busiest_tiles(call, CHECK_TILES, work,
-                                   cand_pos=(5, 6) if is_slots else (3, 4))
+    flops = walk_flops(call.args[0], trav, tile)
+    ref, rows, plain_ms, keep = busiest_reference(
+        call, reference, work, cand_pos=(5, 6) if is_slots else (3, 4),
+        n_tiles=n_tiles)
     pairs = float(work[keep].sum())
-    out = kernel(*args, **kw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = reference(*args, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
     if is_slots:
-        cmp = compare_slots(out[0], out[1], ref[0], ref[1], K)
-        print_differing(f"phase 22 (c) {what}", cmp)
+        cmp = compare_slots(whole[0][rows], whole[1][rows], ref[0], ref[1],
+                            K)
+        print_differing(f"{where} {what}", cmp)
         if cmp["counters_equal"] < 1.0 or cmp["max_abs_err"] != 0.0:
-            raise RuntimeError(f"phase 22 (c) {what}: the kernel parts "
+            raise RuntimeError(f"{where} {what}: the kernel parts "
                                f"from its plain version: {cmp}")
     else:
-        cmp = compare_lanes(out, ref)
+        cmp = compare_lanes(whole[rows], ref)
         if cmp["bit_equal"] < 1.0:
-            for line in differing_lanes(out, ref):
-                print(f"phase 22 (c) {what}: {line}", flush=True)
-            raise RuntimeError(f"phase 22 (c) {what}: the kernel parts "
+            for line in differing_lanes(whole[rows], ref):
+                print(f"{where} {what}: {line}", flush=True)
+            raise RuntimeError(f"{where} {what}: the kernel parts "
                                f"from its plain version: {cmp}")
-    if pairs < WINDOW_MIN_PAIRS:
-        raise RuntimeError(f"phase 22 (c) {what}: the checked tiles walked "
-                           f"{pairs:.4g} pairs, under {WINDOW_MIN_PAIRS:g}")
+    if pairs < min_pairs:
+        raise RuntimeError(f"{where} {what}: the checked tiles walked "
+                           f"{pairs:.4g} pairs, under {min_pairs:g}")
     return dict(cmp, ms=ms, plain_ms=plain_ms, plain_rays=len(keep) * tile,
-                window=kw["window_mode"], rays=call.args[0].shape[0],
-                checked_pairs=pairs, pass_pairs=float(work.sum()))
+                window=call.kwargs["window_mode"],
+                rays=call.args[0].shape[0], checked_pairs=pairs,
+                pass_pairs=float(work.sum()), flops=flops)
+
+
+def split_batch(where, state, camera, targets, settings, side, samples,
+                step_kw, split_kw):
+    """fused_forward split and not on the first batch of tiles a split
+    training step launches (the main path's own launch), on the same rays:
+    `parts`, the split's per-ray outputs against one pass where both keep
+    every hit (split_parts on split_mask; fails if any ray parts or fewer
+    than SPLIT_MIN_RAYS compare), each pass's starved share on the batch
+    (`by_pass`), the split run's slots calls (`calls`, SplitCalls a bounce)
+    and its steps, residuals and targets for the backward."""
+    dev = camera.origin.device
+    K, tile, mc = (step_kw[k] for k in ("max_hits", "tile", "max_clusters"))
+    Kf = rt.far_hits(K, split_kw.get("max_hits_far", 0))
+    prep = tr.prepare_step(state, camera, targets, settings, None, side,
+                           side, 2, tile, True, True, True,
+                           step_kw["cull_tile"], step_kw["cull_cluster"], mc,
+                           samples=samples, **split_kw)
+    n_tiles = prep["dirs_t"].shape[0]
+    tpl = tr.tiles_per_launch_for(n_tiles, tile, 3, K + Kf, dev)
+    rays_o, rays_d, tg, us = tr.tile_batch(
+        camera.origin, prep["dirs_t"], prep["targets_t"], prep["us_t"], 0,
+        tpl)
+    cull = prep["culling"]
+    fkw = dict(gpack=prep["gpack"], table=cull["table"],
+               ftable=cull["ftable"], bounds=cull["bounds"],
+               cull_tile=step_kw["cull_tile"],
+               cull_cluster=step_kw["cull_cluster"], max_clusters=mc,
+               n_capacity=state.scene.capacity,
+               exp_power_static=step_kw["exp_power_static"], tile_rays=tile)
+    del prep
+    s1, f1, r1, _c1 = rt.fused_forward(rays_o, rays_d, settings, ZNEAR, ZFAR,
+                                       us, 2, K, **fkw)
+    s2, f2, r2, calls2 = rt.fused_forward(rays_o, rays_d, settings, ZNEAR,
+                                          ZFAR, us, 2, K, **fkw, **split_kw)
+    # each pass's starved share on this batch, over its bounces
+    by_pass = dict(
+        near=float(np.mean([float(c.starved_near.float().mean())
+                            for c in calls2])),
+        far=float(np.mean([float(c.starved_far.float().mean())
+                           for c in calls2])),
+        whole=float(s2.overflow.float().mean()))
+    capped = torch.zeros(rays_o.shape[0], dtype=torch.bool, device=dev)
+    for (h1, *_), (h2, *_) in zip(r1, r2):
+        capped |= h1.valid[:, :K].all(dim=1)
+        capped |= h2.valid[:, :K].all(dim=1) | h2.valid[:, K:].all(dim=1)
+    del r1
+    parts = split_parts(s1, s2, f1, f2, split_mask(
+        s1, s2, capped, settings.transmittance_threshold))
+    if parts["outside"] or parts["compared_rays"] < SPLIT_MIN_RAYS:
+        raise RuntimeError(f"{where}: the split step parts from the single "
+                           f"pass: {parts}")
+    return SimpleNamespace(parts=parts, by_pass=by_pass, calls=calls2,
+                           steps=s2, residuals=r2, targets=tg, K_far=Kf,
+                           rays_o=rays_o)
+
+
+def split_frame(where, scene, camera, settings, side, kw, split_kw,
+                n_timed, required=True, single_hits=None):
+    """An eval frame (dispatch_render_frame's keywords `kw`, samples
+    included) split-far (`split_kw`) and in one pass (at `single_hits`
+    slots where given, else kw's K): ms of each over n_timed frames, peak
+    GB, starved shares (each pass's over the split bounces), the kernel's
+    launches by window, and the split's per-ray outputs against one pass
+    where both keep every hit (split_parts on split_mask; with `required`,
+    fails if any ray parts or fewer than SPLIT_MIN_RAYS compare), its
+    tonemapped PSNR against one pass; and the busiest call of each
+    (kernel, bounce, window) of a split frame (busiest_calls)."""
+    dev = camera.origin.device
+    mode = kw.get("composite_mode", "kbuffer")
+    kernel = render_culled if mode == "kbuffer" else render_scan
+    K = kw["max_hits"]
+    Kf = split_kw.get("max_hits_far") or K
+    Ks = single_hits or K
+    single_caps, split_caps, pass_starved = [], [], []
+    real_epi, real_split = rt.bounce_epilogue, rt.split_bounce
+
+    def epi(out, call, *a, **k):
+        comp = unpack_composite(rt.canonical(out, call))
+        single_caps.append(comp["num_accumulated"] >= Ks)
+        return real_epi(out, call, *a, **k)
+
+    def spl(*a, **k):
+        comp, starved, (cn, cf) = real_split(*a, **k)
+        split_caps.append((cn["num_accumulated"] >= K)
+                          | (cf["num_accumulated"] >= Kf))
+        pass_starved.append((float(cn["starved"].float().mean()),
+                             float(cf["starved"].float().mean())))
+        return comp, starved, (cn, cf)
+
+    def frame(**extra):
+        return dispatch_render_frame(scene, camera, settings, None, side,
+                                     side, **{**kw, **extra})
+
+    def single():
+        return frame(max_hits=Ks)
+
+    ms1, (fs1, ff1), _ = timed(single, n_timed)
+    reset_window_counts()
+    kernel.launches = 0
+    ms2, (fs2, ff2), peak = timed(lambda: frame(**split_kw), n_timed)
+    wc = window_counts()[1 if mode == "kbuffer" else 2]
+    if wc[1] == 0 or wc[2] == 0 or wc[0]:
+        raise RuntimeError(f"{where}: the split frame launched its kernel "
+                           f"by window {wc}")
+    with mock.patch.object(rt, "bounce_epilogue", epi):
+        single()
+    with mock.patch.object(rt, "split_bounce", spl), \
+            busiest_calls() as seen:
+        frame(**split_kw)
+    ray_inv = torch.as_tensor(culling.tile_pixel_order(side, side, 16, 16)[1],
+                              dtype=torch.int64, device=dev)
+    capped = torch.zeros(side * side, dtype=torch.bool, device=dev)
+    for c in single_caps + split_caps:
+        capped |= c[:side * side][ray_inv]
+    parts = split_parts(fs1, fs2, ff1, ff2, split_mask(
+        fs1, fs2, capped, settings.transmittance_threshold))
+    if required and (parts["outside"]
+                     or parts["compared_rays"] < SPLIT_MIN_RAYS):
+        raise RuntimeError(f"{where}: the split frame parts from the single "
+                           f"pass: {parts}")
+    res = dict(ms=ms2, single_ms=ms1, peak_gb=peak,
+               starved=float(fs2.overflow.mean()),
+               single_starved=float(fs1.overflow.mean()),
+               starved_near=float(np.mean([n for n, _ in pass_starved])),
+               starved_far=float(np.mean([f for _, f in pass_starved])),
+               psnr=psnr_tonemapped(ff2, ff1), kernel=kernel.__name__,
+               launches_near=wc[1], launches_far=wc[2], K=K, K_far=Kf,
+               single_K=Ks, **parts)
+    return res, seen
 
 
 def phase_split(dev, record, smi) -> dict:
@@ -3843,7 +4035,6 @@ def phase_split(dev, record, smi) -> dict:
     t_phase = time.perf_counter()
     cfg = Config()
     settings = tr.settings_from_config(cfg)
-    thr = settings.transmittance_threshold
     res = {}
 
     # (a) the fused training step on the 175k room with the shell
@@ -3904,47 +4095,17 @@ def phase_split(dev, record, smi) -> dict:
     if not (state_finite(st2) and state_finite(st1)):
         raise RuntimeError("phase 22 (a): non-finite state")
 
-    # the per-ray check on the step's first batch of tiles (the main path's
-    # own launch): fused_forward split and not, on the same rays
-    prep = tr.prepare_step(state, camera, targets, settings, None, side,
-                           side, 2, tile, True, True, True, cfg.cull_tile,
-                           cfg.cull_cluster, mc, samples=s_dev, **split_kw)
-    n_tiles = prep["dirs_t"].shape[0]
-    tpl = tr.tiles_per_launch_for(n_tiles, tile, 3, K + Kf, dev)
-    rays_o, rays_d, tg, us = tr.tile_batch(
-        camera.origin, prep["dirs_t"], prep["targets_t"], prep["us_t"], 0,
-        tpl)
-    cull = prep["culling"]
-    fkw = dict(gpack=prep["gpack"], table=cull["table"],
-               ftable=cull["ftable"], bounds=cull["bounds"],
-               cull_tile=cfg.cull_tile, cull_cluster=cfg.cull_cluster,
-               max_clusters=mc, n_capacity=cap,
-               exp_power_static=float(cfg.exp_power), tile_rays=tile)
-    s1, f1, r1, _c1 = rt.fused_forward(rays_o, rays_d, settings, ZNEAR, ZFAR,
-                                       us, 2, K, **fkw)
-    s2, f2, r2, calls2 = rt.fused_forward(rays_o, rays_d, settings, ZNEAR,
-                                          ZFAR, us, 2, K, **fkw, **split_kw)
-    # each pass's starved share on this batch, over its bounces
-    by_pass = dict(
-        near=float(np.mean([float(c.starved_near.float().mean())
-                            for c in calls2])),
-        far=float(np.mean([float(c.starved_far.float().mean())
-                           for c in calls2])),
-        whole=float(s2.overflow.float().mean()))
-    capped = torch.zeros(rays_o.shape[0], dtype=torch.bool, device=dev)
-    for (h1, *_), (h2, *_) in zip(r1, r2):
-        capped |= h1.valid[:, :K].all(dim=1)
-        capped |= h2.valid[:, :K].all(dim=1) | h2.valid[:, K:].all(dim=1)
-    del r1
-    parts_a = split_parts(s1, s2, f1, f2, split_mask(s1, s2, capped, thr))
-    if parts_a["outside"] or parts_a["compared_rays"] < SPLIT_MIN_RAYS:
-        raise RuntimeError(f"phase 22 (a): the split step parts from the "
-                           f"single pass: {parts_a}")
+    # the per-ray check on the step's first batch of tiles
+    sb = split_batch("phase 22 (a)", state, camera, targets, settings, side,
+                     s_dev, step_kw, split_kw)
+    parts_a, by_pass, calls2 = sb.parts, sb.by_pass, sb.calls
+    rays_o = sb.rays_o
     # the scatter on this batch's split payload (K + K_far slots a ray)
     # against its plain version, by phase 5's rule
-    payload, ids = rt.hit_grads(s2, r2, tg, settings, 2, cap)
+    payload, ids = rt.hit_grads(sb.steps, sb.residuals, sb.targets,
+                                settings, 2, cap)
     sc = scatter_numbers("phase 22 (a)", payload, ids, cap, dev)
-    del payload, ids, r2
+    del payload, ids, sb
     res["a"] = dict(
         ms=split_ms, single_ms=single_ms, peak_gb=split_peak,
         single_peak_gb=single_peak, starved=float(m2["starved"]),
@@ -3986,7 +4147,7 @@ def phase_split(dev, record, smi) -> dict:
             res["c"][f"trace_slots {name} {b}"] = check_window_pass(
                 trace_slots, trace_slots_reference, call,
                 f"trace_slots {name} pass, bounce {b}", K=k)
-    del s1, s2, f1, f2, calls2, prep, state, st1, st2, targets
+    del calls2, state, st1, st2, targets
     torch.cuda.empty_cache()
 
     # (b) the eval frame (bench.py's room + the shell), k-buffer and scanq
@@ -3995,91 +4156,34 @@ def phase_split(dev, record, smi) -> dict:
     fscene, fshell = with_shell(fscene, cfg, dev)
     fsamples = draw_samples(torch.Generator(device=dev).manual_seed(5),
                             fside, fside, 3)
-    ray_inv = torch.as_tensor(culling.tile_pixel_order(fside, fside, 16,
-                                                       16)[1],
-                              dtype=torch.int64, device=dev)
     res["b"] = {}
     frame_calls = {}
+    split_kw = dict(split_far=True, mc_far=cfg.mc_far,
+                    max_hits_far=cfg.max_hits_far,
+                    split_radius_scale=cfg.split_radius_scale)
     for mode in ("kbuffer", "scanq"):
         kw = dict(num_bounces=2, samples=fsamples, composite_mode=mode,
                   **FRAME_KW)
-        kernel = render_culled if mode == "kbuffer" else render_scan
-        Kp = FRAME_KW["max_hits"]
-        single_caps, split_caps, pass_starved = [], [], []
-        real_epi, real_split = rt.bounce_epilogue, rt.split_bounce
-
-        def epi(out, call, *a, **k):
-            comp = unpack_composite(rt.canonical(out, call))
-            single_caps.append(comp["num_accumulated"] >= Kp)
-            return real_epi(out, call, *a, **k)
-
-        def spl(*a, **k):
-            comp, starved, (cn, cf) = real_split(*a, **k)
-            split_caps.append((cn["num_accumulated"] >= Kp)
-                              | (cf["num_accumulated"] >= Kp))
-            pass_starved.append((float(cn["starved"].float().mean()),
-                                 float(cf["starved"].float().mean())))
-            return comp, starved, (cn, cf)
-
-        ms1, (fs1, ff1), _ = timed(lambda: dispatch_render_frame(
-            fscene, fcam, settings, None, fside, fside, **kw), N_TIMED_SPLIT)
-        reset_window_counts()
-        kernel.launches = 0
-        ms2, (fs2, ff2), fpeak = timed(lambda: dispatch_render_frame(
-            fscene, fcam, settings, None, fside, fside, split_far=True,
-            mc_far=cfg.mc_far, max_hits_far=cfg.max_hits_far,
-            split_radius_scale=cfg.split_radius_scale, **kw),
-            N_TIMED_SPLIT)
-        wc = window_counts()[1 if mode == "kbuffer" else 2]
-        if wc[1] == 0 or wc[2] == 0 or wc[0]:
-            raise RuntimeError(f"phase 22 (b) {mode}: the split frame "
-                               f"launched its kernel by window {wc}")
-        with mock.patch.object(rt, "bounce_epilogue", epi):
-            rt_single = dispatch_render_frame(fscene, fcam, settings, None,
-                                              fside, fside, **kw)
-        with mock.patch.object(rt, "split_bounce", spl), \
-                busiest_calls() as seen:
-            fs2b, ff2b = dispatch_render_frame(
-                fscene, fcam, settings, None, fside, fside, split_far=True,
-                mc_far=cfg.mc_far, max_hits_far=cfg.max_hits_far,
-                split_radius_scale=cfg.split_radius_scale, **kw)
-        del rt_single
-        frame_calls[mode] = seen
-        capped = torch.zeros(fside * fside, dtype=torch.bool, device=dev)
-        for c in single_caps + split_caps:
-            capped |= c[:fside * fside][ray_inv]
-        # each pass's starved share, over the frame's split bounces
-        by = dict(near=float(np.mean([n for n, _ in pass_starved])),
-                  far=float(np.mean([f for _, f in pass_starved])))
-        parts_b = split_parts(fs1, fs2, ff1, ff2,
-                              split_mask(fs1, fs2, capped, thr))
-        psnr = psnr_tonemapped(ff2, ff1)
-        res["b"][mode] = dict(
-            ms=ms2, single_ms=ms1, peak_gb=fpeak,
-            starved=float(fs2.overflow.mean()),
-            single_starved=float(fs1.overflow.mean()),
-            starved_near=by["near"], starved_far=by["far"], psnr=psnr,
-            launches_near=wc[1], launches_far=wc[2], **parts_b)
-        if mode == "kbuffer" and (parts_b["outside"] or
-                                  parts_b["compared_rays"] < SPLIT_MIN_RAYS):
-            raise RuntimeError(f"phase 22 (b) {mode}: the split frame "
-                               f"parts from the single pass: {parts_b}")
+        res["b"][mode], frame_calls[mode] = split_frame(
+            f"phase 22 (b) {mode}", fscene, fcam, settings, fside, kw,
+            split_kw, N_TIMED_SPLIT, required=mode == "kbuffer")
+        r = res["b"][mode]
         print(f"phase 22 (b): split-far eval frame {fside}x{fside} {mode}, "
               f"room_scene({SPLIT_FRAME_N}) + the shell ({fshell} rows, "
-              f"capacity {fscene.capacity}), K {Kp}, cluster "
-              f"{FRAME_KW['cull_cluster']}, {FRAME_KW['max_clusters']} "
-              f"candidates, mc_far {cfg.mc_far}: {ms2:.1f} ms/frame (one "
-              f"pass {ms1:.1f}); starved near {by['near']:.4%}, far "
-              f"{by['far']:.4%}, whole {float(fs2.overflow.mean()):.4%} (one "
-              f"pass {float(fs1.overflow.mean()):.4%}); peak {fpeak:.1f} GB; "
-              f"{kernel.__name__} launches near {wc[1]}, far {wc[2]}; "
-              f"against one pass: {parts_b['compared']:.2%} compared, "
-              f"{parts_b['outside']} outside {SPLIT_RTOL:g} rel + "
-              f"{SPLIT_ATOL:g}"
+              f"capacity {fscene.capacity}), K {FRAME_KW['max_hits']}, "
+              f"cluster {FRAME_KW['cull_cluster']}, "
+              f"{FRAME_KW['max_clusters']} candidates, mc_far {cfg.mc_far}: "
+              f"{r['ms']:.1f} ms/frame (one pass {r['single_ms']:.1f}); "
+              f"starved near {r['starved_near']:.4%}, far "
+              f"{r['starved_far']:.4%}, whole {r['starved']:.4%} (one pass "
+              f"{r['single_starved']:.4%}); peak {r['peak_gb']:.1f} GB; "
+              f"{r['kernel']} launches near {r['launches_near']}, far "
+              f"{r['launches_far']}; against one pass: "
+              f"{r['compared']:.2%} compared, {r['outside']} outside "
+              f"{SPLIT_RTOL:g} rel + {SPLIT_ATOL:g}"
               + (" (the scan composites in streaming order: reported, not "
                  "required)" if mode == "scanq" else "")
-              + f", tonemapped PSNR {psnr:.1f} dB [{smi}]", flush=True)
-        del fs1, fs2, ff1, ff2, fs2b, ff2b
+              + f", tonemapped PSNR {r['psnr']:.1f} dB [{smi}]", flush=True)
 
     # (c) the render kernels in window modes 1 and 2 against their plain
     # versions: each frame's near and far pass of bounces 0 and 1
@@ -4754,6 +4858,505 @@ def tools_entry(tools: dict, kernel: str, check: str) -> dict:
                                       default=None))
 
 
+# -- phase 24: the k-buffer kernels at K 8 and K 64 ---------------------------
+
+# (a) train.py's Config defaults at --max_hits K_SMALL: phase 7's step, the
+# 800x800 eval frame (phase 4's room) and the training CLI at
+# CLI_SMALL_SIDE; (b) split-far at bench.py's fused configuration (SPLIT_K:
+# K 16, cluster 128, 96 candidates, grown as train.py grows them at the
+# injection) with train.py's shell, the step's far passes at the default
+# K_far (8) and the frame's at max_hits_far 8, the frame held against one
+# pass at K 32; (c) tools/demo_5m.py at K 8
+# runs in phase 21; (d) K_LARGE: the 800x800 eval frame at cluster 128
+# (K64_FRAME), against the scan frames' bounce 0, trace_hits on phase 11's
+# culled frame, trace_slots on (a)'s first batch at the Config's tile and
+# cluster; the slot sort at both depths on phase 16's rays
+K_SMALL, K_LARGE = 8, 64
+SPLIT_K = dict(max_hits=16, cull_cluster=128, max_clusters=96,
+               max_clusters_secondary=192)
+K64_FRAME = dict(max_hits=K_LARGE, cull_cluster=128, max_clusters=192)
+# phase 24 holds each pass against its plain version on this many of its
+# busiest tiles; the checked tiles of a windowed pass of (b) must walk at
+# least K_WINDOW_MIN_PAIRS (cluster 128 and 96 candidates walk fewer than
+# phase 22's passes)
+K_CHECK_TILES = 64
+K_WINDOW_MIN_PAIRS = 2.5e7
+# the wrappers of the kernels built per K, each counting its launches by K
+K_COUNTERS = {"render_culled": render_culled, "trace_slots": trace_slots,
+              "trace_hits": trace_hits, "render_table": render_culled_table,
+              "sort_slots": sort_slots_aux}
+
+
+@contextlib.contextmanager
+def driven(tally: dict, dev):
+    """Every K_COUNTERS count by K at 0 before the block (a path phase 24
+    drives), and the counts read after it added to tally[kernel][K]."""
+    for c in K_COUNTERS.values():
+        c.launches_by_k.update(dict.fromkeys(SUPPORTED_K, 0))
+    yield
+    sync(dev)
+    for name, c in K_COUNTERS.items():
+        for K, n in c.launches_by_k.items():
+            tally[name][K] += n
+
+
+def walk_k_info(kernel: str, call) -> dict:
+    """What the runtime reports of the kernel a call launches (kernel_info
+    at its K, tile, cluster, backfacing test and exit mode, or trace_slots'
+    windowed kernel)."""
+    kw = call.kwargs
+    exit_mode = (2 if kernel == "trace_slots" and kw.get("window_mode", 0)
+                 else kw.get("exit_mode", 0))
+    return kernel_info(kw["max_hits"],
+                       backfacing=kw.get("secondary_static", 0) != 0,
+                       tile=kw["tile"], cluster=kw["cluster"], kernel=kernel,
+                       exit_mode=exit_mode)
+
+
+def walk_work(call, work) -> str:
+    """A walk's work as phase 24 prints it."""
+    kw = call.kwargs
+    return (f"{call.args[0].shape[0]} rays, tile {kw['tile']}, cluster "
+            f"{kw['cluster']}, {float(work.sum()):.4g} pairs")
+
+
+def render_k(where: str, call, table: dict | None = None) -> dict:
+    """render_culled on a pass, or with `table` (a tally) render_culled_table
+    on its rays and candidates (table_call; one launch a pass, as phase 13
+    runs it, counted in the tally): ms (CUDA events), pairs, bound and the
+    bytes it writes; held against its plain version on the pass's
+    K_CHECK_TILES busiest tiles bit for bit; what the runtime reports of
+    it."""
+    if table is None:
+        kernel, reference, n_in, cand_pos = (render_culled,
+                                             render_culled_reference, 5,
+                                             (3, 4))
+        out = render_culled(*call.args, **call.kwargs)
+    else:
+        call = table_call(call, attr_table(call.args[2]))
+        kernel, reference, n_in, cand_pos = (render_culled_table,
+                                             render_culled_table_reference,
+                                             6, (4, 5))
+        with driven(table, call.args[0].device):
+            out = kernel(*call.args, **call.kwargs)
+    ms = cuda_ms(lambda: kernel(*call.args, **call.kwargs), reps=3)
+    tile = call.kwargs["tile"]
+    work = out[:, OUT_TRAV].reshape(-1, tile).sum(dim=1)
+    ref, rows, plain_ms, keep = busiest_reference(
+        call, reference, work, cand_pos=cand_pos, n_tiles=K_CHECK_TILES)
+    cmp = compare_lanes(out[rows], ref)
+    if cmp["bit_equal"] < 1.0:
+        for line in differing_lanes(out[rows], ref):
+            print(f"{where}: {line}", flush=True)
+        raise RuntimeError(f"{where}: {kernel.__name__} parts from its "
+                           f"plain version: {cmp}")
+    b_ms, b_by = bound(walk_flops(call.args[0], out[:, OUT_TRAV], tile),
+                       PEAK_FP32, nbytes(*call.args[:n_in],
+                                         call.kwargs.get("alive"), out))
+    return dict(kernel="render_culled" if table is None else "render_table",
+                K=call.kwargs["max_hits"], ms=ms, work=walk_work(call, work),
+                checked=f"its {len(keep)} busiest tiles",
+                pairs=work.sum().item(),
+                bound_ms=b_ms, bound_by=b_by, written_gb=nbytes(out) / 1e9,
+                plain_ms=plain_ms, plain_tiles=len(keep),
+                max_abs_err=cmp["max_abs_err"], rays=call.args[0].shape[0],
+                tile=tile, cluster=call.kwargs["cluster"],
+                info=(walk_k_info("render_culled", call) if table is None
+                      else None))
+
+
+def slots_k(where: str, call, K: int = 0) -> dict:
+    """trace_slots on a call (at K in place of its own, when given): ms a
+    pass, pairs, bound and the bytes it writes (37 K floats a ray and the
+    counters); held against its plain version on the pass's K_CHECK_TILES
+    busiest tiles by phase 5's rule (ids and counters equal on every ray,
+    max abs err 0); what the runtime reports of it."""
+    call = SimpleNamespace(args=call.args, kwargs=dict(
+        call.kwargs, max_hits=K or call.kwargs["max_hits"]))
+    kw = call.kwargs
+    ms = cuda_ms(lambda: trace_slots(*call.args, **kw), reps=2)
+    out, acc = trace_slots(*call.args, **kw)
+    tile = kw["tile"]
+    work = acc[:, 1].reshape(-1, tile).sum(dim=1)
+    (ref, ref_acc), rows, plain_ms, keep = busiest_reference(
+        call, trace_slots_reference, work, cand_pos=(5, 6),
+        n_tiles=K_CHECK_TILES)
+    cmp = compare_slots(out[rows], acc[rows], ref, ref_acc, kw["max_hits"])
+    print_differing(where, cmp)
+    if cmp["counters_equal"] < 1.0 or cmp["max_abs_err"] != 0.0:
+        raise RuntimeError(f"{where}: trace_slots parts from its plain "
+                           f"version: {cmp}")
+    b_ms, b_by = bound(walk_flops(call.args[0], acc[:, 1], tile), PEAK_FP32,
+                       nbytes(*call.args[:7], kw.get("alive"), out, acc))
+    res = dict(kernel="trace_slots", K=kw["max_hits"], ms=ms,
+               work=walk_work(call, work),
+               checked=f"its {len(keep)} busiest tiles",
+               pairs=work.sum().item(), bound_ms=b_ms, bound_by=b_by,
+               written_gb=nbytes(out, acc) / 1e9, plain_ms=plain_ms,
+               plain_tiles=len(keep), max_abs_err=cmp["max_abs_err"],
+               rays=call.args[0].shape[0], tile=tile, cluster=kw["cluster"],
+               info=walk_k_info("trace_slots", call))
+    del out, acc, ref, ref_acc
+    return res
+
+
+def window_k(where: str, kernel, reference, call) -> dict:
+    """A windowed pass of (b) by check_window_pass, with what the runtime
+    reports of its kernel and the bytes it writes."""
+    r = check_window_pass(kernel, reference, call,
+                          f"{kernel.__name__} K {call.kwargs['max_hits']}",
+                          K=call.kwargs["max_hits"], where=where,
+                          min_pairs=K_WINDOW_MIN_PAIRS,
+                          n_tiles=K_CHECK_TILES)
+    name = kernel.__name__
+    K, R = call.kwargs["max_hits"], call.args[0].shape[0]
+    lanes = SLOT_BLOCKS * K + 16 if kernel is trace_slots else 16
+    n_in = 7 if kernel is trace_slots else 5
+    b_ms, b_by = bound(r["flops"], PEAK_FP32,
+                       nbytes(*call.args[:n_in], call.kwargs.get("alive"),
+                              call.kwargs.get("t_split")) + 4 * R * lanes)
+    return dict(r, kernel=name, K=K, bound_ms=b_ms, bound_by=b_by,
+                work=(f"{R} rays, tile {call.kwargs['tile']}, cluster "
+                      f"{call.kwargs['cluster']}, window {r['window']}, "
+                      f"{r['pass_pairs']:.4g} pairs"),
+                written_gb=4 * R * lanes / 1e9,
+                checked=f"its {K_CHECK_TILES} busiest tiles",
+                info=walk_k_info(name, call))
+
+
+def k_line(where: str, r: dict, smi: str) -> None:
+    """One (kernel, K) line of phase 24: ms, the work and bound, the bytes
+    written, what the runtime reports of the kernel, the plain check."""
+    info = r.get("info")
+    kinfo = (f"{info['registers']} registers, {info['local_bytes']} B local, "
+             f"{info['smem_bytes']} B shared, {info['blocks_per_sm']} blocks "
+             f"per SM" if info else "no kernel_info entry point")
+    print(f"{where}: {r['kernel']} K {r['K']}: {r['ms']:.3f} ms ("
+          f"{r['work']}; bound {r['bound_ms']:.3f} ms by {r['bound_by']}), "
+          f"writes {r['written_gb']:.3f} GB; {kinfo}; = plain on "
+          f"{r['checked']} ({r['plain_ms']:.0f} ms), max abs err "
+          f"{r['max_abs_err']:g} [{smi}]", flush=True)
+
+
+def cli_k(where: str, K: int, small, tally: dict, dev, smi) -> tuple:
+    """The training CLI at CLI_SMALL_SIDE at --max_hits K (phase 18 (b)'s
+    set-up), a driven path; its launches, the report's, and its busiest
+    calls."""
+    out_dir = ROOT / "build" / "cli_smoke" / f"k{K}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = cli_config(str(out_dir), CLI_SMALL_SIDE, **dict(
+        CLI_KW, init_num_pts_farfield=CLI_SMALL_FAR, max_hits=K))
+    for c in CLI_COUNTERS.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with driven(tally, dev), probe_cli(dev) as rec, busiest_calls() as seen:
+        st, _ = train_cli(cfg, scene_info(CLI_SMALL_N, *small), dev)
+    s = time.perf_counter() - t0
+    cl = launch_counts()
+    report = rec["reports"][0]["launches"]
+    if not (cl["trace_slots"] and cl["scatter_grads"]
+            and report["render_culled"] and state_finite(st)
+            and all(math.isfinite(x["l1"]) for x in rec["steps"])):
+        raise RuntimeError(f"{where}: the CLI at --max_hits {K}: launches "
+                           f"{cl}, its report's {report}")
+    print(f"{where}: training CLI at {CLI_SMALL_SIDE}x{CLI_SMALL_SIDE} "
+          f"--max_hits {K} ({cfg.iterations} iterations) {s:.1f} s: "
+          f"launches {cl}, its report's {report} [{smi}]", flush=True)
+    return dict(s=s, launches=cl, report_launches=report), seen
+
+
+def phase_kbuffer_k(dev, record, smi) -> dict:
+    """Phase 24: the k-buffer kernels at K 8 and K 64 (module docstring)."""
+    t_phase = time.perf_counter()
+    tally = {name: dict.fromkeys(SUPPORTED_K, 0) for name in K_COUNTERS}
+    res = {"lines": []}
+
+    def line(where, r):
+        k_line(where, r, smi)
+        res["lines"].append(dict({k: v for k, v in r.items()
+                                  if k != "differ"}, where=where))
+
+    # (a) the training step at --max_hits 8: one step counted and its
+    # calls recorded, then one warm-up and N_TIMED_STEPS timed
+    t8 = fused_training_step(dev, max_hits=K_SMALL)
+    n_batches = -(-t8.n_tiles // t8.tiles_per_launch)
+    trace_slots.launches = scatter_add.launches = 0
+    with driven(tally, dev), busiest_calls() as seen:
+        state, metrics = t8.step(t8.state)
+    launches = (trace_slots.launches, scatter_add.launches)
+    step_ms, _, step_peak = timed(lambda: t8.step(t8.state), N_TIMED_STEPS)
+    if launches != (3 * n_batches, n_batches):
+        raise RuntimeError(f"phase 24 (a): trace_slots/scatter_grads "
+                           f"launched {launches}, expected "
+                           f"{(3 * n_batches, n_batches)}")
+    if not (state_finite(state) and math.isfinite(
+            float(metrics["l1_diffuse"]))):
+        raise RuntimeError("phase 24 (a): non-finite state or l1_diffuse")
+    del state
+    res["a"] = dict(step_ms=step_ms, peak_gb=step_peak, launches=launches,
+                    l1=float(metrics["l1_diffuse"]),
+                    starved=float(metrics["starved"]))
+    print(f"phase 24 (a): training step {TRAIN_W}x{TRAIN_H}, room_scene("
+          f"{TRAIN_N}), Config defaults at --max_hits {K_SMALL}: "
+          f"{step_ms:.1f} ms/step (host clock, {N_TIMED_STEPS} after a "
+          f"warm-up), peak {step_peak:.1f} GB, l1_diffuse "
+          f"{res['a']['l1']:.6f}, starved {res['a']['starved']:.4%}; "
+          f"launches trace_slots {launches[0]}, scatter_grads "
+          f"{launches[1]} [{smi}]", flush=True)
+    for b in (0, 1):
+        line("phase 24 (a) step", slots_k(
+            f"phase 24 (a) trace_slots bounce {b}",
+            seen[("trace_slots", b, 0)][1]))
+    payload, ids, cap = seen[("scatter_grads", None, 0)][1]
+    res["a"]["scatter"] = sc = scatter_numbers("phase 24 (a)", payload, ids,
+                                               cap, dev)
+    print(f"phase 24 (a): scatter_grads on the K {K_SMALL} step's first "
+          f"batch ({sc['rows']} slots, {sc['hits']} hits): {sc['ms']:.3f} "
+          f"ms (plain {sc['plain_ms']:.3f}, index_add_ "
+          f"{sc['library_ms']:.3f}, bound {sc['bound_ms']:.3f} by "
+          f"{sc['bound_by']}), max abs err {sc['max_abs_err']:.3g} of scale "
+          f"{sc['scale']:.3g}, zeros equal [{smi}]", flush=True)
+    del payload, ids
+    # (d) trace_slots at K 64 on the same batch, the Config's tile and
+    # cluster: its epilogue stages each slot block in two parts
+    line("phase 24 (d) step", slots_k("phase 24 (d) trace_slots K 64",
+                                      seen[("trace_slots", 0, 0)][1],
+                                      K=K_LARGE))
+    del seen, t8
+    torch.cuda.empty_cache()
+
+    # (a) and (d): the training CLI at --max_hits 8 and 64, its report's
+    # eval renders and its slots passes held
+    n_train, n_test = CLI_VIEWS
+    small = gbuffer_views(CLI_SMALL_N, CLI_SMALL_SIDE, n_train, n_test, dev)
+    res["cli"] = {}
+    for K in (K_SMALL, K_LARGE):
+        where = f"phase 24 ({'a' if K == K_SMALL else 'd'}) CLI"
+        res["cli"][K], seen = cli_k(where, K, small, tally, dev, smi)
+        line(where, render_k(f"{where} report render_culled",
+                             seen[("render_culled", 0, 0)][1]))
+        line(where, slots_k(f"{where} trace_slots",
+                            seen[("trace_slots", 0, 0)][1]))
+        del seen
+    del small
+
+    # (a) and (d): the 800x800 eval frame at K 8 (the Config's cluster and
+    # candidates) and at K 64 (cluster 128), each pass held; render_table
+    # on their primary passes; the scan frames against K 64's bounce 0
+    W = H = FAST_SIZE
+    scene, camera = room(FAST_N, dev)
+    samples = draw_samples(torch.Generator(device=dev).manual_seed(2), W, H,
+                           3)
+    frames = {}
+    for K, fkw in ((K_SMALL, dict(FRAME_KW, max_hits=K_SMALL)),
+                   (K_LARGE, K64_FRAME)):
+        where = f"phase 24 ({'a' if K == K_SMALL else 'd'}) frame"
+        render_culled.launches = 0
+        with driven(tally, dev), busiest_calls() as seen:
+            steps, final = dispatch_render_frame(
+                scene, camera, SETTINGS, None, W, H, num_bounces=2,
+                samples=samples, **fkw)
+        if render_culled.launches != 3 or not (
+                torch.isfinite(final).all() and final.mean() > 0):
+            raise RuntimeError(f"{where}: render_culled launched "
+                               f"{render_culled.launches} times, or a bad "
+                               f"frame")
+        frames[K] = dict(rgb0=steps.rgb[0], starved=float(
+            steps.overflow.mean()))
+        for b in (0, 1):
+            line(where, render_k(f"{where} render_culled bounce {b}",
+                                 seen[("render_culled", b, 0)][1]))
+        line(where, render_k(f"{where} render_table",
+                             seen[("render_culled", 0, 0)][1], table=tally))
+        del seen, steps, final
+    psnr = {}
+    for mode in ("scan", "scanq"):
+        steps, _ = dispatch_render_frame(
+            scene, camera, SETTINGS, None, W, H, num_bounces=2,
+            samples=samples, composite_mode=mode, **K64_FRAME)
+        psnr[mode] = psnr_tonemapped(steps.rgb[0], frames[K_LARGE]["rgb0"])
+    res["d"] = dict(psnr_scan_vs_k64=psnr, starved={
+        k: v["starved"] for k, v in frames.items()})
+    print(f"phase 24 (d): {W}x{H} eval frame at K {K_LARGE}, cluster 128, "
+          f"{K64_FRAME['max_clusters']} candidates (the exact reference of "
+          f"JAX's scan-kernel tests): starved "
+          f"{frames[K_LARGE]['starved']:.4%} (K {K_SMALL}: "
+          f"{frames[K_SMALL]['starved']:.4%}); bounce 0's tonemapped PSNR "
+          f"against it: scan {psnr['scan']:.2f} dB, scanq "
+          f"{psnr['scanq']:.2f} dB [{smi}]", flush=True)
+    del scene, frames, steps
+    torch.cuda.empty_cache()
+
+    # (d) trace_hits at K 8 and K 64 on phase 11's culled 1365x768 frame
+    r = eval_render(dev)
+    for K in (K_SMALL, K_LARGE):
+        r.kw = dict(r.kw, max_hits=K)
+        with driven(tally, dev):
+            calls = render_trace_calls(r)
+        passes = trace_pass_numbers(calls, f"phase 24 (d) K {K}",
+                                    busiest=True)
+        for name, p in passes.items():
+            if p["max_abs_err"] != 0.0 or p["counters_equal"] < 1.0:
+                raise RuntimeError(f"phase 24 (d) trace_hits K {K} {name}: "
+                                   f"parts from its plain version: {p}")
+            line("phase 24 (d) nonfused frame", dict(
+                p, kernel="trace_hits", K=K,
+                work=(f"{p['rays']} rays, culled, cluster "
+                      f"{FRAME_KW['cull_cluster']}, {p['pairs']:.4g} "
+                      f"pairs"),
+                checked=f"its {NF_CHECK_TILES} busiest blocks",
+                info=kernel_info(K, backfacing=name == "reflected",
+                                 tile=256, cluster=FRAME_KW["cull_cluster"],
+                                 kernel="trace_hits")))
+        del calls
+    del r
+    torch.cuda.empty_cache()
+
+    # (b) split-far at K 16: the step (its far passes at the default K_far)
+    # and the eval frame (max_hits_far 8), both with train.py's shell
+    cfg = Config()
+    settings = tr.settings_from_config(cfg)
+    side = TRAIN_W
+    tile = tr.pick_tile_size(side * side, cfg.ray_tile)
+    scene_t, camera = room(TRAIN_N, dev, seed=0)
+    gb, _ = render_frame_fused(scene_t, camera, settings,
+                               torch.Generator(device=dev).manual_seed(3),
+                               side, side, num_bounces=2, **FRAME_KW)
+    targets = RayTargets(diffuse=gb.rgb[0], specular=gb.rgb[1] + gb.rgb[2],
+                         depth=gb.depth[0], normal=gb.normal[0],
+                         roughness=gb.roughness[0], f0=gb.f0[0])
+    del scene_t, gb
+    base = room(TRAIN_N, dev, seed=1)[0]
+    scene0, n_shell = with_shell(base, cfg, dev)
+    mc = ttrain.grown_budget(SPLIT_K["max_clusters"], scene0.capacity,
+                             base.capacity)
+    del base
+    state = tr.init_train_state(scene0)
+    step_kw = dict(num_bounces=2, max_hits=SPLIT_K["max_hits"],
+                   chunk=cfg.trace_chunk, tile=tile, use_pallas=True,
+                   exp_power_static=float(cfg.exp_power), use_culling=True,
+                   cull_tile=cfg.cull_tile,
+                   cull_cluster=SPLIT_K["cull_cluster"], max_clusters=mc)
+    split_kw = dict(split_far=True, mc_far=cfg.mc_far,
+                    split_radius_scale=cfg.split_radius_scale)
+    s_dev = moved(draw_tile_samples(torch.Generator().manual_seed(4), side,
+                                    side, tile, 3), dev)
+    reset_window_counts()
+    trace_slots.launches = scatter_add.launches = 0
+    with driven(tally, dev):
+        t0 = time.perf_counter()
+        st2, m2 = tr.train_step(
+            state, camera, targets, settings, tr.lr_tree(cfg, 1, 1.0),
+            dict(beta_1=cfg.beta_1, beta_2=cfg.beta_2,
+                 scale_decay=cfg.scale_decay, apply_grads=1.0),
+            None, side, side, samples=s_dev, **step_kw, **split_kw)
+        sync(dev)
+        split_ms = (time.perf_counter() - t0) * 1e3
+    counts = window_counts()[0]
+    if counts[1] == 0 or counts[2] == 0 or counts[0] or \
+            scatter_add.launches == 0 or not state_finite(st2):
+        raise RuntimeError(f"phase 24 (b): the split step launched "
+                           f"trace_slots by window {counts}, scatter_grads "
+                           f"{scatter_add.launches} times, or its state is "
+                           f"not finite")
+    del st2
+    sb = split_batch("phase 24 (b)", state, camera, targets, settings, side,
+                     s_dev, step_kw, split_kw)
+    res["b"] = dict(step_ms=split_ms, launches=counts, K=SPLIT_K["max_hits"],
+                    K_far=sb.K_far, max_clusters=mc, shell=n_shell,
+                    starved=float(m2["starved"]), by_pass=sb.by_pass,
+                    **sb.parts)
+    print(f"phase 24 (b): split-far training step {side}x{side}, room_scene("
+          f"{TRAIN_N}) + the shell ({n_shell} rows), bench.py's fused "
+          f"configuration (K {SPLIT_K['max_hits']}, cluster "
+          f"{SPLIT_K['cull_cluster']}, {SPLIT_K['max_clusters']} candidates "
+          f"grown to {mc}), mc_far {cfg.mc_far}, K_far {sb.K_far} (the "
+          f"default): {split_ms:.1f} ms (one step); trace_slots launches "
+          f"near {counts[1]}, far {counts[2]}; on the first batch starved "
+          f"near {sb.by_pass['near']:.4%}, far {sb.by_pass['far']:.4%}; "
+          f"against one pass: {sb.parts['compared']:.2%} compared, "
+          f"{sb.parts['outside']} outside {SPLIT_RTOL:g} rel + "
+          f"{SPLIT_ATOL:g} [{smi}]", flush=True)
+    for b in (0, 1):
+        for name in ("near", "far"):
+            line("phase 24 (b) step", window_k(
+                f"phase 24 (b) step {name} {b}", trace_slots,
+                trace_slots_reference, getattr(sb.calls[b], name)))
+    del sb, state, targets
+    torch.cuda.empty_cache()
+    fbase, fcam = room(SPLIT_FRAME_N, dev)
+    fscene, fshell = with_shell(fbase, cfg, dev)
+    fside = SPLIT_FRAME_SIDE
+    # the candidates grown for the shell as the step's; the one pass at
+    # K 32, so that a ray with at most 16 near and 8 far hits keeps every
+    # hit on both sides (at K 16 a ray that stays unsaturated fills the one
+    # pass's 16 slots, and split_mask leaves no ray to compare)
+    fmc = ttrain.grown_budget(SPLIT_K["max_clusters"], fscene.capacity,
+                              fbase.capacity)
+    fkw = dict(num_bounces=2, composite_mode="kbuffer", samples=draw_samples(
+        torch.Generator(device=dev).manual_seed(5), fside, fside, 3),
+        **dict(SPLIT_K, max_clusters=fmc))
+    del fbase
+    with driven(tally, dev):
+        fres, seen = split_frame(
+            "phase 24 (b) frame", fscene, fcam, settings, fside, fkw,
+            dict(split_kw, max_hits_far=K_SMALL), 1, single_hits=32)
+    res["b"]["frame"] = fres
+    print(f"phase 24 (b): split-far eval frame {fside}x{fside} k-buffer, "
+          f"room_scene({SPLIT_FRAME_N}) + the shell ({fshell} rows), "
+          f"bench.py's fused configuration ({SPLIT_K['max_clusters']} "
+          f"candidates grown to {fmc}), K {fres['K']} + K_far "
+          f"{fres['K_far']}: {fres['ms']:.1f} ms/frame (one pass at K "
+          f"{fres['single_K']} {fres['single_ms']:.1f}); render_culled "
+          f"launches near {fres['launches_near']}, far "
+          f"{fres['launches_far']}; against one pass: "
+          f"{fres['compared_rays']} rays compared, {fres['outside']} outside "
+          f"{SPLIT_RTOL:g} rel + {SPLIT_ATOL:g}, tonemapped PSNR "
+          f"{fres['psnr']:.1f} dB [{smi}]", flush=True)
+    for b in (0, 1):
+        for window, name in ((1, "near"), (2, "far")):
+            line("phase 24 (b) frame", window_k(
+                f"phase 24 (b) frame {name} {b}", render_culled,
+                render_culled_reference,
+                seen[("render_culled", b, window)][1]))
+    del seen, fscene
+    torch.cuda.empty_cache()
+
+    # (d) the slot sort at K 8 and K 64 on phase 16's rays
+    for K in (K_SMALL, K_LARGE):
+        inp = sort_inputs(SORT_RAYS, K, SORT_AUX, 11, dev)
+        with driven(tally, dev):
+            out = sort_slots_aux(*inp)
+        for a, b in zip(out, sort_slots_aux_reference(*inp)):
+            exact(f"phase 24 (d) sort K {K}", a, b)
+        ms = cuda_ms(lambda: sort_slots_aux(*inp), reps=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sort_slots_aux_reference(*inp)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        b_ms, b_by = bound(SORT_RAYS * K * K / 2, PEAK_FP32,
+                           nbytes(*inp, *out))
+        line("phase 24 (d) sort", dict(
+            kernel="sort_slots", K=K, ms=ms,
+            work=f"{SORT_RAYS} rays x {K} slots, {SORT_AUX} aux blocks",
+            bound_ms=b_ms, bound_by=b_by, written_gb=nbytes(*out) / 1e9,
+            checked="every ray", plain_ms=plain_ms, max_abs_err=0.0,
+            info=sort_kernel_info(K)))
+        del inp, out
+
+    missing = [(name, K) for name, by_k in tally.items()
+               for K in (K_SMALL, K_LARGE) if not by_k[K]]
+    if missing:
+        raise RuntimeError(f"phase 24: no launch on a driven path of "
+                           f"{missing}: {tally}")
+    res.update(launches=tally, s=time.perf_counter() - t_phase)
+    record["phase24"] = res
+    print(f"phase 24: launches on the driven paths by K (comparisons not "
+          f"counted): {tally}; {res['s']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     # the smoke drives one card: only the first visible one is made visible,
     # before CUDA initialises, so the device count it reports is the one used
@@ -4852,20 +5455,22 @@ def main() -> None:
     kernel_ms_reflected = cuda_ms(
         lambda: render_culled(*call1.args, **call1.kwargs), reps=10)
     # the kernel vs its plain version at the main path's own shapes (the
-    # candidate lists overflow here, and the reflected tiles are wide)
+    # candidate lists overflow here, and the reflected tiles are wide), on
+    # the CHECK_TILES tiles of each pass that walked the most pairs
     phase4 = {}
     for name, call in (("primary", call0), ("reflected", call1)):
         out = render_culled(*call.args, **call.kwargs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = render_culled_reference(*call.args, **call.kwargs)
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3
-        phase4[name] = dict(compare_lanes(out, ref), plain_ms=plain,
+        ctile = call.kwargs["tile"]
+        work = out[:, OUT_TRAV].reshape(-1, ctile).sum(dim=1)
+        ref, rows, plain, keep = busiest_reference(
+            call, render_culled_reference, work)
+        phase4[name] = dict(compare_lanes(out[rows], ref), plain_ms=plain,
+                            plain_tiles=len(keep),
+                            checked_pairs=work[keep].sum().item(),
                             pairs=out[:, OUT_TRAV].sum().item(),
                             flops=walk_flops(call.args[0], out[:, OUT_TRAV],
-                                             call.kwargs["tile"]),
-                            differ=differing_lanes(out, ref))
+                                             ctile),
+                            differ=differing_lanes(out[rows], ref))
         print_differing(f"phase 4 {name}", phase4[name])
         check_lanes(f"phase 4 {name}", phase4[name])
     plain_ms = phase4["primary"]["plain_ms"]
@@ -4881,14 +5486,19 @@ def main() -> None:
                   phase4_compare=phase4)
     print(f"phase 4: render_culled at the 800x800 frame's passes "
           f"({call0.args[0].shape[0]} rays, capacity {scene.capacity}): "
-          f"primary {kernel_ms:.3f} ms (plain version {plain_ms:.1f} ms, "
-          f"{pairs:.4g} ray x Gaussian pairs, {gpairs_s:.1f} G pairs/s)"
-          f", reflected {kernel_ms_reflected:.3f} ms (plain version "
+          f"primary {kernel_ms:.3f} ms (plain version on its {CHECK_TILES} "
+          f"busiest tiles {plain_ms:.1f} ms, {pairs:.4g} ray x Gaussian "
+          f"pairs, {gpairs_s:.1f} G pairs/s), reflected "
+          f"{kernel_ms_reflected:.3f} ms (plain version on its "
+          f"{CHECK_TILES} busiest tiles "
           f"{phase4['reflected']['plain_ms']:.1f} ms) [{smi}]", flush=True)
-    print("phase 4: kernel vs plain at these shapes: " + "; ".join(
-        f"{k} max_abs_err {v['max_abs_err']:.3g}, counters equal on "
-        f"{v['counters_equal']:.4%} of rays, every lane on "
-        f"{v['bit_equal']:.4%}" for k, v in phase4.items()), flush=True)
+    print("phase 4: kernel vs plain at these shapes, on each pass's "
+          f"{CHECK_TILES} busiest tiles: " + "; ".join(
+              f"{k} max_abs_err {v['max_abs_err']:.3g}, counters equal on "
+              f"{v['counters_equal']:.4%} of rays, every lane on "
+              f"{v['bit_equal']:.4%} ({v['checked_pairs']:.4g} of "
+              f"{v['pairs']:.4g} pairs)" for k, v in phase4.items()),
+          flush=True)
 
     # -- phase 4b: render_culled in groups of 4 on the same primary pass ----
     ce4_kw = dict(call0.kwargs, check_every=4)
@@ -5004,12 +5614,12 @@ def main() -> None:
         k_ms = cuda_ms(lambda: trace_slots(*call.args, **call.kwargs),
                        reps=3)
         out, acc = trace_slots(*call.args, **call.kwargs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref, ref_acc = trace_slots_reference(*call.args, **call.kwargs)
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3
-        cmp = compare_slots(out, acc, ref, ref_acc, K)
+        # the plain version on the CHECK_TILES tiles that walked the most
+        # pairs
+        work = acc[:, 1].reshape(-1, call.kwargs["tile"]).sum(dim=1)
+        (ref, ref_acc), rows, plain, keep = busiest_reference(
+            call, trace_slots_reference, work, cand_pos=(5, 6))
+        cmp = compare_slots(out[rows], acc[rows], ref, ref_acc, K)
         print_differing(f"phase 5 trace_slots {name}", cmp)
         check_lanes(f"phase 5 trace_slots {name}", cmp)
         if cmp["counters_equal"] < 1.0:
@@ -5023,6 +5633,8 @@ def main() -> None:
                            nbytes(*call.args[:7], call.kwargs["alive"],
                                   out, acc))
         phase5[name] = dict(cmp, ms=k_ms, plain_ms=plain, pairs=n_pairs,
+                            plain_tiles=len(keep),
+                            checked_pairs=work[keep].sum().item(),
                             bound_ms=b_ms, bound_by=b_by,
                             floor_ms=flops / FP32_LANES_S * 1e3,
                             rays=call.args[0].shape[0])
@@ -5075,7 +5687,8 @@ def main() -> None:
     print(f"phase 5: trace_slots at the step's batch ({tiles_per_launch} of "
           f"{n_tiles} {tile}-ray tiles, capacity {cap}, K={K}, mc "
           f"{cfg.max_clusters}): " + "; ".join(
-              f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.1f} ms, bound "
+              f"{k} {v['ms']:.3f} ms (plain on the {CHECK_TILES} busiest "
+              f"tiles {v['plain_ms']:.1f} ms, bound "
               f"{v['bound_ms']:.3f} ms by {v['bound_by']}, no-FMA issue "
               f"floor {v['floor_ms']:.3f} ms, max_abs_err "
               f"{v['max_abs_err']:.3g}, ids+counters equal on "
@@ -5194,6 +5807,13 @@ def main() -> None:
     split = phase_split(dev, record, smi)
     win = split["c"]
     tools = phase_tools(dev, record, smi)
+    kk = phase_kbuffer_k(dev, record, smi)
+
+    def k_entry(name: str) -> dict:
+        """Phase 24's launches of a kernel by K on its driven paths and
+        its worst error against the plain version there."""
+        return dict(k_launches=kk["launches"][name], k_max_abs_err=max(
+            x["max_abs_err"] for x in kk["lines"] if x["kernel"] == name))
 
     src = "editable_gaussian_reflections_tpu_torch/csrc/"
     jax_src = "editable_gaussian_reflections_tpu/ops/pallas/"
@@ -5253,6 +5873,8 @@ def main() -> None:
         # the tools (phase 23): launches by tool, and their calls at the
         # tools' own shapes against the plain version
         **tools_entry(tools, "render_culled", "render_culled"),
+        # phase 24: K 8 and K 64 on their driven paths
+        **k_entry("render_culled"),
     }, {
         "name": "trace_slots",
         "route": "cuda",
@@ -5305,6 +5927,8 @@ def main() -> None:
                       record["trace_slots_kernel"].items()},
         "blocks_per_sm": {k: v["blocks_per_sm"] for k, v in
                           record["trace_slots_kernel"].items()},
+        # phase 24: K 8 and K 64 on their driven paths
+        **k_entry("trace_slots"),
     }, {
         "name": "scatter_grads",
         "route": "cuda",
@@ -5422,6 +6046,8 @@ def main() -> None:
                       record["trace_hits_kernel"].items()},
         "blocks_per_sm": {k: v["blocks_per_sm"] for k, v in
                           record["trace_hits_kernel"].items()},
+        # phase 24: K 8 and K 64 on their driven paths
+        **k_entry("trace_hits"),
     }, {
         "name": "render_table",
         "route": "cuda",
@@ -5438,6 +6064,8 @@ def main() -> None:
         "library_ms": None,
         "reflected_ms": round2["reflected"]["ms"],
         "render_culled_ms": round2["primary"]["render_culled_ms"],
+        # phase 24: K 8 and K 64 on their driven paths
+        **k_entry("render_table"),
     }, {
         "name": "bench_dtype",
         "route": "cuda",
@@ -5479,6 +6107,8 @@ def main() -> None:
                       sort["kernel_info"].items()},
         "blocks_per_sm": {k: v["blocks_per_sm"] for k, v in
                           sort["kernel_info"].items()},
+        # phase 24: K 8 and K 64 on their driven paths
+        **k_entry("sort_slots"),
     }]
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

@@ -22,9 +22,9 @@
 // a branch per pair, and the ray-independent terms once per Gaussian where
 // a block's rays share an origin (a primary pass).  The split-far window
 // (window modes 1/2) becomes a per-ray bound on t, so the walk's loop is
-// the same for every window mode.  Kernels are instantiated per K (16, 32),
-// exponent (3 spelled out, or general) and the backfacing test.  The TPU
-// kernels' one-hot MXU attribute extraction and striped spread were
+// the same for every window mode.  Kernels are instantiated per K (8, 16,
+// 32, 64), exponent (3 spelled out, or general) and the backfacing test.
+// The TPU kernels' one-hot MXU attribute extraction and striped spread were
 // workarounds for a machine without per-lane scatter, so here the epilogue
 // sorts the kept hits by (t, id), recomputes each one's alpha from its
 // gpack column with the walk's float operations (so it equals what the walk
@@ -163,11 +163,10 @@ extern "C" int egr_render_culled(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_rays / tile;
   const bool backfacing = backfacing_for(secondary_static, secondary);
-  if (max_hits == 16)
-    return (int)launch_k<16>(p, backfacing, thr, eps_norm, out, n_tiles, tile,
-                             s);
-  return (int)launch_k<32>(p, backfacing, thr, eps_norm, out, n_tiles, tile,
-                           s);
+  return with_k(max_hits, [&](auto k) {
+    return launch_k<decltype(k)::value>(p, backfacing, thr, eps_norm, out,
+                                        n_tiles, tile, s);
+  });
 }
 
 // The compiled kernel of (max_hits, cube, backfacing) at (tile, cluster):
@@ -179,7 +178,8 @@ extern "C" int egr_render_culled_info(int max_hits, int cube, int backfacing,
                                       int* out) {
   if (!hits_shape_ok(max_hits, tile, cluster) || exit_mode != 0)
     return SHAPES_REFUSED;
-  if (max_hits == 16)
-    return (int)info_k<16>(cube, backfacing, tile, cluster, out);
-  return (int)info_k<32>(cube, backfacing, tile, cluster, out);
+  return with_k(max_hits, [&](auto k) {
+    return info_k<decltype(k)::value>(cube, backfacing, tile, cluster,
+                                      out);
+  });
 }

@@ -116,9 +116,8 @@ extern "C" int egr_render_table(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_rays / tile;
   const bool backfacing = backfacing_for(secondary_static, secondary);
-  if (max_hits == 16)
-    return (int)launch_k<16>(p, backfacing, table, thr, eps_norm, out,
-                             n_tiles, tile, s);
-  return (int)launch_k<32>(p, backfacing, table, thr, eps_norm, out, n_tiles,
-                           tile, s);
+  return with_k(max_hits, [&](auto k) {
+    return launch_k<decltype(k)::value>(p, backfacing, table, thr, eps_norm,
+                                        out, n_tiles, tile, s);
+  });
 }

@@ -19,9 +19,9 @@
 // trace_tile.cuh's walk, at 158-164 registers), the reciprocal of the pair
 // math without a branch per pair, and on blocks whose rays share an origin
 // the ray-independent terms computed once per Gaussian.  Kernels are
-// instantiated per K (16, 32), exponent (3 spelled out, or general) and pass
-// (backfacing test on reflected passes).  The two Pallas kernels map onto
-// it:
+// instantiated per K (8, 16, 32, 64), exponent (3 spelled out, or general)
+// and pass (backfacing test on reflected passes).  The two Pallas kernels
+// map onto it:
 //   culled  an exit vote before every candidate: the tile stops once each
 //           ray is saturated or has its K-th hit before the candidate's near
 //           distance.  pallas_trace_culled_fused skips the rest instead of
@@ -81,30 +81,24 @@ __global__ void __launch_bounds__(MAX_TILE)
   walk_hits<K, CUBE, BACKFACING, /*EXIT=*/0, /*CHUNKS=*/false>(
       p, smem, ray, col_t, col_id, log_t, trav, chunks);
 
-  float st[K];
-  int sid[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    st[s] = col_t[s * blockDim.x];
-    sid[s] = col_id[s * blockDim.x];
-  }
-  sort_hits<K>(st, sid);
-
+  // the kept hits in (t, id) order, sorted in the slot column
+  sort_column<K>(col_t, col_id, blockDim.x);
   const size_t row = (size_t)r * K;
-#pragma unroll
   for (int s = 0; s < K; ++s) {
+    const float t = col_t[s * blockDim.x];
+    const int id = col_id[s * blockDim.x];
     float gaussval = 0.0f, alpha = 0.0f, lh[3] = {0.0f, 0.0f, 0.0f};
-    const bool v = st[s] < INF;
+    const bool v = t < INF;
     if (v) {
-      const KeptHit h = kept_hit<CUBE>(p, ray, sid[s]);
+      const KeptHit h = kept_hit<CUBE>(p, ray, id);
       gaussval = h.gaussval;
       alpha = h.alpha;
       const float sf = (float)sqrt((double)fmaxf(h.sf2, 0.0f));
 #pragma unroll
-      for (int i = 0; i < 3; ++i) lh[i] = sf * (h.lo[i] + st[s] * h.ld[i]);
+      for (int i = 0; i < 3; ++i) lh[i] = sf * (h.lo[i] + t * h.ld[i]);
     }
-    t_out[row + s] = st[s];
-    id_out[row + s] = v ? sid[s] : 0;
+    t_out[row + s] = t;
+    id_out[row + s] = v ? id : 0;
     alpha_out[row + s] = alpha;
     gaussval_out[row + s] = gaussval;
 #pragma unroll
@@ -190,13 +184,12 @@ extern "C" int egr_trace_hits(
   if (n_rays == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_rays / tile;
-  if (max_hits == 16)
-    return (int)launch_k<16>(p, t_out, id_out, alpha_out, gaussval_out,
-                             local_hit_out, log_t_out, trav_out, n_tiles,
-                             tile, s);
-  return (int)launch_k<32>(p, t_out, id_out, alpha_out, gaussval_out,
-                           local_hit_out, log_t_out, trav_out, n_tiles, tile,
-                           s);
+  return with_k(max_hits, [&](auto k) {
+    return launch_k<decltype(k)::value>(p, t_out, id_out, alpha_out,
+                                        gaussval_out, local_hit_out,
+                                        log_t_out, trav_out, n_tiles, tile,
+                                        s);
+  });
 }
 
 // The compiled kernel of (max_hits, cube, backfacing) at (tile, cluster):
@@ -208,7 +201,8 @@ extern "C" int egr_trace_hits_info(int max_hits, int cube, int backfacing,
                                    int* out) {
   if (!hits_shape_ok(max_hits, tile, cluster) || exit_mode != 0)
     return SHAPES_REFUSED;
-  if (max_hits == 16)
-    return (int)info_k<16>(cube, backfacing, tile, cluster, out);
-  return (int)info_k<32>(cube, backfacing, tile, cluster, out);
+  return with_k(max_hits, [&](auto k) {
+    return info_k<decltype(k)::value>(cube, backfacing, tile, cluster,
+                                      out);
+  });
 }

@@ -21,8 +21,8 @@
 // registers of the first version's walk allowed one), the pair math's
 // reciprocal without a branch per pair, and the ray-independent terms once
 // per Gaussian where a block's rays share an origin (a primary pass).
-// Kernels are instantiated per K (16, 32), exponent (3 spelled out, or
-// general), the backfacing test, the exit mode and, in exit mode 0, the
+// Kernels are instantiated per K (8, 16, 32, 64), exponent (3 spelled out,
+// or general), the backfacing test, the exit mode and, in exit mode 0, the
 // split-far window (window_mode 1 keeps hits with t < t_split, 2 those with
 // t > t_split: pallas_trace_slots_v4's t-window, render_kernel_v3.py:787).
 // The window is a compile-time option, as the walk's load_ray makes it: the
@@ -72,21 +72,31 @@ constexpr int TABLE_A = 16;
 constexpr int FTABLE_A = 32;
 constexpr int ACC_LANES = 16;
 
-// The epilogue stages each slot block of the block's rows in a [tile][K + 1]
-// float buffer of shared memory: in the stage ring, which the walk is done
-// with, where it fits (tile 256, cluster 256, K 32: 33 of 47 KB), else after
-// the slot columns.  Floats of dynamic shared memory before the buffer, and
-// the bytes of a block's dynamic shared memory.
+// The epilogue stages each slot block of the block's rows, a part of
+// part_of(K) slots at a time, in a [tile][part + 1] float buffer of shared
+// memory: in the stage ring, which the walk is done with, where it fits
+// (tile 256, cluster 256, K 32: 33 of 47 KB), else after the slot columns.
+// A part is the whole block up to K 32; at K 64 it is half of it, so that
+// the Config's tile 256 and cluster 256 fit (a [256][65] buffer fits
+// neither the ring nor, at 66,560 bytes after 178,176 of ring and columns,
+// the card's 232,448).  Floats of dynamic shared memory before the
+// buffer, and the bytes of a block's dynamic shared memory.
+__host__ __device__ constexpr int part_of(int max_hits) {
+  return max_hits > 32 ? 32 : max_hits;
+}
+
 inline int buffer_offset(int max_hits, int tile, int cluster) {
   const int ring = NSTAGE * N_STAGE_ROWS * padded_cluster(cluster);
-  return tile * (max_hits + 1) <= ring ? 0 : ring + 2 * max_hits * tile;
+  return tile * (part_of(max_hits) + 1) <= ring
+             ? 0
+             : ring + 2 * max_hits * tile;
 }
 
 inline size_t slots_smem_bytes(int max_hits, int tile, int cluster) {
   const size_t walk = walk_smem_bytes(max_hits, tile, cluster);
   return buffer_offset(max_hits, tile, cluster) == 0
              ? walk
-             : walk + sizeof(float) * tile * (max_hits + 1);
+             : walk + sizeof(float) * tile * (part_of(max_hits) + 1);
 }
 
 template <int K, bool CUBE, bool BACKFACING, int EXIT, bool WINDOW>
@@ -104,47 +114,52 @@ __global__ void __launch_bounds__(MAX_TILE)
       p, smem, ray, col_t, col_id, log_t, trav, chunks);
   sort_column<K>(col_t, col_id, blockDim.x);
 
-  // The rows, one slot block at a time: each thread puts its ray's K values
-  // of block b in its row of the buffer, then the block writes every ray's
-  // K values, which are contiguous in its output row, a warp to a ray (or
-  // two at K 16): whole 64- or 128-byte segments instead of one word per
-  // ray and store.
+  // The rows, one slot block at a time, in parts of P slots (part_of): each
+  // thread puts its ray's P values of the part in its row of the buffer,
+  // then the block writes every ray's P values, which are contiguous in its
+  // output row, a warp to a ray (or more at K 8 and 16): whole segments of
+  // up to 128 bytes instead of one word per ray and store.
+  constexpr int P = part_of(K);
   const int tile = blockDim.x;
   float* const buf = smem + buffer;
-  float* const mine = buf + threadIdx.x * (K + 1);
+  float* const mine = buf + threadIdx.x * (P + 1);
   float* const rows = slots + (size_t)blockIdx.x * tile * (SLOT_BLOCKS * K);
   __syncthreads();  // the walk is done with the stage ring
   for (int b = 0; b < SLOT_BLOCKS; ++b) {
-    if (b == SLOT_ALPHA) {
+    for (int s0 = 0; s0 < K; s0 += P) {
+      if (b == SLOT_ALPHA) {
 #pragma unroll 1
-      for (int s = 0; s < K; ++s) {
-        const float t = col_t[s * tile];
-        mine[s] = t < INF ? kept_hit<CUBE>(p, ray, col_id[s * tile]).alpha
-                          : 0.0f;
-      }
-    } else {
-      // an attribute or frame field: column b of the table row of the id
-      const bool frame = b >= SLOT_FRAME;
-      const float* src = frame ? ftable + (b - SLOT_FRAME)
+        for (int q = 0; q < P; ++q) {
+          const float t = col_t[(s0 + q) * tile];
+          mine[q] = t < INF
+                        ? kept_hit<CUBE>(p, ray, col_id[(s0 + q) * tile]).alpha
+                        : 0.0f;
+        }
+      } else {
+        // an attribute or frame field: column b of the table row of the id
+        const bool frame = b >= SLOT_FRAME;
+        const float* src = frame
+                               ? ftable + (b - SLOT_FRAME)
                                : table + (b >= SLOT_ATTR ? b - SLOT_ATTR : 0);
-      const int width = frame ? FTABLE_A : TABLE_A;
+        const int width = frame ? FTABLE_A : TABLE_A;
 #pragma unroll 8
-      for (int s = 0; s < K; ++s) {
-        const float t = col_t[s * tile];
-        const int id = col_id[s * tile];  // 0 where the slot is empty
-        mine[s] = b == SLOT_T       ? t
-                  : !(t < INF)      ? 0.0f
-                  : b == SLOT_ID    ? (float)id
-                                    : src[(size_t)id * width];
+        for (int q = 0; q < P; ++q) {
+          const float t = col_t[(s0 + q) * tile];
+          const int id = col_id[(s0 + q) * tile];  // 0 where it is empty
+          mine[q] = b == SLOT_T       ? t
+                    : !(t < INF)      ? 0.0f
+                    : b == SLOT_ID    ? (float)id
+                                      : src[(size_t)id * width];
+        }
       }
+      __syncthreads();
+      for (int i = threadIdx.x; i < tile * P; i += tile) {
+        const int ray_i = i / P, q = i - ray_i * P;
+        rows[(size_t)ray_i * (SLOT_BLOCKS * K) + b * K + s0 + q] =
+            buf[ray_i * (P + 1) + q];
+      }
+      __syncthreads();  // the buffer is free for the next part
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < tile * K; i += tile) {
-      const int ray_i = i / K, s = i - ray_i * K;
-      rows[(size_t)ray_i * (SLOT_BLOCKS * K) + b * K + s] =
-          buf[ray_i * (K + 1) + s];
-    }
-    __syncthreads();  // the buffer is free for the next block
   }
   float* a = acc + (size_t)r * ACC_LANES;
   a[0] = (float)log_t;
@@ -254,11 +269,10 @@ extern "C" int egr_trace_slots(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_rays / tile;
   const bool backfacing = backfacing_for(secondary_static, secondary);
-  if (max_hits == 16)
-    return (int)launch_k<16>(p, backfacing, exit_mode, table, ftable, slots,
-                             acc, n_tiles, tile, s);
-  return (int)launch_k<32>(p, backfacing, exit_mode, table, ftable, slots,
-                           acc, n_tiles, tile, s);
+  return with_k(max_hits, [&](auto k) {
+    return launch_k<decltype(k)::value>(p, backfacing, exit_mode, table,
+                                        ftable, slots, acc, n_tiles, tile, s);
+  });
 }
 
 // The compiled kernel of (max_hits, cube, backfacing, exit_mode) at (tile,
@@ -272,7 +286,8 @@ extern "C" int egr_trace_slots_info(int max_hits, int cube, int backfacing,
       slots_smem_bytes(max_hits, tile, cluster) > MAX_SMEM ||
       exit_mode < 0 || exit_mode > 2)
     return SHAPES_REFUSED;
-  if (max_hits == 16)
-    return (int)info_k<16>(cube, backfacing, exit_mode, tile, cluster, out);
-  return (int)info_k<32>(cube, backfacing, exit_mode, tile, cluster, out);
+  return with_k(max_hits, [&](auto k) {
+    return info_k<decltype(k)::value>(cube, backfacing, exit_mode, tile,
+                                      cluster, out);
+  });
 }

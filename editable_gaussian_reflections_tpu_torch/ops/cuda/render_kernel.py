@@ -52,7 +52,11 @@ from .layout import (
     ROW_VALID,
 )
 
-SUPPORTED_K = (16, 32)
+# the k-buffer depths K (max_hits) every k-buffer kernel and the slot sort
+# are built for, the one definition of the set: the JAX package takes any
+# static K, the port builds these (ROADMAP, "Divergences kept by decision"),
+# and a wrapper raises a ValueError naming them for any other
+SUPPORTED_K = (8, 16, 32, 64)
 # the plain version processes this many ray tiles at once (bounds memory:
 # its [tiles, tile, cluster] intermediates are ~16 MB each at 256 x 256)
 REFERENCE_TILES_PER_BATCH = 64
@@ -396,7 +400,8 @@ def render_culled(
     CUDA tensors launch the kernel of csrc/render_culled.cu on the current
     stream (it is built at first use) and count the launch in
     `render_culled.launches` (and in `render_culled.launches_by_window
-    [window_mode]`); CPU tensors take render_culled_reference.
+    [window_mode]` and `render_culled.launches_by_k[max_hits]`); CPU
+    tensors take render_culled_reference.
     Anything else raises."""
     kw = dict(transmittance_threshold=transmittance_threshold,
               eps_forward_normalization=eps_forward_normalization,
@@ -458,11 +463,13 @@ def render_culled(
                            f"{err}")
     render_culled.launches += 1
     render_culled.launches_by_window[window_mode] += 1
+    render_culled.launches_by_k[max_hits] += 1
     return out
 
 
 render_culled.launches = 0
 render_culled.launches_by_window = [0, 0, 0]
+render_culled.launches_by_k = dict.fromkeys(SUPPORTED_K, 0)
 
 
 def check_every_for(capacity: int) -> int:

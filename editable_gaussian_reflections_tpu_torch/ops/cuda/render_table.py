@@ -105,7 +105,8 @@ def render_culled_table(
 
     CUDA tensors launch the kernel of csrc/render_table.cu on the current
     stream (it is built at first use) and count the launch in
-    `render_culled_table.launches`; CPU tensors take
+    `render_culled_table.launches` (and in
+    `render_culled_table.launches_by_k[max_hits]`); CPU tensors take
     render_culled_table_reference.  Anything else raises."""
     kw = dict(transmittance_threshold=transmittance_threshold,
               eps_forward_normalization=eps_forward_normalization,
@@ -161,7 +162,9 @@ def render_culled_table(
         raise RuntimeError(f"render_culled_table kernel launch failed: "
                            f"cudaError {err}")
     render_culled_table.launches += 1
+    render_culled_table.launches_by_k[max_hits] += 1
     return out
 
 
 render_culled_table.launches = 0
+render_culled_table.launches_by_k = dict.fromkeys(SUPPORTED_K, 0)

@@ -23,9 +23,7 @@ import functools
 import torch
 
 from . import build
-from .render_kernel import _check, sort_slots
-
-SUPPORTED_K = (16, 32)
+from .render_kernel import SHAPES_REFUSED, SUPPORTED_K, _check, sort_slots
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 6          # t, ids, aux, t_out, ids_out, aux_out
@@ -54,6 +52,8 @@ def kernel_info(k: int) -> dict:
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
     err = fn(k, ctypes.addressof(out))
+    if err == SHAPES_REFUSED:
+        raise ValueError(f"sort_slots: no kernel for K={k}")
     if err != 0:
         raise RuntimeError(f"sort_slots kernel info failed: cudaError {err}")
     return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
@@ -77,8 +77,8 @@ def sort_slots_aux(t, ids, aux):
 
     CUDA tensors launch the kernel of csrc/sort_slots.cu on the current
     stream (it is built at first use) and count the launch in
-    `sort_slots_aux.launches`; CPU tensors take sort_slots_aux_reference.
-    Anything else raises."""
+    `sort_slots_aux.launches` (and in `sort_slots_aux.launches_by_k[K]`);
+    CPU tensors take sort_slots_aux_reference.  Anything else raises."""
     dev = t.device
     if dev.type == "cpu":
         return sort_slots_aux_reference(t, ids, aux)
@@ -100,11 +100,15 @@ def sort_slots_aux(t, ids, aux):
         err = _entry_point()(
             t.data_ptr(), ids.data_ptr(), aux.data_ptr(), t_out.data_ptr(),
             ids_out.data_ptr(), aux_out.data_ptr(), R, K, A, stream)
+    if err == SHAPES_REFUSED:
+        raise ValueError(f"sort_slots: the kernel refused K={K}")
     if err != 0:
         raise RuntimeError(f"sort_slots kernel launch failed: cudaError "
                            f"{err}")
     sort_slots_aux.launches += 1
+    sort_slots_aux.launches_by_k[K] += 1
     return t_out, ids_out, aux_out
 
 
 sort_slots_aux.launches = 0
+sort_slots_aux.launches_by_k = dict.fromkeys(SUPPORTED_K, 0)

@@ -64,6 +64,7 @@ from .layout import (
 )
 from .render_kernel import (
     SHAPES_REFUSED,
+    SUPPORTED_K,
     _check,
     _f32,
     _log_f32,
@@ -264,6 +265,9 @@ def _launch(rays_o, rays_d, gpack, candidates, cand_near, near, far,
     """The kernel of csrc/trace_hits.cu on the current stream."""
     dev = rays_o.device
     R = rays_o.shape[0]
+    if max_hits not in SUPPORTED_K:
+        raise ValueError(f"max_hits={max_hits}: the kernel is built for "
+                         f"{SUPPORTED_K}")
     if candidates is not None and (tile <= 0 or R % tile):
         raise ValueError(f"tile={tile} must divide R={R}")
     o, d, gp, cands, cnear, thr, cluster, tile, check_every = walk_inputs(
@@ -306,6 +310,7 @@ def _launch(rays_o, rays_d, gpack, candidates, cand_near, near, far,
         raise RuntimeError(f"trace_hits kernel launch failed: cudaError "
                            f"{err}")
     trace_hits.launches += 1
+    trace_hits.launches_by_k[K] += 1
     return (t[:R], ids[:R], alpha[:R], gaussval[:R], local_hit[:R],
             log_T[:R], traversed[:R])
 
@@ -321,8 +326,8 @@ def trace_hits(
 
     CUDA tensors launch the kernel of csrc/trace_hits.cu on the current
     stream (it is built at first use) and count the launch in
-    `trace_hits.launches`; CPU tensors take trace_hits_reference.  Anything
-    else raises."""
+    `trace_hits.launches` (and in `trace_hits.launches_by_k[max_hits]`);
+    CPU tensors take trace_hits_reference.  Anything else raises."""
     args = (rays_o, rays_d, gpack, candidates, cand_near, near, far,
             exp_power, secondary, backfacing_max_dist,
             backfacing_invalid_normal_threshold, transmittance_threshold)
@@ -340,3 +345,4 @@ def trace_hits(
 
 
 trace_hits.launches = 0
+trace_hits.launches_by_k = dict.fromkeys(SUPPORTED_K, 0)

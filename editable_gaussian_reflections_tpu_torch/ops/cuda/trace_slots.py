@@ -167,8 +167,9 @@ def trace_slots(
     CUDA tensors launch the kernel of csrc/trace_slots.cu on the current
     stream (it is built at first use) and count the launch in
     `trace_slots.launches` (and in `trace_slots.launches_by_mode[exit_mode]`:
-    mode 0 is pallas_trace_slots_v4's port, mode 1 pallas_trace_slots'; and
-    in `trace_slots.launches_by_window[window_mode]`); CPU tensors take
+    mode 0 is pallas_trace_slots_v4's port, mode 1 pallas_trace_slots'; in
+    `trace_slots.launches_by_window[window_mode]`; and in
+    `trace_slots.launches_by_k[max_hits]`); CPU tensors take
     trace_slots_reference.  Anything else raises."""
     kw = dict(transmittance_threshold=transmittance_threshold,
               max_hits=max_hits, cluster=cluster, tile=tile, alive=alive,
@@ -236,9 +237,11 @@ def trace_slots(
     trace_slots.launches += 1
     trace_slots.launches_by_mode[exit_mode] += 1
     trace_slots.launches_by_window[window_mode] += 1
+    trace_slots.launches_by_k[max_hits] += 1
     return slots, acc
 
 
 trace_slots.launches = 0
 trace_slots.launches_by_mode = [0, 0]
 trace_slots.launches_by_window = [0, 0, 0]
+trace_slots.launches_by_k = dict.fromkeys(SUPPORTED_K, 0)

@@ -14,8 +14,8 @@ those to its device.  The state stays sharded end to end.
 
 On the card the ranks share cuda:0 over gloo unless --backend nccl (one
 card per rank).  --device cpu runs the plain versions on CPU ranks (use a
-small --n there).  Differences from the JAX tool: K 16 (the slots kernel's
-smallest), 256 trace rays (the trace with use_pallas needs whole 256-ray
+small --n there).  K 8, as the JAX tool's.  Differences from the JAX tool:
+256 trace rays (the trace with use_pallas needs whole 256-ray
 cull tiles), and the two traces are held against each other (the same kept
 hits on at least MIN_RAYS_EQUAL of the rays, and the same depths on those
 within T_RTOL/T_ATOL).  It writes its JSON to --out, never to the JAX
@@ -62,9 +62,9 @@ MIN_RAYS_EQUAL = 0.95
 # it sums every hit of the ray, and a hit beyond the K kept ones may flip
 # at the clip radius as above (alpha there is the alpha threshold)
 T_RTOL, T_ATOL = 1e-5, 1e-6
-# K (the slots kernel's smallest), the step's bounces (the JAX tool's) and
-# the trace's rays (whole 256-ray cull tiles for the kernel trace)
-MAX_HITS, NUM_BOUNCES, TRACE_RAYS = 16, 1, 256
+# K and the step's bounces (the JAX tool's), and the trace's rays (whole
+# 256-ray cull tiles for the kernel trace)
+MAX_HITS, NUM_BOUNCES, TRACE_RAYS = 8, 1, 256
 
 
 def trace_rays_of(eye, n: int):

@@ -14,9 +14,9 @@ model_dir/eval_sweep.json.  A view renders on the fused k-buffer path
 where the Config culls and fused_path_ok holds (cluster, candidates and the
 secondary budget from the Config; no split-far, as in the JAX tool), else
 on the non-fused render_frame with the Config's trace chunk, ray tile and
-culling.  On the card the k-buffer kernels take K 16 or 32 only: a model
-trained at another --max_hits raises there (it renders with --device
-cpu).  On the card unless `--device cpu`; without a card and without it
+culling.  On the card the k-buffer kernels take K 8, 16, 32 or 64: a
+model trained at another --max_hits raises there (it renders with
+--device cpu).  On the card unless `--device cpu`; without a card and without it
 the tool exits non-zero.
 """
 
@@ -78,8 +78,8 @@ def parse_args(argv=None):
     """(the tool's arguments, the Config options left over)."""
     p = argparse.ArgumentParser(
         prog="eval_sweep", allow_abbrev=False,
-        description="On the card the k-buffer kernels take K 16 or 32: a "
-        "model trained at another --max_hits raises there.")
+        description="On the card the k-buffer kernels take K 8, 16, 32 or "
+        "64: a model trained at another --max_hits raises there.")
     p.add_argument("--model_path", "-m", required=True)
     p.add_argument("--iteration", type=int, default=None)
     p.add_argument("--spp", type=int, nargs="*", default=[1, 16, 128])

@@ -192,7 +192,7 @@ def fast_path(device, model_path: str) -> SimpleNamespace:
 
 
 def training_step(device, n: int = TRAIN_N, side: int = TRAIN_W,
-                  **split) -> SimpleNamespace:
+                  max_hits: int = 0, **split) -> SimpleNamespace:
     """The training step's inputs at side x side pixels (768x768 unless a
     test shrinks it), and `step(state)` -> (state, metrics): the state from
     room_scene(n, seed 1), the targets the G-buffers of the seed-0 room
@@ -200,11 +200,12 @@ def training_step(device, n: int = TRAIN_N, side: int = TRAIN_W,
     steps go on drawing from.  `calls`: the trace_slots calls of the
     primary and first reflected pass of the first batch of tiles the step
     launches, from fused_forward, whose outputs (`steps`, `residuals`) and
-    targets (`targets_b`) it keeps for the backward.  `split`: train_step's
-    split-far keywords for `step` (the calls stay one pass's)."""
+    targets (`targets_b`) it keeps for the backward.  `max_hits`: K in
+    place of the Config's (0 keeps it).  `split`: train_step's split-far
+    keywords for `step` (the calls stay one pass's)."""
     cfg = Config()
     settings = tr.settings_from_config(cfg)
-    num_bounces, K = 2, cfg.max_hits
+    num_bounces, K = 2, max_hits or cfg.max_hits
     tile = tr.pick_tile_size(side * side, cfg.ray_tile)
     step_kw = dict(num_bounces=num_bounces, max_hits=K,
                    chunk=cfg.trace_chunk, tile=tile, use_pallas=True,

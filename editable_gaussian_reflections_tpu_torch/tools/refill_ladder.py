@@ -41,7 +41,6 @@ from ..ops.cuda import build
 from ..ops.cuda.layout import N_ROWS, OUT_LANES, OUT_TRAV
 from ..ops.cuda.render_kernel import (
     _ARGTYPES,
-    SUPPORTED_K,
     _check,
     _f32,
     _log_f32,
@@ -56,6 +55,9 @@ VARIANTS = ("grouped_ce8", "grouped_ce1", "culled_ce8", "culled_ce1")
 ROUNDS = 3
 # dynamic shared memory of one block on sm_90
 MAX_SMEM = 227 * 1024
+# the depths grouped_walk.cu is built for (it keeps the K hits in
+# registers; the port's kernels take SUPPORTED_K)
+GROUPED_K = (16, 32)
 N_GEOM_ROWS = 22
 
 
@@ -78,9 +80,9 @@ def grouped_walk(rays_o, rays_d, gpack, candidates, cand_near, near, far,
     [R, OUT_LANES] f32."""
     R, N = rays_o.shape[0], gpack.shape[1]
     dev = rays_o.device
-    if dev.type != "cuda" or max_hits not in SUPPORTED_K:
+    if dev.type != "cuda" or max_hits not in GROUPED_K:
         raise ValueError(f"grouped_walk: CUDA tensors and K in "
-                         f"{SUPPORTED_K}, got {dev} and {max_hits}")
+                         f"{GROUPED_K}, got {dev} and {max_hits}")
     if R % tile or not 0 < tile <= 1024 or N % cluster:
         raise ValueError(f"tile={tile} must divide R={R}, cluster={cluster} "
                          f"N={N}")

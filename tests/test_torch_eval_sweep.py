@@ -113,7 +113,7 @@ def test_help_names_the_k_limit():
          "editable_gaussian_reflections_tpu_torch.tools.eval_sweep",
          "--help"], env=child_env(), capture_output=True, text=True,
         timeout=300)
-    assert done.returncode == 0 and "K 16 or 32" in done.stdout
+    assert done.returncode == 0 and "K 8, 16, 32 or 64" in done.stdout
 
 
 if __name__ == "__main__":

@@ -175,17 +175,22 @@ def jax_reference(path):
             out[f"loss/{s}/{i}"] = np.asarray(v)
 
     # render_tile_with_grads_fused on the room
+    @jax.jit
+    def prepared(scene):
+        # one compile for the whole preparation (op by op, XLA would
+        # compile every eager operation on its own)
+        frames, attrs = jgs.build_frames(scene, settings.alpha_threshold,
+                                         settings.exp_power, 1.0)
+        perm = jc.morton_order(frames)
+        frames, attrs, scene_s = jax.tree_util.tree_map(
+            lambda a: a[perm], (frames, attrs, scene))
+        return (dict(gpack=j_pack(frames, attrs),
+                     table=jrk.pack_attr_table(attrs),
+                     ftable=jrk.pack_frame_table(frames, scene_s)),
+                jc.cluster_bounds(frames, 256))
+
     scene = jgs.from_arrays(**room_scene(2048), pad_multiple=512)
-    frames, attrs = jgs.build_frames(scene, settings.alpha_threshold,
-                                     settings.exp_power, 1.0)
-    perm = jc.morton_order(frames)
-    frames = jax.tree_util.tree_map(lambda a: a[perm], frames)
-    attrs = jax.tree_util.tree_map(lambda a: a[perm], attrs)
-    scene_s = jax.tree_util.tree_map(lambda a: a[perm], scene)
-    tables = dict(gpack=j_pack(frames, attrs),
-                  table=jrk.pack_attr_table(attrs),
-                  ftable=jrk.pack_frame_table(frames, scene_s))
-    bounds = jc.cluster_bounds(frames, 256)
+    tables, bounds = prepared(scene)
     out.update({k: np.asarray(v) for k, v in tables.items()})
     out.update({f"bounds/{f}": np.asarray(getattr(bounds, f))
                 for f in bounds._fields})
@@ -214,12 +219,17 @@ def jax_reference(path):
         us.append(np.asarray(jax.random.uniform(kstep, (nr, 2), jnp.float32)))
     out["us"] = np.stack(us)
     for nb in (0, 2):
-        steps, final, g = jrt.render_tile_with_grads_fused(
-            rays_o, rays_d, tg, settings, jnp.float32(0.05),
-            jnp.float32(50.0), jax.random.PRNGKey(KEY), nb, FUSED_K,
-            cull_tile=256, cull_cluster=256, max_clusters=FUSED_MC,
-            n_capacity=scene.capacity, interpret=True, bounds=bounds,
-            **tables)
+        # under jit, as the JAX package's training loop runs it: one
+        # compile instead of one per eager operation (its gradients part
+        # from the eager run's by at most 2e-8 relative)
+        step = jax.jit(lambda ro, rd, tg, key, arrays, nb=nb: (
+            jrt.render_tile_with_grads_fused(
+                ro, rd, tg, settings, jnp.float32(0.05), jnp.float32(50.0),
+                key, nb, FUSED_K, cull_tile=256, cull_cluster=256,
+                max_clusters=FUSED_MC, n_capacity=scene.capacity,
+                interpret=True, **arrays)))
+        steps, final, g = step(rays_o, rays_d, tg, jax.random.PRNGKey(KEY),
+                               dict(tables, bounds=bounds))
         for f in g._fields:
             out[f"fused{nb}/grads/{f}"] = np.asarray(getattr(g, f))
         out[f"fused{nb}/final"] = np.asarray(final)

@@ -110,6 +110,19 @@ CASES = {
 }
 
 
+def _keywords(case):
+    """The kernel's keywords of a case (its K, cluster, tile, pass, window
+    and threshold)."""
+    K, cluster, tile, kind, ss, wmode, _alive, _mc, thr, _kern, _s = case
+    return dict(near=NEAR if kind == "primary" else 0.0, far=FAR,
+                exp_power=3.0, secondary=1.0 if ss else 0.0,
+                backfacing_max_dist=BF_MAX_DIST,
+                backfacing_invalid_normal_threshold=BF_THR,
+                transmittance_threshold=thr, eps_forward_normalization=1e-12,
+                max_hits=K, cluster=cluster, tile=tile, window_mode=wmode,
+                secondary_static=ss)
+
+
 def _inputs(case):
     K, cluster, tile, kind, ss, wmode, with_alive, mc, thr, kern, scale = case
     frames, gpack = _room(scale)
@@ -125,14 +138,7 @@ def _inputs(case):
     args = dict(rays_o=o, rays_d=d, gpack=np.asarray(gpack),
                 candidates=np.asarray(cands), cand_near=np.asarray(cnear),
                 alive=alive, t_split=t_split)
-    kw = dict(near=near, far=FAR, exp_power=3.0,
-              secondary=1.0 if ss else 0.0,
-              backfacing_max_dist=BF_MAX_DIST,
-              backfacing_invalid_normal_threshold=BF_THR,
-              transmittance_threshold=thr, eps_forward_normalization=1e-12,
-              max_hits=K, cluster=cluster, tile=tile, window_mode=wmode,
-              secondary_static=ss)
-    return args, kw, kern
+    return args, _keywords(case), kern
 
 
 def _jax_out(args, kw, kern):

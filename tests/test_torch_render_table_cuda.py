@@ -155,6 +155,6 @@ def test_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="table"):
         render_culled_table(*args[:3], table[:, :10].contiguous(), *args[4:])
     with pytest.raises(ValueError, match="max_hits"):
-        render_culled_table(*args, max_hits=8)
+        render_culled_table(*args, max_hits=24)
     with pytest.raises(ValueError, match="candidates"):
         render_culled_table(*args[:4], cands.long(), *args[5:])

@@ -383,17 +383,22 @@ def jax_reference(path):
     targets = _step_targets(rng, STEP_R)
     out.update(rays_o=rays[0], rays_d=rays[1])
     out.update({f"targets/{k}": v for k, v in targets.items()})
-    frames_, attrs = jgs.build_frames(scene, settings.alpha_threshold,
-                                      settings.exp_power,
-                                      settings.global_scale_factor)
-    perm = jc.morton_order(frames_)
-    frames_ = jax.tree_util.tree_map(lambda a: a[perm], frames_)
-    attrs = jax.tree_util.tree_map(lambda a: a[perm], attrs)
-    scene_s = jax.tree_util.tree_map(lambda a: a[perm], scene)
-    tables = dict(gpack=j_pack(frames_, attrs),
-                  table=j_attr_table(attrs),
-                  ftable=j_frame_table(frames_, scene_s),
-                  bounds=jc.cluster_bounds(frames_, 128))
+
+    @jax.jit
+    def prepared(scene):
+        # one compile for the whole preparation (op by op, XLA would
+        # compile every eager operation on its own)
+        frames, attrs = jgs.build_frames(scene, settings.alpha_threshold,
+                                         settings.exp_power,
+                                         settings.global_scale_factor)
+        perm = jc.morton_order(frames)
+        frames, attrs, scene_s = jax.tree_util.tree_map(
+            lambda a: a[perm], (frames, attrs, scene))
+        return dict(gpack=j_pack(frames, attrs), table=j_attr_table(attrs),
+                    ftable=j_frame_table(frames, scene_s),
+                    bounds=jc.cluster_bounds(frames, 128))
+
+    tables = prepared(scene)
     for k in ("gpack", "table", "ftable"):
         out[f"tables/{k}"] = np.asarray(tables[k])
     for f in tables["bounds"]._fields:
@@ -407,11 +412,15 @@ def jax_reference(path):
     out["step_us"] = np.stack(us)
     tg = jrt.RayTargets(**{f: jnp.asarray(v) for f, v in targets.items()})
     for nb in (0, 2):
-        steps, final, g = jrt.render_tile_with_grads_fused(
-            jnp.asarray(rays[0]), jnp.asarray(rays[1]), tg, settings,
-            jnp.float32(0.1), jnp.float32(100.0), key, nb, 16,
-            n_capacity=scene.capacity, interpret=True, **STEP_KW,
-            **tables, **STEP_SPLIT)
+        # under jit, as the JAX package's training loop runs it: one
+        # compile instead of one per eager operation
+        step = jax.jit(lambda ro, rd, tg, key, arrays, nb=nb: (
+            jrt.render_tile_with_grads_fused(
+                ro, rd, tg, settings, jnp.float32(0.1), jnp.float32(100.0),
+                key, nb, 16, n_capacity=scene.capacity, interpret=True,
+                **STEP_KW, **arrays, **STEP_SPLIT)))
+        steps, final, g = step(jnp.asarray(rays[0]), jnp.asarray(rays[1]),
+                               tg, key, tables)
         out[f"step{nb}/final"] = np.asarray(final)
         for f in steps._fields:
             out[f"step{nb}/{f}"] = np.asarray(getattr(steps, f))

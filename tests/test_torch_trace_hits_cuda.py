@@ -618,7 +618,7 @@ def test_trace_hits_wrapper_checks_inputs(cuda):
         o, d, bounds, 0.05, FAR, tile=256, max_clusters=8)
     args = (o, d, gpack, cands, cnear, 0.05, FAR, 3.0, 0.0, 0.1, 0.9)
     with pytest.raises(ValueError, match="max_hits"):
-        trace_hits(*args, max_hits=8)
+        trace_hits(*args, max_hits=24)
     with pytest.raises(ValueError, match="tile"):
         trace_hits(o[:1000], d[:1000], *args[2:], max_hits=16)
     with pytest.raises(ValueError, match="candidates"):

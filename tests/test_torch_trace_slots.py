@@ -100,25 +100,30 @@ def jax_reference(path):
         room_scene,
     )
 
+    @jax.jit
+    def prepared(scene):
+        # one compile for the whole preparation (op by op, XLA would
+        # compile every eager operation on its own)
+        frames, attrs = jgs.build_frames(scene, 0.005, 3.0, 1.0)
+        perm = jc.morton_order(frames)
+        frames, attrs, scene_s = jax.tree_util.tree_map(
+            lambda a: a[perm], (frames, attrs, scene))
+        return (frames, attrs, scene_s, j_pack(frames, attrs),
+                jrk.pack_attr_table(attrs),
+                jrk.pack_frame_table(frames, scene_s),
+                jc.cluster_bounds(frames, CLUSTER))
+
     out = {}
-    scene = jgs.from_arrays(**room_scene(2048), pad_multiple=512)
-    frames, attrs = jgs.build_frames(scene, 0.005, 3.0, 1.0)
-    perm = jc.morton_order(frames)
-    frames = jax.tree_util.tree_map(lambda a: a[perm], frames)
-    attrs = jax.tree_util.tree_map(lambda a: a[perm], attrs)
-    scene_s = jax.tree_util.tree_map(lambda a: a[perm], scene)
+    frames, attrs, scene_s, gpack, table, ftable, bounds = prepared(
+        jgs.from_arrays(**room_scene(2048), pad_multiple=512))
     for f in frames._fields:
         out[f"frames/{f}"] = np.asarray(getattr(frames, f))
     for f in attrs._fields:
         out[f"attrs/{f}"] = np.asarray(getattr(attrs, f))
     for f in jgs.GaussianScene._fields:
         out[f"scene/{f}"] = np.asarray(getattr(scene_s, f))
-    gpack = j_pack(frames, attrs)
-    table = jrk.pack_attr_table(attrs)
-    ftable = jrk.pack_frame_table(frames, scene_s)
     out.update(gpack=np.asarray(gpack), table=np.asarray(table),
                ftable=np.asarray(ftable))
-    bounds = jc.cluster_bounds(frames, CLUSTER)
 
     eye, c2w = room_camera()
     pix, _ = jc.tile_pixel_order(H, W, 16, 16)

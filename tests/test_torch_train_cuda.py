@@ -249,7 +249,7 @@ def test_trace_slots_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="ftable"):
         trace_slots(*args[:4], ftable[:, :16].contiguous(), *args[5:], **kw)
     with pytest.raises(ValueError, match="max_hits"):
-        trace_slots(*args, **dict(kw, max_hits=8))
+        trace_slots(*args, **dict(kw, max_hits=24))
     with pytest.raises(ValueError, match="exit_mode"):
         trace_slots(*args, **dict(kw, exit_mode=2))
 
